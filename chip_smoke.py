@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving path once on one GPU and check it.
+"""Drive the PyTorch/CUDA port's serving and training paths once on one GPU
+and check them.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -17,9 +18,28 @@ Phases (every failure raises, so the exit code is nonzero):
      ran; one batch's log-probs must match the same model on the CPU within
      1e-3, and on them the kernels' best hypotheses must equal the plain
      path's;
-  7. timings with CUDA events (median of 5 after warm-up).
-The line before the last is the card's name and power limit; the last line
-is the JSON result.  It imports nothing of JAX.
+  7. timings with CUDA events (median of 5 after warm-up);
+  8. CTC alpha (K1) and beta (K2) kernels vs their plain versions at the
+     loss's reference shapes (metric B=32 T=1000 S=100 V=1024,
+     librispeech-char B=32 T=1000 S=200 V=29, bpe-asr B=16 T=1500 S=150
+     V=1024; variable lengths, one infeasible sample): losses within
+     max(1e-4, 20 ulp) abs and 2e-6 rel of the plain float32 scan,
+     gradients within 1e-5; the float32 gradient within 1e-4 of the
+     plain float64 scan or at least as accurate as torch's own CTC loss;
+     checkpoint_every 0 and 64 give bit-identical losses and gamma;
+  9. the training slice: the full-width pipeline takes 3 AdamW steps on
+     batches of 8 requests (30/22/15 s, padded to 30 s) with random
+     targets; the launch counters must show K1 and K2 once per step and
+     every loss finite and > 0; on the first batch the CUDA loss must be
+     within 1e-3 rel of the CPU model's, the encoder's gradients through
+     the kernels within 1e-4 (of each tensor's max) of those through the
+     plain scan, and K1/K2 within phase 8's tolerances at this shape;
+ 10. timings: K1, K2 and the plain scans at the metric shape (also as
+     lattice cells/s) and at the training slice's shape, the loss+gradient
+     both ways, and the whole train step.
+The line before the last is the card's name and power limit; the line
+before it the per-kernel JSON; the last line is the JSON result.  It
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -35,13 +55,27 @@ import numpy as np
 import torch
 
 from end2end_tpu_torch import ConformerCTCPipeline, PipelineConfig
-from end2end_tpu_torch.ops import beam_search_cuda, topk_cuda
+from end2end_tpu_torch.ops import (beam_search_cuda, ctc_common,
+                                   ctc_loss_cuda, ctc_loss_plain, topk_cuda)
 from end2end_tpu_torch.ops.beam_search import beam_search_decode
+from end2end_tpu_torch.ops.ctc_loss import ctc_nll
 from end2end_tpu_torch.utils import cuda_build
 
 SEED = 0
 SCORE_TOL = 1e-4  # beam-set scores, kernel vs plain: ulp-level libm drift
 LOGP_TOL = 1e-3  # CUDA vs CPU encoder log-probs: different sum orders
+# CTC kernels vs the plain float32 scan: the JAX package's full-config loss
+# tolerance (float32 ulps of losses ~1e4 at T=1500), and 1e-5 on gradients
+# (the same recurrences in the same order; only exp/log1p rounding differs)
+CTC_LOSS_RTOL = 2e-6
+CTC_GRAD_TOL = 1e-5
+TRAIN_LOSS_RTOL = 1e-3  # CUDA vs CPU pipeline loss (TF32 off)
+TRAIN_GRAD_RTOL = 1e-4  # kernel vs plain encoder gradients, of tensor max
+CTC_SHAPES = {  # name: (B, T, S, V), tests/test_full_configs.py
+    "metric": (32, 1000, 100, 1024),
+    "librispeech-char": (32, 1000, 200, 29),
+    "bpe-asr": (16, 1500, 150, 1024),
+}
 
 
 def log(msg: str) -> None:
@@ -154,6 +188,174 @@ def check_beam(rng, dev, t, b, v, W, K):
         f"hypotheses equal, max score err {err:.3g}, backpointer codes "
         f"differing: {int((bp != pbp).sum())} of {bp.numel()}")
     return err, (lpk, ck, lpb, il, s_cap)
+
+
+def ctc_problem(rng, b, t, s, v):
+    """Random log-softmax lattice, variable lengths, sample 1 infeasible
+    (target longer than its input)."""
+    x = rng.standard_normal((t, b, v)) * 2.0
+    lp = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+    il = rng.integers(t // 2, t + 1, b).astype(np.int32)
+    tl = np.minimum(rng.integers(1, s + 1, b), np.maximum(il // 3, 1))
+    tl[1], il[1] = s, s - 1
+    tgt = rng.integers(1, v, (b, s)).astype(np.int32)
+    return lp, tgt, il, tl.astype(np.int32)
+
+
+def nll_and_grad(lp, tgt, il, tl, implementation, every=0):
+    x = lp.detach().clone().requires_grad_(True)
+    nll = ctc_nll(x, tgt, il, tl, implementation=implementation,
+                  checkpoint_every=every)
+    nll.sum().backward()
+    return nll.detach(), x.grad
+
+
+def kernel_outputs(lp, tgt, il, tl, every):
+    """(nll, gamma) straight from K1 then K2."""
+    z, ne, a, an = ctc_loss_cuda.alpha_cuda(lp, tgt, il, tl, 0, every)
+    gamma = ctc_loss_cuda.beta_cuda(lp, tgt, il, tl, a, an, z, ne, 0, every)
+    return ctc_loss_plain.nll_from(z, ne), gamma
+
+
+def check_ctc(lp, tgt, il, tl, what):
+    """K1/K2 (through ctc_nll) vs the plain float32 and float64 scans on
+    the card, and the kernels' tape and checkpoint modes against each other
+    (bit-identical outputs; the gradient then goes through scatter_add_'s
+    atomics, so it is compared there with a tolerance).  Returns (loss
+    err, grad err)."""
+    k_loss, k_grad = nll_and_grad(lp, tgt, il, tl, "pallas")
+    c_loss, c_grad = nll_and_grad(lp, tgt, il, tl, "pallas", every=64)
+    p_loss, p_grad = nll_and_grad(lp, tgt, il, tl, "xla")
+    _, g64 = nll_and_grad(lp.double(), tgt, il, tl, "xla")
+    tape, ckpt = (kernel_outputs(lp, tgt, il, tl, k) for k in (0, 64))
+    torch.cuda.synchronize()
+    if not (torch.equal(tape[0], ckpt[0]) and torch.equal(tape[1], ckpt[1])
+            and torch.equal(c_loss, k_loss)):
+        raise AssertionError(f"{what}: checkpoint mode != tape mode")
+    if float((c_grad - k_grad).abs().max()) > CTC_GRAD_TOL:
+        raise AssertionError(f"{what}: checkpoint-mode gradient differs")
+    fin = torch.isfinite(p_loss)
+    if not torch.equal(torch.isfinite(k_loss), fin):
+        raise AssertionError(f"{what}: kernel and plain disagree on which "
+                             "samples are feasible")
+    if not torch.isfinite(k_grad).all():
+        raise AssertionError(f"{what}: non-finite kernel gradient")
+    loss_err = float((k_loss[fin] - p_loss[fin]).abs().max())
+    ulp = float(np.spacing(np.float32(p_loss[fin].abs().max().item())))
+    tol = max(1e-4, 20 * ulp) + CTC_LOSS_RTOL * p_loss[fin].abs()
+    if ((k_loss[fin] - p_loss[fin]).abs() > tol).any():
+        raise AssertionError(f"{what}: kernel loss vs plain, err {loss_err}")
+    grad_err = float((k_grad - p_grad).abs().max())
+    if grad_err > CTC_GRAD_TOL:
+        raise AssertionError(f"{what}: kernel grad vs plain, err {grad_err}")
+    # float64 truth, on the feasible samples (torch's f32 gradient of an
+    # infeasible one is not comparable)
+    x = lp.detach().clone().requires_grad_(True)
+    torch.nn.functional.ctc_loss(
+        x, tgt.long(), il.long(), tl.long(), reduction="sum",
+        zero_infinity=True).backward()
+    cols = fin.nonzero()[:, 0]
+    k_err = float((k_grad - g64)[:, cols].abs().max())
+    t_err = float((x.grad.double() - g64)[:, cols].abs().max())
+    if k_err > max(1e-4, t_err):
+        raise AssertionError(f"{what}: f32 grad err vs f64 {k_err} exceeds "
+                             f"both 1e-4 and torch's own {t_err}")
+    log(f"{what}: K1/K2 vs plain loss err {loss_err:.3g}, grad err "
+        f"{grad_err:.3g}; vs float64 grad err {k_err:.3g} (torch "
+        f"{t_err:.3g}); checkpoint_every=64: loss and gamma bit-identical")
+    return loss_err, grad_err
+
+
+def training_batches(rng, cfg, n_batches=3):
+    sr = cfg.sample_rate
+    pad = 30 * sr
+    out = []
+    for i in range(n_batches):
+        secs = np.roll(np.array([30, 22, 15, 30, 22, 15, 22, 15]), i)
+        wav = np.zeros((8, pad), np.float32)
+        for j, s in enumerate(secs):
+            wav[j, : s * sr] = 0.1 * rng.standard_normal(s * sr)
+        ns = (secs * sr).astype(np.int32)
+        t_out = ((1 + (ns - cfg.n_fft) // cfg.hop_length) + 3) // 4
+        tl = (t_out // 4).astype(np.int32)
+        tgt = rng.integers(1, cfg.vocab_size, (8, int(tl.max())))
+        out.append((wav, ns, tgt.astype(np.int32), tl))
+    return out
+
+
+def encoder_grads(pipe, batch, implementation):
+    pipe.zero_grad()
+    loss = pipe.loss(*batch, implementation=implementation)
+    loss.backward()
+    return loss.detach(), {k: p.grad.clone()
+                           for k, p in pipe.named_parameters()}
+
+
+def train_shape_inputs(pipe, batch):
+    """The log-probs, targets and lengths the training slice's loss sees."""
+    with torch.no_grad():
+        logits, out_len = pipe.encode(batch[0], batch[1])
+        lp = torch.log_softmax(logits, -1).transpose(0, 1).contiguous()
+    dev = lp.device
+    return (lp, *(torch.as_tensor(a, device=dev)
+                  for a in (batch[2], out_len, batch[3])))
+
+
+def check_training_batch(pipe, batch):
+    """First batch: CUDA vs CPU loss, kernel vs plain encoder gradients,
+    and K1/K2 vs plain at this shape.  Returns (loss err, grad err)."""
+    k_loss, k_grads = encoder_grads(pipe, batch, "auto")
+    p_loss, p_grads = encoder_grads(pipe, batch, "xla")
+    pipe_cpu = copy.deepcopy(pipe).cpu()
+    with torch.no_grad():
+        c_loss = pipe_cpu.loss(*batch).item()
+    rel = abs(k_loss.item() - c_loss) / abs(c_loss)
+    log(f"phase 9 first batch: CUDA loss {k_loss.item():.6f}, CPU loss "
+        f"{c_loss:.6f} (rel err {rel:.3g}), plain-path loss "
+        f"{p_loss.item():.6f}")
+    if rel > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"CUDA loss vs CPU: rel err {rel}")
+    worst = 0.0
+    for name, kg in k_grads.items():
+        scale = max(float(p_grads[name].abs().max()), 1e-4)
+        worst = max(worst, float((kg - p_grads[name]).abs().max()) / scale)
+    log(f"phase 9 encoder gradients, kernels vs plain: max err "
+        f"{worst:.3g} of each tensor's max")
+    if worst > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"encoder grads differ: {worst}")
+    lp, tgt, il, tl = train_shape_inputs(pipe, batch)
+    return check_ctc(lp, tgt, il, tl, f"phase 9 K1/K2 at T'={lp.shape[0]}, "
+                     f"B=8, S={tgt.shape[1]}")
+
+
+def time_ctc(name, lp, tgt, il, tl):
+    """K1 and K2 alone, the plain scans they replace (emission gather
+    included in both forward columns), and the whole loss+gradient."""
+    tables = ctc_common.build_ctc_tables(tgt, tl, 0, lp.shape[-1])
+    il64, tl64 = il.long(), tl.long()
+    fwd = ctc_loss_cuda.alpha_cuda(lp, tgt, il, tl)
+    lp_ext = ctc_common.gather_lp_ext(lp, tables)
+    pfwd = ctc_loss_plain.forward_scan(lp_ext, tables.skip2, il64, tl64)
+    ms = {
+        f"ctc_alpha_{name}": time_ms(
+            lambda: ctc_loss_cuda.alpha_cuda(lp, tgt, il, tl)),
+        f"ctc_alpha_plain_{name}": time_ms(
+            lambda: ctc_loss_plain.forward_scan(
+                ctc_common.gather_lp_ext(lp, tables), tables.skip2, il64,
+                tl64)),
+        f"ctc_beta_{name}": time_ms(
+            lambda: ctc_loss_cuda.beta_cuda(lp, tgt, il, tl, fwd[2], fwd[3],
+                                            fwd[0], fwd[1])),
+        f"ctc_beta_plain_{name}": time_ms(
+            lambda: ctc_loss_plain.backward_scan(
+                lp_ext, pfwd[2], pfwd[3], pfwd[4], pfwd[1], tables, il64,
+                tl64)),
+        f"ctc_loss_grad_{name}": time_ms(
+            lambda: nll_and_grad(lp, tgt, il, tl, "pallas")),
+        f"ctc_loss_grad_plain_{name}": time_ms(
+            lambda: nll_and_grad(lp, tgt, il, tl, "xla")),
+    }
+    return ms
 
 
 def main() -> None:
@@ -280,6 +482,68 @@ def main() -> None:
         log(f"phase 7 pipeline {mode}: B=8 x 30 s, "
             f"{ms[f'decode_{mode}_b8_30s']:.3f} ms per batch, "
             f"{8e3 / ms[f'decode_{mode}_b8_30s']:.1f} seq/s")
+
+    # 8. CTC kernels vs plain at the loss's reference shapes
+    ctc_err = [0.0, 0.0]
+    ctc_inputs = {}
+    for name, (b, t, s, v) in CTC_SHAPES.items():
+        lp_np, tgt_np, il_np, tl_np = ctc_problem(rng, b, t, s, v)
+        args = (torch.from_numpy(lp_np).to(dev),
+                *(torch.from_numpy(a).to(dev) for a in (tgt_np, il_np,
+                                                        tl_np)))
+        ctc_inputs[name] = args
+        errs = check_ctc(*args, f"phase 8 {name} (B={b}, T={t}, S={s}, "
+                                f"V={v})")
+        ctc_err = [max(a, e) for a, e in zip(ctc_err, errs)]
+
+    # 9. the training slice
+    tpipe = ConformerCTCPipeline(
+        cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    tbatches = training_batches(rng, cfg)
+    errs = check_training_batch(tpipe, tbatches[0])
+    ctc_err = [max(a, e) for a, e in zip(ctc_err, errs)]
+    opt = torch.optim.AdamW(tpipe.parameters(), lr=1e-3, weight_decay=1e-4)
+    torch.cuda.synchronize()
+    for k in ctc_loss_cuda.launches:
+        ctc_loss_cuda.launches[k] = 0
+    losses = []
+    for batch in tbatches:
+        opt.zero_grad()
+        loss = tpipe.loss(*batch)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    train_launches = dict(ctc_loss_cuda.launches)
+    log(f"phase 9 training: 3 AdamW steps x 8 requests, losses "
+        f"{[round(x, 6) for x in losses]}, launches {train_launches}")
+    if train_launches != {"ctc_alpha": 3, "ctc_beta": 3}:
+        raise AssertionError(
+            f"kernels missed on the training path: {train_launches}")
+    if not all(np.isfinite(x) and x > 0 for x in losses):
+        raise AssertionError(f"bad training loss: {losses}")
+
+    # 10. CTC and training timings
+    for name, args in (("metric", ctc_inputs["metric"]),
+                       ("main", train_shape_inputs(tpipe, tbatches[0]))):
+        lp, tgt, il, tl = args
+        ms.update(time_ctc(name, lp, tgt, il, tl))
+        b, t = lp.shape[1], lp.shape[0]
+        cells = b * t * (2 * tgt.shape[1] + 1)
+        for k in ("ctc_alpha", "ctc_alpha_plain", "ctc_beta",
+                  "ctc_beta_plain", "ctc_loss_grad", "ctc_loss_grad_plain"):
+            log(f"phase 10 {k}_{name} (B={b}, T={t}, S={tgt.shape[1]}): "
+                f"{ms[f'{k}_{name}']:.3f} ms, "
+                f"{cells / ms[f'{k}_{name}'] / 1e3:.1f} M lattice cells/s")
+
+    def train_step():
+        opt.zero_grad()
+        tpipe.loss(*tbatches[0]).backward()
+        opt.step()
+
+    ms["train_step_b8_30s"] = time_ms(train_step)
+    log(f"phase 10 train step: B=8 x 30 s, {ms['train_step_b8_30s']:.3f} "
+        f"ms, {8e3 / ms['train_step_b8_30s']:.1f} seq/s")
     log(json.dumps({"card": card, "ms": ms}))
 
     kernels = [
@@ -293,6 +557,16 @@ def main() -> None:
          "replaces": "end2end_tpu/ops/beam_search_pallas.py:94",
          "launches": launches["beam_step"], "max_abs_err": beam_err,
          "ms": ms["beam_main"], "plain_ms": ms["beam_plain_main"]},
+        {"name": "ctc_alpha", "route": "cuda",
+         "source": "end2end_tpu_torch/csrc/ctc_loss.cu",
+         "replaces": "end2end_tpu/ops/ctc_loss_pallas.py:115",
+         "launches": train_launches["ctc_alpha"], "max_abs_err": ctc_err[0],
+         "ms": ms["ctc_alpha_main"], "plain_ms": ms["ctc_alpha_plain_main"]},
+        {"name": "ctc_beta", "route": "cuda",
+         "source": "end2end_tpu_torch/csrc/ctc_loss.cu",
+         "replaces": "end2end_tpu/ops/ctc_loss_pallas.py:174",
+         "launches": train_launches["ctc_beta"], "max_abs_err": ctc_err[1],
+         "ms": ms["ctc_beta_main"], "plain_ms": ms["ctc_beta_plain_main"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,15 +1,17 @@
-"""Conformer-CTC ASR pipeline: waveform -> log-mel -> encoder -> CTC decode
-(torch port of `end2end_tpu/models/pipeline.py`, serving half).
+"""Conformer-CTC ASR pipeline: waveform -> log-mel -> encoder -> CTC loss or
+decode (torch port of `end2end_tpu/models/pipeline.py`).
 
     pipe = ConformerCTCPipeline(PipelineConfig(), device="cuda",
                                 generator=torch.Generator().manual_seed(0))
     logits, out_len = pipe.encode(waveforms, num_samples)
+    loss = pipe.loss(waveforms, num_samples, targets, target_lengths)
+    loss.backward()                      # gradients on pipe.parameters()
     tokens, lengths, scores = pipe.decode(waveforms, num_samples,
                                           beam_width=8, prune_k=16)
 
 The module holds its weights (JAX passes `params` instead); load flax
-weights with `load_flax_params`.  The training loss waits for the CTC-loss
-port (ROADMAP.md queue 1 item 3).
+weights with `load_flax_params`.  On the card, `loss` runs the CTC kernels
+K1/K2 and `decode` the top-k and beam-step kernels.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from torch import nn
 
 from ..ops.beam_search import beam_search_decode
+from ..ops.ctc_loss import ctc_loss
 from ..ops.greedy import greedy_decode
 from ..utils.convert import conformer_state_dict_from_flax
 from .conformer import ConformerEncoder
@@ -74,6 +77,17 @@ class ConformerCTCPipeline(nn.Module):
         feats = self.features(waveforms)
         lens = self.feature_lengths(num_samples).to(self.device)
         return self.encoder(feats, lens)
+
+    def loss(self, waveforms, num_samples, targets, target_lengths,
+             blank: int = 0, implementation: str = "auto") -> torch.Tensor:
+        """Mean CTC loss of a batch (zero_infinity=True), differentiable
+        wrt the encoder's parameters: the training objective."""
+        logits, out_len = self.encode(waveforms, num_samples)
+        log_probs = torch.log_softmax(logits, dim=-1)
+        return ctc_loss(log_probs.transpose(0, 1),  # (N, T, V) -> (T, N, V)
+                        targets, out_len, target_lengths, blank=blank,
+                        reduction="mean", zero_infinity=True,
+                        implementation=implementation)
 
     @torch.no_grad()
     def decode(self, waveforms, num_samples, beam_width: int = 0,

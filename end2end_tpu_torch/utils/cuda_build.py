@@ -37,6 +37,14 @@ _SIGNATURES = {
     # stream
     "e2e_beam_step_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP,
                           _I, _I, _I, _I, _I, _I, _I, _VP),
+    # lp, targets, il, tl, a_out, n_out, z_hat, norm_end2, t_max, n, v,
+    # s_max, blank, every, stream
+    "e2e_ctc_alpha_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                          _I, _I, _I, _I, _I, _I, _VP),
+    # lp, targets, il, tl, a_in, n_in, z_hat, norm_end2, gamma, abuf, nbuf,
+    # t_max, n, v, s_max, blank, every, stream
+    "e2e_ctc_beta_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                         _VP, _I, _I, _I, _I, _I, _I, _VP),
 }
 
 
