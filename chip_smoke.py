@@ -12,7 +12,8 @@ Phases (every failure raises, so the exit code is nonzero):
      decoder's reference shape (B=32, T=1000, V=1024, beam 8, prune 16):
      same best hypotheses, beam-set scores within 1e-4;
   6. the serving slice: the full-width Conformer-CTC pipeline (vocab 32,
-     d 256, 4 layers, 4 heads, 80 mels, seeded random weights) answers three
+     d 256, 4 layers, 4 heads, 80 mels, seeded random weights, built on
+     the card by default, with no device argument) answers three
      batches of 8 requests of mixed length (padded to 30 s) with greedy and
      beam-8 / prune-16 decoding; the launch counters must show both kernels
      ran; one batch's log-probs must match the same model on the CPU within
@@ -36,10 +37,33 @@ Phases (every failure raises, so the exit code is nonzero):
      plain scan, and K1/K2 within phase 8's tolerances at this shape;
  10. timings: K1, K2 and the plain scans at the metric shape (also as
      lattice cells/s) and at the training slice's shape, the loss+gradient
-     both ways, and the whole train step.
+     both ways, torch's own CTC loss forward and forward+backward, and the
+     whole train step;
+ 11. the beam kernel's in-kernel bigram mode (K5) vs its plain twin at
+     B=32, T=1000, V=29, beam 8, prune 16 (seeded bigram LM, alpha 0.6,
+     beta 0.3): backpointer codes and the 10-field state identical, same
+     best hypotheses, beam-set scores within 1e-4;
+ 12. the chunked LM decode (chunks of 128 frames, B=32, T=1000, beam 8,
+     prune 16) three ways: a 2000-word bigram LM over V=29; the same
+     steered by a symbol-keyed bigram guide (K5 inside K7); a dense bigram
+     LM at V=1024 steered by its 63-class QuantizedBigramGuide (K6 inside
+     K7).  Driven through `beam_search_decode(implementation='chunked')`
+     with the launch counters read around it, then kernels vs the plain
+     twin on the card: every chunk's codes and the final state identical,
+     same hypotheses;
+ 13. the serving slice with an LM: the pipeline of phase 6 decodes the
+     same 3 batches with beam 8, prune 16 and a seeded bigram LM over its
+     32 symbols; the counters must show the top-k kernel and K5 once per
+     batch, and on one batch the kernels' best hypotheses must equal the
+     plain path's;
+ 14. timings: K5, K6, K7 alone vs their plain twins, the LM-fused and the
+     chunked word-LM decodes at B=128, T=1000, V=29 (seq/s; the chunked
+     one split into kernel and chunk-boundary time), the pipeline's LM
+     decode at B=8 x 30 s, and torch.topk beside K3.
 The line before the last is the card's name and power limit; the line
-before it the per-kernel JSON; the last line is the JSON result.  It
-imports nothing of JAX.
+before it the per-kernel JSON (with each kernel's bound: the larger of its
+bytes over 3.35 TB/s and its operations over 67 TFLOP/s float32); the last
+line is the JSON result.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -55,10 +79,13 @@ import numpy as np
 import torch
 
 from end2end_tpu_torch import ConformerCTCPipeline, PipelineConfig
-from end2end_tpu_torch.ops import (beam_search_cuda, ctc_common,
-                                   ctc_loss_cuda, ctc_loss_plain, topk_cuda)
+from end2end_tpu_torch.ops import (beam_chunked, beam_search_cuda,
+                                   ctc_common, ctc_loss_cuda, ctc_loss_plain,
+                                   topk_cuda)
 from end2end_tpu_torch.ops.beam_search import beam_search_decode
 from end2end_tpu_torch.ops.ctc_loss import ctc_nll
+from end2end_tpu_torch.ops.lm import (NGramLM, QuantizedBigramGuide,
+                                      WordNGramLM, bigram_from_counts)
 from end2end_tpu_torch.utils import cuda_build
 
 SEED = 0
@@ -76,6 +103,14 @@ CTC_SHAPES = {  # name: (B, T, S, V), tests/test_full_configs.py
     "librispeech-char": (32, 1000, 200, 29),
     "bpe-asr": (16, 1500, 150, 1024),
 }
+LM_ALPHA, LM_BETA = 0.6, 0.3  # LM weight and insertion bonus
+CHUNK_T = 128  # frames per chunk of the chunked LM decode
+# H100 SXM data sheet: HBM bandwidth and float32 rate outside the tensor
+# cores, the yardsticks of each kernel's bound
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+BEAM_COUNTERS = ("launches", "launches_lm", "launches_cls",
+                 "launches_resume")
 
 
 def log(msg: str) -> None:
@@ -117,6 +152,117 @@ def peaked_lattice(rng, t, b, v):
     return x.astype(np.float32)
 
 
+def bound(nbytes: float, nops: float):
+    """(ms, what bounds it): the least time the card could take to move
+    `nbytes` and do `nops` float32 operations."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = nops / FP32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def topk_bound(x, k):
+    """Read every value once, write k (value, index) pairs per row; one
+    compare per value."""
+    rows = x.numel() // x.shape[-1]
+    return bound(x.numel() * 4 + rows * k * 8, x.numel())
+
+
+def beam_bound(lpk, il, W, K, inc=None, cls_map=None, resume=False):
+    """The beam step on this run's data: each running frame (t < il) reads
+    its ks candidates and blank, every frame writes W codes, the state is
+    written (and read when resuming) once, the LM tables read once.
+    Operations per running frame: the ks-wide repeat search, W*K
+    extensions, the W*W merge search, W argmax rounds over W*K + W
+    candidates, and W*K bonus adds with an increment table."""
+    t_max, n, ks = lpk.shape
+    frames = int(il.long().clamp(0, t_max).sum())
+    nbytes = frames * (ks * 8 + 4) + n * 4 + t_max * W * n * 4 + 11 * W * n * 4
+    nops = frames * (W * ks + W * K + W * W + W * (W * K + W))
+    if inc is not None:
+        nbytes += inc.numel() * 4
+        nops += frames * W * K
+    if cls_map is not None:
+        nbytes += cls_map.numel() * 4
+    if resume:
+        nbytes += 10 * W * n * 4
+    return bound(nbytes, nops)
+
+
+def ctc_bound(lp, tgt, il, tl, beta):
+    """K1 reads the log-probs its lattice needs (il * (tl + 1) per sample)
+    and the targets and writes the alpha tape and the loss terms; K2 reads
+    the same log-probs, targets and the tape and writes gamma.  About 10
+    operations per lattice cell (a 3-way logaddexp), 12 for K2 (and the
+    occupation)."""
+    t_max, n, _ = lp.shape
+    il, tl = il.long(), tl.long()
+    cells = int((il * (2 * tl + 1)).sum())
+    lp_bytes = int((il * (tl + 1)).sum()) * 4
+    tape = t_max * n * (2 * tgt.shape[1] + 1) * 4 + t_max * n * 4
+    nbytes = lp_bytes + tgt.numel() * 4 + tape + n * 8
+    if beta:
+        nbytes += t_max * n * (2 * tgt.shape[1] + 1) * 4
+    return bound(nbytes, (12 if beta else 10) * cells)
+
+
+def beam_counts():
+    return {c: getattr(beam_search_cuda, c) for c in BEAM_COUNTERS}
+
+
+def reset_counts():
+    topk_cuda.launches = 0
+    for c in BEAM_COUNTERS:
+        setattr(beam_search_cuda, c, 0)
+
+
+def seeded_bigram(rng, v, dev):
+    """A dense bigram LM over v symbols from random counts, with start and
+    end-of-sequence rows."""
+    rows = bigram_from_counts(rng.integers(0, 20, (v + 1, v)))
+    eos = (-2.0 + 0.5 * rng.standard_normal(v)).astype(np.float32)
+    return NGramLM(rows[:v], start_logp=rows[v], eos_logp=eos, device=dev)
+
+
+def seeded_lexicon(rng, v, n_words=2000):
+    """n_words distinct spellings of 2-8 symbols in 1..v-2 (v-1 is the
+    word separator), drawn as bench.py draws its word LM's."""
+    spell = set()
+    while len(spell) < n_words:
+        spell.add(tuple(int(x) for x in rng.integers(1, v - 1,
+                                                     int(rng.integers(2, 9)))))
+    return sorted(spell)
+
+
+def seeded_word_lm(rng, spellings, v, dev):
+    """A dense word bigram over the lexicon (random log-softmax rows)."""
+    wv = len(spellings)
+    x = 2.0 * rng.standard_normal((wv + 1, wv))
+    rows = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+    uni = rows[wv] - 1.0
+    eos = (-2.0 + 0.5 * rng.standard_normal(wv)).astype(np.float32)
+    return WordNGramLM(spellings, rows[:wv], rows[wv], v - 1,
+                       unigram_logp=uni, eos_logp=eos, device=dev)
+
+
+def word_lattice(rng, t, b, v, spellings, peak=0.9):
+    """Log-probs whose most likely path spells random lexicon words, each
+    followed by the separator v-1, with 0-2 blanks after every symbol,
+    over a noisy background."""
+    ids = np.zeros((t, b), np.int64)
+    for n in range(b):
+        seq = []
+        while len(seq) < t:
+            word = spellings[int(rng.integers(len(spellings)))]
+            for c in (*word, v - 1):
+                seq += [c] + [0] * int(rng.integers(0, 3))
+        ids[:, n] = seq[:t]
+    x = np.log((1 - peak) / (v - 1)) + 0.5 * rng.standard_normal((t, b, v))
+    np.put_along_axis(x, ids[..., None], np.log(peak), axis=-1)
+    x = x - np.log(np.exp(x).sum(-1, keepdims=True))
+    return x.astype(np.float32)
+
+
 def beam_sets(tokens, lens, scores):
     tokens, lens, scores = (x.cpu() for x in (tokens, lens, scores))
     return [{tuple(tokens[n, w, : int(lens[n, w])].tolist()):
@@ -141,14 +287,97 @@ def compare_beams(got, want, what):
     return err
 
 
-def plain_beam_decode(log_probs, il, W, K, s_cap, blank=0):
-    """The plain path: plain top-k, plain beam step, backtrace."""
-    ks = min(K + 8, log_probs.shape[-1])
+def plain_beam_decode(log_probs, il, W, K, s_cap, blank=0, lm=None):
+    """The plain path: plain top-k, plain beam step (with the LM's
+    increments), the end-of-sequence bonus, backtrace."""
+    v = log_probs.shape[-1]
+    ks = min(K + 8, v)
     lpk, ck = topk_cuda.topk_plain(log_probs, ks)
     lpb = log_probs[:, :, blank].contiguous()
-    bp, score, _ = beam_search_cuda.beam_step_plain(lpk, ck, lpb, il, W, K,
-                                                    s_cap, blank)
+    inc = None if lm is None else LM_ALPHA * lm._table + LM_BETA
+    bp, score, last, _ = beam_search_cuda.beam_step_plain(
+        lpk, ck, lpb, il, W, K, s_cap, blank, inc=inc)
+    if lm is not None:
+        eos = lm._eos[last.long().clamp(0, v - 1)]
+        score = score + torch.where(last >= 0, LM_ALPHA * eos, 0.0)
     return beam_search_cuda.backtrace(bp, ck, score, W, K, s_cap)[:3]
+
+
+def same_state(a, b):
+    return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def check_beam_lm(rng, dev, t, b, v, W, K):
+    """K5 vs its plain twin on the card.  Returns (score err, inputs)."""
+    lp = torch.from_numpy(peaked_lattice(rng, t, b, v)).to(dev)
+    il = torch.from_numpy(
+        rng.integers(t // 2, t + 1, b).astype(np.int32)).to(dev)
+    lm = seeded_bigram(rng, v, dev)
+    inc = LM_ALPHA * lm._table + LM_BETA
+    s_cap = min(t, 512)
+    lpk, ck = topk_cuda.topk_plain(lp, min(K + 8, v))
+    lpb = lp[:, :, 0].contiguous()
+    args = (lpk, ck, lpb, il, W, K, s_cap, 0)
+    kern = beam_search_cuda.beam_step_cuda(*args, inc=inc)
+    plain = beam_search_cuda.beam_step_plain(*args, inc=inc)
+    torch.cuda.synchronize()
+    differing = int((kern[0] != plain[0]).sum())
+    if differing or not same_state(kern[3], plain[3]):
+        raise AssertionError(f"K5 vs plain: {differing} codes differ or the "
+                             "state does")
+
+    def sets(bp, score, last):
+        eos = lm._eos[last.long().clamp(0, v - 1)]
+        score = score + torch.where(last >= 0, LM_ALPHA * eos, 0.0)
+        return beam_sets(*beam_search_cuda.backtrace(bp, ck, score, W, K,
+                                                     s_cap)[:3])
+
+    err = compare_beams(sets(*kern[:3]), sets(*plain[:3]), "K5 vs plain")
+    log(f"phase 11 K5 (B={b}, T={t}, V={v}, W={W}, K={K}): 0 of "
+        f"{kern[0].numel()} codes differ, state identical, best hypotheses "
+        f"equal, max score err {err:.3g}")
+    return err, (lpk, ck, lpb, il, inc, lm)
+
+
+def chunked_inputs(lp, il, guide, W, K):
+    lpk, ck = topk_cuda.topk_cuda(lp, K)
+    inc, cls_map = beam_chunked._resolve_guide(guide, lp.shape[-1], W,
+                                               LM_ALPHA, LM_BETA)
+    return lpk, ck, lp[:, :, 0].contiguous(), il, inc, cls_map
+
+
+def run_chunks(inputs, lm, W, step):
+    """The chunk loop of beam_search_decode(implementation='chunked') on
+    chunked_inputs, with `step` as the beam step."""
+    lpk, ck, lpb, il, inc, cls_map = inputs
+    return beam_chunked.decode_chunks(lpk, ck, lpb, il, W,
+                                      min(lpk.shape[0], 512), 0, lm,
+                                      LM_ALPHA, LM_BETA, CHUNK_T, inc,
+                                      cls_map, step=step)
+
+
+def check_chunked(name, inputs, lm, main_out, W, K):
+    """The chunked decode with the kernels vs with the plain twin, both on
+    the card: every code and the final state identical; the hypotheses
+    equal to the main path's run.  Returns the max score error."""
+    lpk, ck = inputs[:2]
+    s_cap = min(lpk.shape[0], 512)
+    kern = run_chunks(inputs, lm, W, beam_search_cuda.beam_step_cuda)
+    plain = run_chunks(inputs, lm, W, beam_search_cuda.beam_step_plain)
+    torch.cuda.synchronize()
+    differing = int((kern[0] != plain[0]).sum())
+    if differing or not same_state(kern[2], plain[2]):
+        raise AssertionError(f"{name}: {differing} codes differ, or the "
+                             "state does")
+    got = beam_search_cuda.backtrace(kern[0], ck, kern[1], W, K, s_cap)[:3]
+    want = beam_search_cuda.backtrace(plain[0], ck, plain[1], W, K, s_cap)
+    err = compare_beams(beam_sets(*got), beam_sets(*want[:3]), name)
+    if not all(torch.equal(a, b) for a, b in zip(got, main_out)):
+        raise AssertionError(f"{name}: beam_search_decode differs from the "
+                             "chunk loop")
+    log(f"phase 12 {name}: 0 of {kern[0].numel()} codes differ, state "
+        f"identical, hypotheses equal, max score err {err:.3g}")
+    return err
 
 
 def check_topk(rng, dev, shapes):
@@ -174,10 +403,10 @@ def check_beam(rng, dev, t, b, v, W, K):
     s_cap = min(t, 512)
     lpk, ck = topk_cuda.topk_plain(lp, ks)
     lpb = lp[:, :, 0].contiguous()
-    bp, score, last = beam_search_cuda.beam_step_cuda(lpk, ck, lpb, il, W, K,
-                                                      s_cap, 0)
-    pbp, pscore, plast = beam_search_cuda.beam_step_plain(lpk, ck, lpb, il,
+    bp, score, _, state = beam_search_cuda.beam_step_cuda(lpk, ck, lpb, il,
                                                           W, K, s_cap, 0)
+    pbp, pscore, _, pstate = beam_search_cuda.beam_step_plain(
+        lpk, ck, lpb, il, W, K, s_cap, 0)
     torch.cuda.synchronize()
     got = beam_sets(*beam_search_cuda.backtrace(bp, ck, score, W, K,
                                                 s_cap)[:3])
@@ -186,7 +415,8 @@ def check_beam(rng, dev, t, b, v, W, K):
     err = compare_beams(got, want, "beam kernel vs plain")
     log(f"phase 5 beam step (B={b}, T={t}, V={v}, W={W}, K={K}): best "
         f"hypotheses equal, max score err {err:.3g}, backpointer codes "
-        f"differing: {int((bp != pbp).sum())} of {bp.numel()}")
+        f"differing: {int((bp != pbp).sum())} of {bp.numel()}, state "
+        f"identical: {same_state(state, pstate)}")
     return err, (lpk, ck, lpb, il, s_cap)
 
 
@@ -354,8 +584,72 @@ def time_ctc(name, lp, tgt, il, tl):
             lambda: nll_and_grad(lp, tgt, il, tl, "pallas")),
         f"ctc_loss_grad_plain_{name}": time_ms(
             lambda: nll_and_grad(lp, tgt, il, tl, "xla")),
+        f"ctc_library_fwd_{name}": time_ms(
+            lambda: library_ctc(lp, tgt, il64, tl64, grad=False)),
+        f"ctc_library_fwd_bwd_{name}": time_ms(
+            lambda: library_ctc(lp, tgt, il64, tl64, grad=True)),
     }
     return ms
+
+
+def library_ctc(lp, tgt, il, tl, grad):
+    """torch's own CTC loss on the same inputs (the yardstick only)."""
+    x = lp.detach().requires_grad_(grad)
+    loss = torch.nn.functional.ctc_loss(x, tgt.long(), il, tl,
+                                        reduction="sum", zero_infinity=True)
+    if grad:
+        loss.backward()
+    return loss
+
+
+def timed(fn, events):
+    """fn with CUDA events recorded around each call into `events`."""
+    def wrapper(*args, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn(*args, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+    return wrapper
+
+
+def time_chunk_split(inputs, lm, W, reps=5):
+    """The chunk loop of a chunked decode with CUDA events around it, each
+    kernel launch and each piece of the chunk boundary: the lane walk back
+    through the chunk's codes (`_chunk_emissions`), the left-justification
+    of the emitted tokens (`compact_rows`) and the LM replay
+    (`score_chunk`); the rest of the boundary is the LM-state re-homing and
+    the bonus update.  Returns the ms of the median rep after a warm-up."""
+    pieces = {"lane_walk": (beam_chunked, "_chunk_emissions"),
+              "compact": (beam_chunked, "compact_rows"),
+              "score_chunk": (lm, "score_chunk")}
+    originals = {k: getattr(o, a) for k, (o, a) in pieces.items()}
+    rows = []
+    for rep in range(reps + 1):
+        events = {k: [] for k in ("kernels", *pieces)}
+        for k, (obj, attr) in pieces.items():
+            setattr(obj, attr, timed(originals[k], events[k]))
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        run_chunks(inputs, lm, W,
+                   timed(beam_search_cuda.beam_step_cuda, events["kernels"]))
+        end.record()
+        end.synchronize()
+        setattr(beam_chunked, "_chunk_emissions", originals["lane_walk"])
+        setattr(beam_chunked, "compact_rows", originals["compact"])
+        del lm.score_chunk  # the class's method again
+        if rep:
+            rows.append((start.elapsed_time(end),
+                         *(sum(a.elapsed_time(b) for a, b in ev)
+                           for ev in events.values())))
+    loop, kern, walk, compact, replay = sorted(rows)[reps // 2]
+    return {"chunk_loop_b128": loop, "chunk_kernels_b128": kern,
+            "chunk_boundary_b128": loop - kern,
+            "boundary_lane_walk_b128": walk,
+            "boundary_compact_b128": compact,
+            "boundary_score_chunk_b128": replay,
+            "boundary_other_b128": loop - kern - walk - compact - replay}
 
 
 def main() -> None:
@@ -388,8 +682,11 @@ def main() -> None:
 
     # 6. the serving slice
     cfg = PipelineConfig()  # vocab 32, d 256, 4 layers, 4 heads, 80 mels
-    pipe = ConformerCTCPipeline(cfg, device=dev,
+    # the default device: a user's ConformerCTCPipeline(cfg) is on the card
+    pipe = ConformerCTCPipeline(cfg,
                                 generator=torch.Generator().manual_seed(SEED))
+    if pipe.device != dev:
+        raise AssertionError(f"the pipeline was built on {pipe.device}")
     pipe.eval()
     sr = cfg.sample_rate
     pad = 30 * sr
@@ -412,7 +709,8 @@ def main() -> None:
     torch.cuda.synchronize()
     launches = {"topk": topk_cuda.launches,
                 "beam_step": beam_search_cuda.launches}
-    log(f"phase 6 serving: 3 batches x 8 requests, launches {launches}")
+    log(f"phase 6 serving: pipeline built on {pipe.device} by default; 3 "
+        f"batches x 8 requests, launches {launches}")
     if launches != {"topk": 3, "beam_step": 3}:
         raise AssertionError(f"kernels missed on the serving path: {launches}")
     for (g_tok, g_len, g_sc), (b_tok, b_len, b_sc) in results:
@@ -434,7 +732,7 @@ def main() -> None:
     log(f"phase 6 CUDA vs CPU log-probs: max abs err {lp_err:.3g}")
     if lp_err > LOGP_TOL or not torch.equal(out_len.cpu(), out_len_c):
         raise AssertionError(f"CUDA log-probs differ from CPU: {lp_err}")
-    il = out_len.to(torch.int32)
+    il = serve_il = out_len.to(torch.int32)
     s_cap = min(lp_gpu.shape[0], 512)
     kern = beam_sets(*beam_search_decode(lp_gpu, il, beam_width=8,
                                          prune_k=16))
@@ -452,13 +750,16 @@ def main() -> None:
         ks = min(24, v)
         ms[f"topk_{name}"] = time_ms(lambda: topk_cuda.topk_cuda(x, ks))
         ms[f"topk_plain_{name}"] = time_ms(lambda: topk_cuda.topk_plain(x, ks))
+        ms[f"topk_library_{name}"] = time_ms(lambda: torch.topk(x, ks))
+        if name == "main":
+            topk_b = topk_bound(x, ks)
     lpk, ck, lpb, il_ref, s_cap_ref = beam_inputs
     ms["beam_ref"] = time_ms(lambda: beam_search_cuda.beam_step_cuda(
         lpk, ck, lpb, il_ref, 8, 16, s_cap_ref, 0))
     ms["beam_plain_ref"] = time_ms(lambda: beam_search_cuda.beam_step_plain(
         lpk, ck, lpb, il_ref, 8, 16, s_cap_ref, 0), warmup=0)
-    bp, score, _ = beam_search_cuda.beam_step_cuda(lpk, ck, lpb, il_ref, 8,
-                                                   16, s_cap_ref, 0)
+    bp, score, _, _ = beam_search_cuda.beam_step_cuda(lpk, ck, lpb, il_ref,
+                                                      8, 16, s_cap_ref, 0)
     ms["backtrace_ref"] = time_ms(lambda: beam_search_cuda.backtrace(
         bp, ck, score, 8, 16, s_cap_ref))
     mlpk, mck = topk_cuda.topk_cuda(lp_gpu, 24)
@@ -467,8 +768,9 @@ def main() -> None:
         mlpk, mck, mlpb, il, 8, 16, s_cap, 0))
     ms["beam_plain_main"] = time_ms(lambda: beam_search_cuda.beam_step_plain(
         mlpk, mck, mlpb, il, 8, 16, s_cap, 0))
-    bp, score, _ = beam_search_cuda.beam_step_cuda(mlpk, mck, mlpb, il, 8,
-                                                   16, s_cap, 0)
+    beam_b = beam_bound(mlpk, il, 8, 16)
+    bp, score, _, _ = beam_search_cuda.beam_step_cuda(mlpk, mck, mlpb, il, 8,
+                                                      16, s_cap, 0)
     ms["backtrace_main"] = time_ms(lambda: beam_search_cuda.backtrace(
         bp, mck, score, 8, 16, s_cap))
     ms["encode_b8_30s"] = time_ms(lambda: pipe.encode(wav, ns))
@@ -531,10 +833,13 @@ def main() -> None:
         b, t = lp.shape[1], lp.shape[0]
         cells = b * t * (2 * tgt.shape[1] + 1)
         for k in ("ctc_alpha", "ctc_alpha_plain", "ctc_beta",
-                  "ctc_beta_plain", "ctc_loss_grad", "ctc_loss_grad_plain"):
+                  "ctc_beta_plain", "ctc_loss_grad", "ctc_loss_grad_plain",
+                  "ctc_library_fwd", "ctc_library_fwd_bwd"):
             log(f"phase 10 {k}_{name} (B={b}, T={t}, S={tgt.shape[1]}): "
                 f"{ms[f'{k}_{name}']:.3f} ms, "
                 f"{cells / ms[f'{k}_{name}'] / 1e3:.1f} M lattice cells/s")
+        if name == "main":
+            ctc_b = [ctc_bound(lp, tgt, il, tl, beta) for beta in (0, 1)]
 
     def train_step():
         opt.zero_grad()
@@ -544,30 +849,186 @@ def main() -> None:
     ms["train_step_b8_30s"] = time_ms(train_step)
     log(f"phase 10 train step: B=8 x 30 s, {ms['train_step_b8_30s']:.3f} "
         f"ms, {8e3 / ms['train_step_b8_30s']:.1f} seq/s")
+
+    # 11. K5 vs plain at the LM-fused decoder's reference shape
+    W, K = 8, 16
+    k5_err, _ = check_beam_lm(rng, dev, 1000, 32, 29, W, K)
+
+    # 12. the chunked LM decode: K7, with K5 or K6 inside it for a guide
+    spellings = seeded_lexicon(rng, 29)
+    word_lm = seeded_word_lm(rng, spellings, 29, dev)
+    lp29 = torch.from_numpy(word_lattice(rng, 1000, 32, 29,
+                                         spellings)).to(dev)
+    lm1024 = seeded_bigram(rng, 1024, dev)
+    t0 = time.perf_counter()
+    guide1024 = QuantizedBigramGuide.from_bigram(lm1024, n_classes=63)
+    log(f"phase 12 QuantizedBigramGuide.from_bigram (V=1024, 63 classes): "
+        f"{time.perf_counter() - t0:.1f} s")
+    lp1024 = torch.from_numpy(peaked_lattice(rng, 1000, 32, 1024)).to(dev)
+    il32 = torch.from_numpy(
+        rng.integers(500, 1001, 32).astype(np.int32)).to(dev)
+    chunked = {  # name: (log-probs, lm, guide)
+        "word LM, V=29": (lp29, word_lm, None),
+        "word LM + bigram guide, V=29": (lp29, word_lm,
+                                         seeded_bigram(rng, 29, dev)),
+        "bigram LM + 63-class guide, V=1024": (lp1024, lm1024, guide1024),
+    }
+    torch.cuda.synchronize()
+    reset_counts()
+    main_outs = {
+        name: beam_search_decode(lp, il32, beam_width=W, prune_k=K, lm=lm,
+                                 lm_alpha=LM_ALPHA, lm_beta=LM_BETA,
+                                 implementation="chunked",
+                                 lm_chunk_t=CHUNK_T, guide_lm=guide)
+        for name, (lp, lm, guide) in chunked.items()}
+    torch.cuda.synchronize()
+    chunk_launches = beam_counts()
+    log(f"phase 12 chunked decodes (3 x B=32, T=1000): launches "
+        f"{chunk_launches}")
+    n_chunks = -(-1000 // CHUNK_T)
+    if chunk_launches != {"launches": 3 * n_chunks,
+                          "launches_lm": n_chunks, "launches_cls": n_chunks,
+                          "launches_resume": 3 * n_chunks}:
+        raise AssertionError(f"kernels missed on the chunked path: "
+                             f"{chunk_launches}")
+    chunk_err, chunk_inputs = 0.0, {}
+    for name, (lp, lm, guide) in chunked.items():
+        chunk_inputs[name] = chunked_inputs(lp, il32, guide, W, K)
+        chunk_err = max(chunk_err, check_chunked(
+            name, chunk_inputs[name], lm, main_outs[name], W, K))
+
+    # 13. the serving slice with an LM
+    lm32 = seeded_bigram(rng, cfg.vocab_size, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    lm_results = [pipe.decode(wav_b, ns_b, beam_width=W, prune_k=K, lm=lm32,
+                              lm_alpha=LM_ALPHA, lm_beta=LM_BETA)
+                  for wav_b, ns_b in batches]
+    torch.cuda.synchronize()
+    lm_launches = {"topk": topk_cuda.launches, **beam_counts()}
+    log(f"phase 13 serving with an LM: 3 batches x 8 requests, launches "
+        f"{lm_launches}")
+    if lm_launches != {"topk": 3, "launches": 3, "launches_lm": 3,
+                       "launches_cls": 0, "launches_resume": 0}:
+        raise AssertionError(f"kernels missed on the LM serving path: "
+                             f"{lm_launches}")
+    for tok, _, sc in lm_results:
+        if tok.shape[0] != 8 or not torch.isfinite(sc).all():
+            raise AssertionError("bad LM decode output")
+    kern = beam_sets(*beam_search_decode(lp_gpu, serve_il, beam_width=W,
+                                         prune_k=K, lm=lm32,
+                                         lm_alpha=LM_ALPHA, lm_beta=LM_BETA))
+    plain = beam_sets(*plain_beam_decode(lp_gpu, serve_il, W, K, s_cap,
+                                         lm=lm32))
+    k5_err = max(k5_err, compare_beams(kern, plain,
+                                       "serving LM beam, kernel vs plain"))
+    log("phase 13 serving LM beam: kernel best hypotheses == plain path")
+
+    # 14. LM timings
+    inc32 = LM_ALPHA * lm32._table + LM_BETA
+    margs = (mlpk, mck, mlpb, serve_il, W, K, s_cap, 0)
+    ms["beam_lm_main"] = time_ms(
+        lambda: beam_search_cuda.beam_step_cuda(*margs, inc=inc32))
+    ms["beam_lm_plain_main"] = time_ms(
+        lambda: beam_search_cuda.beam_step_plain(*margs, inc=inc32),
+        warmup=0)
+    lm_b = beam_bound(mlpk, serve_il, W, K, inc=inc32)
+    first = {}  # the first chunk's kernel inputs, resumed from the start
+    for name in ("word LM, V=29", "bigram LM + 63-class guide, V=1024"):
+        lpk, ck, lpb, il_c, inc, cls_map = chunk_inputs[name]
+        first[name] = ((lpk[:CHUNK_T], ck[:CHUNK_T], lpb[:CHUNK_T], il_c, W,
+                        K, min(lpk.shape[0], 512), 0),
+                       dict(inc=inc, cls_map=cls_map,
+                            state_in=beam_search_cuda.beam_state_init(
+                                W, lpk.shape[1], dev)))
+    for key, name in (("resume", "word LM, V=29"),
+                      ("cls", "bigram LM + 63-class guide, V=1024")):
+        args, kw = first[name]
+        ms[f"beam_{key}_chunk"] = time_ms(
+            lambda: beam_search_cuda.beam_step_cuda(*args, **kw))
+        ms[f"beam_{key}_plain_chunk"] = time_ms(
+            lambda: beam_search_cuda.beam_step_plain(*args, **kw), warmup=0)
+    args, kw = first["word LM, V=29"]
+    resume_b = beam_bound(args[0], args[3], W, K, resume=True)
+    args, kw = first["bigram LM + 63-class guide, V=1024"]
+    cls_b = beam_bound(args[0], args[3], W, K, inc=kw["inc"],
+                       cls_map=kw["cls_map"], resume=True)
+
+    lm29 = seeded_bigram(rng, 29, dev)
+    lp128 = torch.from_numpy(peaked_lattice(rng, 1000, 128, 29)).to(dev)
+    il128 = torch.full((128,), 1000, dtype=torch.int32, device=dev)
+    ms["decode_lm_fused_b128"] = time_ms(lambda: beam_search_decode(
+        lp128, il128, beam_width=W, prune_k=K, lm=lm29, lm_alpha=LM_ALPHA,
+        lm_beta=LM_BETA))
+    # its stages: the top-k, K5 and the backtrace
+    ms["topk_b128"] = time_ms(lambda: topk_cuda.topk_cuda(lp128, K + 8))
+    lpk, ck = topk_cuda.topk_cuda(lp128, K + 8)
+    bargs = (lpk, ck, lp128[:, :, 0].contiguous(), il128, W, K, 512, 0)
+    inc29 = LM_ALPHA * lm29._table + LM_BETA
+    ms["beam_lm_b128"] = time_ms(
+        lambda: beam_search_cuda.beam_step_cuda(*bargs, inc=inc29))
+    bp, score, _, _ = beam_search_cuda.beam_step_cuda(*bargs, inc=inc29)
+    ms["backtrace_b128"] = time_ms(
+        lambda: beam_search_cuda.backtrace(bp, ck, score, W, K, 512))
+    lpw128 = torch.from_numpy(word_lattice(rng, 1000, 128, 29,
+                                           spellings)).to(dev)
+    ms["decode_word_chunked_b128"] = time_ms(lambda: beam_search_decode(
+        lpw128, il128, beam_width=W, prune_k=K, lm=word_lm,
+        lm_alpha=LM_ALPHA, lm_beta=LM_BETA, implementation="chunked",
+        lm_chunk_t=CHUNK_T))
+    ms.update(time_chunk_split(chunked_inputs(lpw128, il128, None, W, K),
+                               word_lm, W))
+    ms["decode_beam8_lm_b8_30s"] = time_ms(lambda: pipe.decode(
+        wav, ns, beam_width=W, prune_k=K, lm=lm32, lm_alpha=LM_ALPHA,
+        lm_beta=LM_BETA))
+    for k in ("beam_lm_main", "beam_lm_plain_main", "beam_resume_chunk",
+              "beam_resume_plain_chunk", "beam_cls_chunk",
+              "beam_cls_plain_chunk", "decode_lm_fused_b128", "topk_b128",
+              "beam_lm_b128", "backtrace_b128", "decode_word_chunked_b128",
+              "chunk_loop_b128", "chunk_kernels_b128", "chunk_boundary_b128",
+              "boundary_lane_walk_b128", "boundary_compact_b128",
+              "boundary_score_chunk_b128", "boundary_other_b128",
+              "decode_beam8_lm_b8_30s"):
+        log(f"phase 14 time {k}: {ms[k]:.3f} ms")
+    for k, b in (("decode_lm_fused_b128", 128),
+                 ("decode_word_chunked_b128", 128),
+                 ("decode_beam8_lm_b8_30s", 8)):
+        log(f"phase 14 {k}: {b * 1e3 / ms[k]:.1f} seq/s")
     log(json.dumps({"card": card, "ms": ms}))
 
-    kernels = [
-        {"name": "topk", "route": "cuda",
-         "source": "end2end_tpu_torch/csrc/topk.cu",
-         "replaces": "end2end_tpu/ops/topk_pallas.py:64",
-         "launches": launches["topk"], "max_abs_err": topk_err,
-         "ms": ms["topk_main"], "plain_ms": ms["topk_plain_main"]},
-        {"name": "beam_step", "route": "cuda",
-         "source": "end2end_tpu_torch/csrc/beam_step.cu",
-         "replaces": "end2end_tpu/ops/beam_search_pallas.py:94",
-         "launches": launches["beam_step"], "max_abs_err": beam_err,
-         "ms": ms["beam_main"], "plain_ms": ms["beam_plain_main"]},
-        {"name": "ctc_alpha", "route": "cuda",
-         "source": "end2end_tpu_torch/csrc/ctc_loss.cu",
-         "replaces": "end2end_tpu/ops/ctc_loss_pallas.py:115",
-         "launches": train_launches["ctc_alpha"], "max_abs_err": ctc_err[0],
-         "ms": ms["ctc_alpha_main"], "plain_ms": ms["ctc_alpha_plain_main"]},
-        {"name": "ctc_beta", "route": "cuda",
-         "source": "end2end_tpu_torch/csrc/ctc_loss.cu",
-         "replaces": "end2end_tpu/ops/ctc_loss_pallas.py:174",
-         "launches": train_launches["ctc_beta"], "max_abs_err": ctc_err[1],
-         "ms": ms["ctc_beta_main"], "plain_ms": ms["ctc_beta_plain_main"]},
+    beam_src = "end2end_tpu_torch/csrc/beam_step.cu"
+    beam_tpu = "end2end_tpu/ops/beam_search_pallas.py"
+    ctc_src = "end2end_tpu_torch/csrc/ctc_loss.cu"
+    rows = [  # name, source, replaces, launches, err, ms key, bound, library
+        ("topk", "end2end_tpu_torch/csrc/topk.cu",
+         "end2end_tpu/ops/topk_pallas.py:64", launches["topk"], topk_err,
+         "topk_main", topk_b, ms["topk_library_main"]),
+        ("beam_step", beam_src, f"{beam_tpu}:94", launches["beam_step"],
+         beam_err, "beam_main", beam_b, None),
+        ("ctc_alpha", ctc_src, "end2end_tpu/ops/ctc_loss_pallas.py:115",
+         train_launches["ctc_alpha"], ctc_err[0], "ctc_alpha_main", ctc_b[0],
+         ms["ctc_library_fwd_main"]),
+        ("ctc_beta", ctc_src, "end2end_tpu/ops/ctc_loss_pallas.py:174",
+         train_launches["ctc_beta"], ctc_err[1], "ctc_beta_main", ctc_b[1],
+         ms["ctc_library_fwd_bwd_main"]),
+        ("beam_step_lm", beam_src, f"{beam_tpu}:202",
+         lm_launches["launches_lm"], k5_err, "beam_lm_main", lm_b, None),
+        ("beam_step_cls", beam_src, f"{beam_tpu}:101",
+         chunk_launches["launches_cls"], chunk_err, "beam_cls_chunk", cls_b,
+         None),
+        ("beam_step_resume", beam_src, f"{beam_tpu}:129",
+         chunk_launches["launches_resume"], chunk_err, "beam_resume_chunk",
+         resume_b, None),
     ]
+    kernels = [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": n, "max_abs_err": err, "ms": ms[key],
+         "plain_ms": ms[key.replace("_main", "_plain_main").replace(
+             "_chunk", "_plain_chunk")],
+         "bound_ms": b[0], "bound_by": b[1], "library_ms": lib}
+        for name, src, rep, n, err, key, b, lib in rows]
+    if any(k["launches"] < 1 for k in kernels):
+        raise AssertionError(f"a kernel never ran on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,32 +2,54 @@
 
 The Conformer-CTC pipeline's serving and training paths: log-mel frontend,
 Conformer encoder, the CTC loss and its gradient, greedy and prefix
-beam-search CTC decoding.  On CUDA tensors the loss runs two hand-written
-kernels (csrc/ctc_loss.cu) and the beam search two more (csrc/topk.cu,
-csrc/beam_step.cu), built with nvcc at first use; on CPU tensors their
-plain torch versions.  This package imports torch and numpy, never jax or
-the JAX package.
+beam-search CTC decoding, with LM shallow fusion (dense bigram in the
+kernel, class-keyed guides, chunked word-LM decoding, N-best rescoring,
+ARPA loading).  On CUDA tensors the loss runs two hand-written kernels
+(csrc/ctc_loss.cu) and the beam search two more (csrc/topk.cu,
+csrc/beam_step.cu, whose beam kernel has the LM modes), built with nvcc at
+first use; on CPU tensors their plain torch versions.  Models and LMs are
+built on the card unless `device="cpu"` is passed.  This package imports
+torch and numpy, never jax or the JAX package.
 """
 
 from .models.pipeline import ConformerCTCPipeline, PipelineConfig
 from .ops.beam_search import BeamSearchCTCDecoder, beam_search_decode
 from .ops.ctc_loss import CTCLoss, ctc_loss, ctc_loss_jit, ctc_nll
+from .ops.beam_chunked import beam_search_chunked_lm
 from .ops.greedy import (
     GreedyCTCDecoder,
     greedy_decode,
     greedy_decode_with_timestamps,
 )
+from .ops.lm import (
+    NGramLM,
+    QuantizedBigramGuide,
+    UniformLM,
+    WordNGramLM,
+    bigram_from_counts,
+)
+from .ops.rescore import rescore_nbest
+from .utils.arpa import load_arpa, ngram_lm_from_arpa
 
 __all__ = [
     "BeamSearchCTCDecoder",
     "CTCLoss",
     "ConformerCTCPipeline",
     "GreedyCTCDecoder",
+    "NGramLM",
     "PipelineConfig",
+    "QuantizedBigramGuide",
+    "UniformLM",
+    "WordNGramLM",
+    "beam_search_chunked_lm",
     "beam_search_decode",
+    "bigram_from_counts",
     "ctc_loss",
     "ctc_loss_jit",
     "ctc_nll",
     "greedy_decode",
     "greedy_decode_with_timestamps",
+    "load_arpa",
+    "ngram_lm_from_arpa",
+    "rescore_nbest",
 ]

@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.device import resolve_device
+
 _LN_EPS = 1e-6
 
 
@@ -147,7 +149,8 @@ class ConformerEncoder(nn.Module):
     Parameters are drawn from `generator` (a fresh one seeded 0 when None):
     LeCun-normal weights, zero biases, unit LayerNorm scales, as flax's
     defaults.  The draw happens on the CPU, so a seed gives the same
-    weights on every device.
+    weights on every device.  `device` defaults to CUDA and raises without
+    one (utils/device.py); pass device="cpu" for the CPU.
     """
 
     def __init__(self, vocab_size: int, d_model: int = 256,
@@ -162,7 +165,7 @@ class ConformerEncoder(nn.Module):
                 ConformerBlock(d_model, num_heads, conv_kernel)
                 for _ in range(num_layers))
             self.out = nn.Linear(d_model, vocab_size)
-        self.to_empty(device=device or "cpu")
+        self.to_empty(device=resolve_device(device))
         self.reset_parameters(generator)
 
     @torch.no_grad()

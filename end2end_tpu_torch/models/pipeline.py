@@ -10,8 +10,10 @@ decode (torch port of `end2end_tpu/models/pipeline.py`).
                                           beam_width=8, prune_k=16)
 
 The module holds its weights (JAX passes `params` instead); load flax
-weights with `load_flax_params`.  On the card, `loss` runs the CTC kernels
-K1/K2 and `decode` the top-k and beam-step kernels.
+weights with `load_flax_params`.  It is built on the card unless `device`
+says otherwise (utils/device.py).  On the card, `loss` runs the CTC kernels
+K1/K2 and `decode` the top-k and beam-step kernels (with `lm=`, the beam
+kernel's in-kernel LM mode K5).
 """
 
 from __future__ import annotations
@@ -91,14 +93,17 @@ class ConformerCTCPipeline(nn.Module):
 
     @torch.no_grad()
     def decode(self, waveforms, num_samples, beam_width: int = 0,
-               blank: int = 0, prune_k: int | None = None):
-        """Greedy when beam_width == 0, else prefix beam search; returns the
-        best hypothesis per sample: tokens, lengths, scores."""
+               blank: int = 0, prune_k: int | None = None, lm=None,
+               lm_alpha: float = 0.0, lm_beta: float = 0.0):
+        """Greedy when beam_width == 0, else prefix beam search, with LM
+        shallow fusion when `lm` is given (ops/lm.py, on the model's
+        device); returns the best hypothesis per sample: tokens, lengths,
+        scores."""
         logits, out_len = self.encode(waveforms, num_samples)
         log_probs = torch.log_softmax(logits, dim=-1).transpose(0, 1)
         if beam_width == 0:
             return greedy_decode(log_probs, out_len, blank=blank)
         tokens, lengths, scores = beam_search_decode(
             log_probs, out_len, beam_width=beam_width, blank=blank,
-            prune_k=prune_k)
+            prune_k=prune_k, lm=lm, lm_alpha=lm_alpha, lm_beta=lm_beta)
         return tokens[:, 0], lengths[:, 0], scores[:, 0]

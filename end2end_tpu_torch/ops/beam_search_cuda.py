@@ -1,23 +1,41 @@
-"""CTC prefix beam search without an LM: the per-frame beam step and the
-backtrace.
+"""CTC prefix beam search: the per-frame beam step (with its LM modes) and
+the backtrace.
 
-Port of `end2end_tpu/ops/beam_search_pallas.py` in its no-LM form.  Inputs
-are the natural top-k output, (T, N, ks), with no transpose to the TPU's
-(T, ks, B) layout and no 128-lane padding.
+Port of `end2end_tpu/ops/beam_search_pallas.py`.  Inputs are the natural
+top-k output, (T, N, ks), with no transpose to the TPU's (T, ks, B) layout
+and no 128-lane padding.
 
-  * `beam_step(lpk, ck, lpb, il, W, K, s_cap, blank)` runs every frame of the
-    batch and returns backpointer codes: on a CUDA tensor the hand-written
-    kernel in `csrc/beam_step.cu`, on a CPU tensor `beam_step_plain`.
-  * `backtrace(...)` turns the codes into token and time matrices, ranked by
-    score.  It is plain torch on either device.
+  * `beam_step(lpk, ck, lpb, il, W, K, s_cap, blank, inc=, cls_map=,
+    state_in=)` runs every frame of the batch and returns backpointer
+    codes, final scores, last tokens and the 10-field beam state: on a
+    CUDA tensor the hand-written kernel in `csrc/beam_step.cu`, on a CPU
+    tensor `beam_step_plain`.
+  * `backtrace(...)` turns the codes into token and time matrices, ranked
+    by score.  It is plain torch on either device.
 
 Semantics are the TPU kernel's (see the note at the top of
 `csrc/beam_step.cu`): extensions come from the first K slots, the repeat
 ("stay") term reads the whole ks-slot window, codes are `w` for the stay of
 beam w and `W + w*K + k` for extending beam w by slot k.  At K = V this is
-exactly the plain CTC prefix beam search.
+exactly the plain CTC prefix beam search.  The LM modes:
 
-`launches` counts kernel launches (it is the only module state).
+  * `inc` (C, V) float32, `alpha * log p_LM(token | context) + beta`: each
+    extension's increment, read at the beam's context row (its last symbol,
+    or with `cls_map` (V,) int32 its last symbol's class; row C-1 for the
+    empty prefix).  Each beam carries its accumulated bonus `lm`, which
+    ranks candidates (acoustic + lm) without entering the acoustic mass.
+  * `state_in`: resume from a carried state (the chunked LM decode) instead
+    of the empty prefix; candidates then rank with their parent's carried
+    bonus even without `inc`.
+
+The state is a 10-tuple of (W, N) tensors in the TPU kernel's field order
+`pb pnb h1 h2 hp1 hp2 last len lm lcls` (float32 for pb, pnb, lm; int32
+otherwise); `beam_state_init` is the empty prefix.
+
+Launch counts (the only module state): `launches` counts every launch of
+the beam kernel; `launches_lm`, `launches_cls` and `launches_resume` count
+the launches that ran the symbol-keyed increments (K5), the class-keyed
+increments (K6) and the resume mode (K7).
 """
 
 from __future__ import annotations
@@ -28,9 +46,13 @@ from ..utils import cuda_build
 from .semiring import LOG0, LOG0_THRESHOLD, logaddexp2
 
 launches = 0
+launches_lm = 0
+launches_cls = 0
+launches_resume = 0
 
 MAX_BEAM_WIDTH = 32
 MAX_PRUNE_K = 128
+MAX_CTX_ROWS = 64  # context rows of an LM increment table (the TPU's cap)
 
 # Rolling prefix hashes: 32-bit with wraparound (the TPU kernel's int32).
 _M1 = 2654435761
@@ -38,6 +60,9 @@ _M2 = 0x85EBCA6B
 _SEED1, _SEED2 = 1, 7
 _DEADBASE = 0x7EAD0000
 _NOPARENT = 0x5EED0000  # parent-prefix hash that matches nothing
+
+N_STATE = 10
+_FLOAT_FIELDS = (0, 1, 8)  # pb, pnb, lm; the other fields are int32
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -58,31 +83,94 @@ def beam_supported(beam_width: int, prune_k: int, dtype) -> tuple[bool, str]:
     return True, ""
 
 
+def lm_fusion_supported(lm, v: int, beam_width: int) -> tuple[bool, str]:
+    """(ok, reason): whether the kernel's in-kernel LM mode (K5) takes this
+    LM: a dense bigram `NGramLM` over the lattice's vocabulary with
+    V + 1 <= 64 context rows, beam_width <= 32 (the TPU kernel's
+    envelope, `beam_pallas_supported`)."""
+    from .lm import NGramLM
+
+    if not isinstance(lm, NGramLM):
+        return False, ("in-kernel LM fusion supports dense bigram NGramLM "
+                       "only")
+    if lm._v != v:
+        return False, f"LM vocab ({lm._v}) != lattice vocab ({v})"
+    if lm._v + 1 > MAX_CTX_ROWS:
+        return False, (f"in-kernel LM fusion supports vocab + 1 <= "
+                       f"{MAX_CTX_ROWS} context rows (got {lm._v + 1})")
+    if beam_width > MAX_BEAM_WIDTH:
+        return False, (f"in-kernel LM fusion supports beam_width <= "
+                       f"{MAX_BEAM_WIDTH}")
+    return True, ""
+
+
+def check_lm_device(lm, device) -> None:
+    """An LM's (or guide's) tables must live where the lattice does."""
+    if lm is not None and lm.device != device:
+        raise ValueError(f"the LM's tables are on {lm.device}, the "
+                         f"log-probs on {device}: build the LM with "
+                         f"device={device.type!r}")
+
+
+def apply_token_min_logp(lpk, ck, token_min_logp):
+    """Drop top-k slots whose log-prob is below `token_min_logp`, always
+    keeping each frame's best slot.  Dropped slots become (LOG0, id -1),
+    which the beam step treats as no candidate."""
+    if token_min_logp is None:
+        return lpk, ck
+    keep = lpk >= token_min_logp
+    keep[..., 0] = True
+    return (torch.where(keep, lpk, LOG0),
+            torch.where(keep, ck, -1).to(ck.dtype))
+
+
+def beam_state_init(W: int, n: int, device=None):
+    """The empty-prefix state, bit-identical to the kernel's own: beam 0
+    live with pb = 0, the others dead with slot-unique hashes."""
+    w = torch.arange(W, device=device)[:, None].expand(W, n)
+    live0 = w == 0
+    i32 = torch.int32
+    return (
+        torch.where(live0, 0.0, LOG0).float(),                       # pb
+        torch.full((W, n), LOG0, device=device),                     # pnb
+        torch.where(live0, _SEED1, _DEADBASE + w).to(i32),           # h1
+        torch.where(live0, _SEED2, _DEADBASE + w).to(i32),           # h2
+        (_NOPARENT + w).to(i32),                                     # hp1
+        (_NOPARENT + w).to(i32),                                     # hp2
+        torch.full((W, n), -1, dtype=i32, device=device),            # last
+        torch.zeros((W, n), dtype=i32, device=device),               # len
+        torch.zeros((W, n), device=device),                          # lm
+        torch.full((W, n), -1, dtype=i32, device=device),            # lcls
+    )
+
+
 def beam_step_plain(lpk, ck, lpb, il, W: int, K: int, s_cap: int,
-                    blank: int):
+                    blank: int, inc=None, cls_map=None, state_in=None):
     """Plain version of the beam kernel: a loop over T, vectorised over
     (N, W, K).
 
     lpk (T, N, ks) f32 and ck (T, N, ks) int top-k log-probs and ids; lpb
-    (T, N) blank log-probs; il (N,) frame counts.  Returns bp (T, W, N)
-    int32 codes, score (W, N) f32 final log p(prefix), last (W, N) int32.
+    (T, N) blank log-probs; il (N,) frame counts; inc, cls_map, state_in
+    as in the module docstring.  Returns bp (T, W, N) int32 codes, score
+    (W, N) f32 final log p(prefix) plus the carried bonus, last (W, N)
+    int32 and the final state.
     """
     t_max, n, ks = lpk.shape
     dev = lpk.device
+    _check_lm_args(inc, cls_map, dev)
     ck = ck.long()
     il = il.to(dev).long()
+    st = beam_state_init(W, n, dev) if state_in is None else state_in
+    pb, pnb, h1, h2, hp1, hp2, last, lens, lm, lcls = (
+        x.T.float() if i in _FLOAT_FIELDS else x.T.long()
+        for i, x in enumerate(st))  # (N, W)
     w_idx = torch.arange(W, device=dev).expand(n, W)
     log0 = torch.tensor(LOG0, dtype=torch.float32, device=dev)
-    pb = torch.where(w_idx == 0, 0.0, log0)
-    pnb = torch.full((n, W), LOG0, device=dev)
-    h1 = torch.where(w_idx == 0, _SEED1, _DEADBASE + w_idx)
-    h2 = torch.where(w_idx == 0, _SEED2, _DEADBASE + w_idx)
-    hp1 = _NOPARENT + w_idx
-    hp2 = _NOPARENT + w_idx
-    last = torch.full((n, W), -1, dtype=torch.long, device=dev)
-    lens = torch.zeros((n, W), dtype=torch.long, device=dev)
     bp = torch.empty((t_max, n, W), dtype=torch.int32, device=dev)
     rows = torch.arange(n, device=dev)
+    if inc is not None:
+        n_ctx, v = inc.shape
+        inc_flat = inc.reshape(-1)
 
     def pick(x, i):  # x (N, W), i (N,) -> x[n, i[n]]
         return x[rows, i]
@@ -101,6 +189,14 @@ def beam_step_plain(lpk, ck, lpb, il, W: int, K: int, s_cap: int,
         ext = torch.where(same, pb[..., None], total[..., None]) + lpk3
         ok = (ck3 >= 0) & (ck3 != blank) & (lens[..., None] < s_cap)
         ext = torch.where(ok, ext, log0)
+        # each extension's carried bonus: parent's + its LM increment
+        if inc is None:
+            lm_ext = lm[..., None].expand(n, W, K)
+        else:
+            ctx = torch.where(last >= 0, lcls if cls_map is not None
+                              else last, n_ctx - 1)
+            col = ck3.clamp(0, v - 1)
+            lm_ext = lm[..., None] + inc_flat[ctx[..., None] * v + col]
         # merge: beam w absorbs its parent p's extension by last[w]
         bm = ((h1[:, None, :] == hp1[:, :, None])
               & (h2[:, None, :] == hp2[:, :, None])
@@ -117,7 +213,13 @@ def beam_step_plain(lpk, ck, lpb, il, W: int, K: int, s_cap: int,
         pnb_stay = logaddexp2(pnb_stay, add)
         stay = logaddexp2(pb_stay, pnb_stay)
         # top-W by repeated argmax over codes [stay 0..W-1, ext W + w*K + k]
-        cand = torch.cat([stay, ext.reshape(n, W * K)], dim=1)
+        # of acoustic + bonus; the acoustic mass is picked separately
+        cand = torch.cat([stay + lm, (ext + lm_ext).reshape(n, W * K)], 1)
+        acoustic = torch.cat([pnb_stay, ext.reshape(n, W * K)], 1)
+        bonus = torch.cat([lm, lm_ext.reshape(n, W * K)], 1)
+        if cls_map is not None:
+            cls_ext = cls_map.long()[col].expand(n, W, K)
+            klass = torch.cat([lcls, cls_ext.reshape(n, W * K)], 1)
         cols = []
         for w_out in range(W):
             code = cand.argmax(dim=1)  # first index among equal maxima
@@ -131,40 +233,60 @@ def beam_step_plain(lpk, ck, lpb, il, W: int, K: int, s_cap: int,
             dead = mx <= LOG0_THRESHOLD
             new = (
                 torch.where(is_stay, pick(pb_stay, parent), log0),
-                torch.where(is_stay, pick(pnb_stay, parent), mx),
+                acoustic[rows, code],
                 torch.where(is_stay, h1p, _wrap32(h1p * _M1 + tok + 1)),
                 torch.where(is_stay, h2p, _wrap32(h2p * _M2 + tok + 1)),
                 torch.where(is_stay, pick(hp1, parent), h1p),
                 torch.where(is_stay, pick(hp2, parent), h2p),
                 torch.where(is_stay, pick(last, parent), tok),
                 torch.where(is_stay, lenp, lenp + 1),
+                bonus[rows, code],
+                klass[rows, code] if cls_map is not None else lcls[:, w_out],
             )
             # a pick at log-zero carries no state: no mass, unique hashes
             dead_vals = (LOG0, LOG0, _DEADBASE + w_out, _DEADBASE + w_out,
-                         _NOPARENT + w_out, _NOPARENT + w_out, -1, 0)
+                         _NOPARENT + w_out, _NOPARENT + w_out, -1, 0, 0.0,
+                         -1 if cls_map is not None else lcls[:, w_out])
             cols.append([torch.where(dead, d, x)
                          for x, d in zip(new, dead_vals)] + [code])
-        (n_pb, n_pnb, n_h1, n_h2, n_hp1, n_hp2, n_last, n_len,
-         codes) = (torch.stack(f, dim=1) for f in zip(*cols))
+        *fields, codes = (torch.stack(f, dim=1) for f in zip(*cols))
         upd = (t < il)[:, None]  # freeze past each sample's length
-        pb = torch.where(upd, n_pb, pb)
-        pnb = torch.where(upd, n_pnb, pnb)
-        h1 = torch.where(upd, n_h1, h1)
-        h2 = torch.where(upd, n_h2, h2)
-        hp1 = torch.where(upd, n_hp1, hp1)
-        hp2 = torch.where(upd, n_hp2, hp2)
-        last = torch.where(upd, n_last, last)
-        lens = torch.where(upd, n_len, lens)
+        pb, pnb, h1, h2, hp1, hp2, last, lens, lm, lcls = (
+            torch.where(upd, new_f, old) for new_f, old in zip(
+                fields, (pb, pnb, h1, h2, hp1, hp2, last, lens, lm, lcls)))
         bp[t] = torch.where(upd, codes, w_idx).to(torch.int32)
-    score = logaddexp2(pb, pnb)
-    return (bp.permute(0, 2, 1).contiguous(), score.T.contiguous(),
-            last.T.to(torch.int32).contiguous())
+    score = logaddexp2(pb, pnb) + lm
+    state = tuple(
+        x.T.contiguous() if i in _FLOAT_FIELDS
+        else x.T.to(torch.int32).contiguous()
+        for i, x in enumerate((pb, pnb, h1, h2, hp1, hp2, last, lens, lm,
+                               lcls)))
+    bp = bp.permute(0, 2, 1).contiguous()
+    return bp, score.T.contiguous(), state[6], state
+
+
+def _check_lm_args(inc, cls_map, dev):
+    """Validate the increment table and class map for the kernel."""
+    if inc is None:
+        if cls_map is not None:
+            raise ValueError("beam_step: cls_map needs an inc table")
+        return
+    if (inc.device != dev or inc.dtype != torch.float32 or inc.dim() != 2
+            or not 1 <= inc.shape[0] <= MAX_CTX_ROWS):
+        raise ValueError(f"beam_step: inc must be a float32 (C, V) "
+                         f"tensor on {dev} with C <= {MAX_CTX_ROWS}, got "
+                         f"{inc.dtype} {tuple(inc.shape)} on {inc.device}")
+    if cls_map is not None and (
+            cls_map.device != dev or cls_map.dtype != torch.int32
+            or tuple(cls_map.shape) != (inc.shape[1],)):
+        raise ValueError(f"beam_step: cls_map must be int32 "
+                         f"({inc.shape[1]},) on {dev}")
 
 
 def beam_step_cuda(lpk, ck, lpb, il, W: int, K: int, s_cap: int,
-                   blank: int):
+                   blank: int, inc=None, cls_map=None, state_in=None):
     """Launch the CUDA beam kernel; same contract as `beam_step_plain`."""
-    global launches
+    global launches, launches_lm, launches_cls, launches_resume
     t_max, n, ks = lpk.shape
     for name, x, dtype, shape in (
             ("lpk", lpk, torch.float32, (t_max, n, ks)),
@@ -181,32 +303,79 @@ def beam_step_cuda(lpk, ck, lpb, il, W: int, K: int, s_cap: int,
             and K <= ks <= K + 8):
         raise ValueError(f"beam_step_cuda: unsupported W={W}, K={K}, "
                          f"ks={ks}")
-    lpk, ck, lpb, il = (x.contiguous() for x in (lpk, ck, lpb, il))
     dev = lpk.device
+    _check_lm_args(inc, cls_map, dev)
+    lpk, ck, lpb, il = (x.contiguous() for x in (lpk, ck, lpb, il))
+    packed_in = None
+    if state_in is not None:
+        if len(state_in) != N_STATE or any(
+                tuple(x.shape) != (W, n) or x.device != dev
+                or x.dtype != (torch.float32 if i in _FLOAT_FIELDS
+                               else torch.int32)
+                for i, x in enumerate(state_in)):
+            raise ValueError(f"beam_step_cuda: state_in must be "
+                             f"{N_STATE} (W, N) = ({W}, {n}) tensors on "
+                             f"{dev} (see beam_state_init)")
+        packed_in = torch.stack([x.view(torch.int32) for x in state_in])
     bp = torch.empty((t_max, W, n), dtype=torch.int32, device=dev)
     score = torch.empty((W, n), dtype=torch.float32, device=dev)
-    last = torch.empty((W, n), dtype=torch.int32, device=dev)
+    packed_out = torch.empty((N_STATE, W, n), dtype=torch.int32, device=dev)
+    n_ctx, v = (0, 0) if inc is None else inc.shape
+    inc_c = None if inc is None else inc.contiguous()
     lib, _ = cuda_build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.e2e_beam_step_f32(
             lpk.data_ptr(), ck.data_ptr(), lpb.data_ptr(), il.data_ptr(),
-            bp.data_ptr(), score.data_ptr(), last.data_ptr(),
-            t_max, n, ks, W, K, s_cap, blank, stream)
+            None if inc_c is None else inc_c.data_ptr(),
+            None if cls_map is None else cls_map.data_ptr(),
+            None if packed_in is None else packed_in.data_ptr(),
+            bp.data_ptr(), score.data_ptr(), packed_out.data_ptr(),
+            t_max, n, ks, W, K, s_cap, blank, n_ctx, v, stream)
     cuda_build.check(status, "e2e_beam_step_f32")
     launches += 1
-    return bp, score, last
+    if inc is not None:
+        if cls_map is None:
+            launches_lm += 1
+        else:
+            launches_cls += 1
+    if state_in is not None:
+        launches_resume += 1
+    state = tuple(x.view(torch.float32) if i in _FLOAT_FIELDS else x
+                  for i, x in enumerate(packed_out.unbind(0)))
+    return bp, score, state[6], state
 
 
-def beam_step(lpk, ck, lpb, il, W: int, K: int, s_cap: int, blank: int):
+def beam_step(lpk, ck, lpb, il, W: int, K: int, s_cap: int, blank: int,
+              inc=None, cls_map=None, state_in=None):
     """All frames' beam steps: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.  Returns (bp (T, W, N), score (W, N),
-    last (W, N))."""
+    last (W, N), state)."""
     if lpk.is_cuda:
-        return beam_step_cuda(lpk, ck, lpb, il, W, K, s_cap, blank)
+        return beam_step_cuda(lpk, ck, lpb, il, W, K, s_cap, blank, inc,
+                              cls_map, state_in)
     if lpk.device.type != "cpu":
         raise ValueError(f"beam_step: unsupported device {lpk.device}")
-    return beam_step_plain(lpk, ck, lpb, il, W, K, s_cap, blank)
+    return beam_step_plain(lpk, ck, lpb, il, W, K, s_cap, blank, inc,
+                           cls_map, state_in)
+
+
+def lane_walk(bp, W: int, K: int):
+    """The reverse pointer walk over backpointer codes bp (T, W, N).
+
+    Returns code (T, N, W) int64, lane_after (T, N, W), the lane each final
+    beam occupied after frame t, and lane0 (N, W), the lane it descends
+    from before frame 0.
+    """
+    t_max, _, n = bp.shape
+    code = bp.permute(0, 2, 1).long()
+    parent = torch.where(code < W, code, (code - W) // K)
+    lane_after = torch.empty_like(code)
+    lane = torch.arange(W, device=bp.device).expand(n, W)
+    for t in range(t_max - 1, -1, -1):
+        lane_after[t] = lane
+        lane = parent[t].gather(1, lane)
+    return code, lane_after, lane
 
 
 def backtrace(bp, ck, scores, W: int, K: int, s_cap: int):
@@ -221,13 +390,7 @@ def backtrace(bp, ck, scores, W: int, K: int, s_cap: int):
     """
     t_max, _, n = bp.shape
     dev = bp.device
-    code = bp.permute(0, 2, 1).long()  # (T, N, W)
-    parent = torch.where(code < W, code, (code - W) // K)
-    lane_after = torch.empty_like(code)
-    lane = torch.arange(W, device=dev).expand(n, W)
-    for t in range(t_max - 1, -1, -1):
-        lane_after[t] = lane
-        lane = parent[t].gather(1, lane)
+    code, lane_after, _ = lane_walk(bp, W, K)
     code_sel = code.gather(2, lane_after)
     emit = code_sel >= W
     slot = torch.where(emit, (code_sel - W) % K, 0)

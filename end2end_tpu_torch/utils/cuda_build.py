@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with nvcc at first use and load them with
 ctypes.
 
-Every `end2end_tpu_torch/csrc/*.cu` file is compiled in one nvcc call into a
-single shared library with a plain C interface (no PyTorch headers, so the
-build takes seconds).  The library's file name carries a hash of the sources
-and flags, so an edited source is rebuilt and a stale library is never
-loaded.  The build directory, `csrc/build/`, is ignored by git.
+Every `end2end_tpu_torch/csrc/*.cu` file is compiled by its own nvcc
+process, all started together, and the objects are linked into a single
+shared library with a plain C interface (no PyTorch headers, so the build
+takes seconds).  The library's file name carries a hash of the sources and
+flags, so an edited source is rebuilt and a stale library is never loaded.
+The build directory, `csrc/build/`, is ignored by git.
 
 Nothing here runs at import time: `library()` builds on its first call and
 raises if nvcc is missing or fails; no caller falls back to another path.
@@ -26,17 +27,17 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: (argtypes); every one returns cudaGetLastError() as int.
 _SIGNATURES = {
     # x, vals, idx, rows, v, k, stream
     "e2e_topk_f32": (_VP, _VP, _VP, _LL, _I, _I, _VP),
-    # lpk, ck, lpb, il, bp, score, last, t_max, n, ks, W, K, s_cap, blank,
-    # stream
-    "e2e_beam_step_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                          _I, _I, _I, _I, _I, _I, _I, _VP),
+    # lpk, ck, lpb, il, inc, cls_map, state_in, bp, score, state_out,
+    # t_max, n, ks, W, K, s_cap, blank, n_ctx, v, stream
+    "e2e_beam_step_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP),
     # lp, targets, il, tl, a_out, n_out, z_hat, norm_end2, t_max, n, v,
     # s_max, blank, every, stream
     "e2e_ctc_alpha_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
@@ -84,18 +85,30 @@ def library():
     info = {"path": str(path), "build_s": 0.0, "log": ""}
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [str(Path(tmp, src.stem + ".o")) for src in sources]
+            cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+                    for src, obj in zip(sources, objs)]
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for cmd in cmds]
+            info["log"] = "".join(p.communicate()[0] for p in procs)
+            so = str(Path(tmp, "lib.so"))
+            cmds.append([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", so, *objs])
+            rcs = [p.returncode for p in procs]
+            if not any(rcs):
+                link = subprocess.run(cmds[-1], capture_output=True,
+                                      text=True)
+                info["log"] += link.stdout + link.stderr
+                rcs.append(link.returncode)
+            for cmd, rc in zip(cmds, rcs):
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}):\n"
+                                       f"{' '.join(cmd)}\n{info['log']}")
+            os.replace(so, path)  # atomic: a concurrent build never sees half
         info["build_s"] = time.perf_counter() - t0
-        info["log"] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{info['log']}")
-        os.replace(tmp, path)  # atomic: a concurrent build never sees half
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -16,6 +16,7 @@ from end2end_tpu.ops.beam_search import BeamSearchCTCDecoder as JaxDecoder
 from end2end_tpu.ops.beam_search import beam_search_decode as jax_beam
 from end2end_tpu.ops.beam_search_pallas import beam_search_pallas
 from end2end_tpu_torch.ops import beam_search_cuda
+from end2end_tpu_torch.ops.lm import WordNGramLM
 from end2end_tpu_torch.ops.beam_search import (
     BeamSearchCTCDecoder,
     beam_search_decode,
@@ -163,10 +164,16 @@ def test_beam_envelope_and_unported_options(rng):
             beam_search_decode(torch.zeros(4, 1, 200), **kw)
     with pytest.raises(ValueError, match="float32"):
         beam_search_decode(lp.double())
-    for kw in ({"lm": object()}, {"guide_lm": object()},
-               {"implementation": "chunked"}, {"approx_topk": True}):
+    # still unported: an LM outside the in-kernel envelope under 'auto'
+    # (it needs the per-frame LM scan), the scan itself, approx_topk
+    word = WordNGramLM([(1,), (2,)], np.zeros((2, 2)), np.zeros(2), 3,
+                       device="cpu")
+    for kw in ({"lm": object()}, {"lm": word}, {"implementation": "xla"},
+               {"approx_topk": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             beam_search_decode(lp, **kw)
+    with pytest.raises(ValueError, match="implementation"):
+        beam_search_decode(lp, implementation="scan")
     with pytest.raises(ValueError, match="CUDA"):
         beam_search_cuda.beam_step_cuda(
             torch.zeros(5, 1, 6), torch.zeros(5, 1, 6, dtype=torch.int32),

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from end2end_tpu_torch.ops import beam_search_cuda, ctc_loss_cuda, topk_cuda
+from end2end_tpu_torch.ops import lm as tlm
 from end2end_tpu_torch.ops.beam_search import beam_search_decode
 from end2end_tpu_torch.ops.ctc_loss import ctc_nll
 
@@ -62,6 +63,93 @@ def test_beam_kernel_matches_plain(dev, W, K):
                              max_symbols=10)
     ref = beam_search_decode(lp, il, beam_width=W, prune_k=K, max_symbols=10)
     assert torch.equal(dec[0].cpu(), ref[0])
+
+
+_COUNTERS = ("launches", "launches_lm", "launches_cls", "launches_resume")
+
+
+@pytest.mark.parametrize("mode", ["lm", "cls", "resume", "resume_lm",
+                                  "resume_cls"])
+@pytest.mark.parametrize("W,K", [(4, 6), (8, 3), (32, 8)])
+def test_beam_lm_modes_match_plain(dev, mode, W, K):
+    """K5 (symbol-keyed increments), K6 (class-keyed), K7 (resume) against
+    the plain twin run on the card: codes and the 10-field state
+    bit-identical, scores equal."""
+    rng = np.random.default_rng(3)
+    T, B, V = 40, 5, 12
+    x = rng.standard_normal((T, B, V)) * 2.0
+    lp = torch.from_numpy(
+        (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32))
+    lpk, ck = topk_cuda.topk_plain(lp.to(dev), min(K + 8, V))
+    args = (lpk, ck, lp[:, :, 0].contiguous().to(dev),
+            torch.tensor([40, 31, 12, 1, 40], dtype=torch.int32, device=dev))
+    kw = {}
+    if mode.endswith("lm"):
+        kw["inc"] = torch.from_numpy(
+            rng.standard_normal((V + 1, V)).astype(np.float32)).to(dev)
+    if mode.endswith("cls"):
+        kw["inc"] = torch.from_numpy(
+            rng.standard_normal((5, V)).astype(np.float32)).to(dev)
+        kw["cls_map"] = torch.from_numpy(
+            rng.integers(0, 4, V).astype(np.int32)).to(dev)
+    if mode.startswith("resume"):  # a state carried in from 15 frames
+        lead = beam_search_cuda.beam_step_plain(
+            lpk[:15], ck[:15], args[2][:15], args[3], W, K, 10, 0, **kw)
+        kw["state_in"] = lead[3]
+        args = (lpk[15:], ck[15:], args[2][15:], args[3] - 15)
+    want = beam_search_cuda.beam_step_plain(*args, W, K, 10, 0, **kw)
+    before = {c: getattr(beam_search_cuda, c) for c in _COUNTERS}
+    got = beam_search_cuda.beam_step(*args, W, K, 10, 0, **kw)
+    after = {c: getattr(beam_search_cuda, c) for c in _COUNTERS}
+    assert after == {
+        "launches": before["launches"] + 1,
+        "launches_lm": before["launches_lm"] + (mode.endswith("lm")),
+        "launches_cls": before["launches_cls"] + (mode.endswith("cls")),
+        "launches_resume": (before["launches_resume"]
+                            + mode.startswith("resume"))}
+    assert torch.equal(got[0], want[0])  # backpointer codes
+    for g, w in zip(got[3], want[3]):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+def test_lm_decodes_on_the_card_match_the_cpu(dev):
+    """The fused and the chunked (guided) decodes, kernels on the card vs
+    the plain path on the CPU: same tokens, scores within 1e-4."""
+    rng = np.random.default_rng(4)
+    T, B, V = 60, 4, 9
+    x = rng.standard_normal((T, B, V)) * 2.0
+    lp = torch.from_numpy(
+        (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32))
+    big = tlm.bigram_from_counts(rng.integers(0, 20, (V, V)))
+    words = [(1, 2), (3,), (2, 2, 4), (5, 6)]
+    wb = np.log(rng.random((4, 4)) + 0.05).astype(np.float32)
+    for device in ("cpu", dev):
+        lm = tlm.NGramLM(big, device=device)
+        word = tlm.WordNGramLM(words, wb, np.zeros(4), 7, device=device)
+        guide = tlm.QuantizedBigramGuide.from_bigram(lm, n_classes=3)
+        out = [beam_search_decode(lp.to(device), beam_width=8, prune_k=5,
+                                  lm=lm, lm_alpha=0.6, lm_beta=0.3)]
+        for g in (None, lm, guide):
+            out.append(beam_search_decode(
+                lp.to(device), beam_width=8, prune_k=5, lm=word,
+                lm_alpha=0.6, lm_beta=0.3, implementation="chunked",
+                lm_chunk_t=16, guide_lm=g))
+        if device == "cpu":
+            ref = out
+    for got, want in zip(out, ref):
+        assert torch.equal(got[0].cpu(), want[0])
+        torch.testing.assert_close(got[2].cpu(), want[2], atol=1e-4, rtol=0)
+
+
+def test_models_and_lms_default_to_the_card(dev):
+    from end2end_tpu_torch import ConformerCTCPipeline, PipelineConfig
+
+    pipe = ConformerCTCPipeline(PipelineConfig(
+        vocab_size=16, d_model=64, num_layers=2, num_heads=2, n_mels=16))
+    lm = tlm.NGramLM(np.zeros((16, 16), np.float32))
+    assert pipe.device.type == lm.device.type == "cuda"
+    assert tlm.QuantizedBigramGuide.from_bigram(lm, 4).device == lm.device
 
 
 def _edge_batch():

@@ -48,7 +48,7 @@ def _tiny_pair():
     wav = np.zeros((3, 4000), np.float32)
     ns = np.array([4000, 3200, 2400], np.int32)
     params = jax.device_get(pipe.init(jax.random.key(0), wav, ns))
-    enc = ConformerEncoder(**TINY)
+    enc = ConformerEncoder(**TINY, device="cpu")
     enc.load_state_dict(conformer_state_dict_from_flax(params))
     return pipe, params, enc
 
@@ -77,7 +77,7 @@ def test_encoder_padding_is_inert(rng):
     lens = np.array([18], np.int32)
     params = jax.device_get(jenc.init(jax.random.key(0), feats, lens))
     enc = ConformerEncoder(vocab_size=8, d_model=32, num_layers=1,
-                           num_heads=2, n_mels=16)
+                           num_heads=2, n_mels=16, device="cpu")
     enc.load_state_dict(conformer_state_dict_from_flax(params))
     ref, ref_len = enc(torch.from_numpy(feats), torch.from_numpy(lens))
     np.testing.assert_allclose(
@@ -94,7 +94,7 @@ def test_encoder_padding_is_inert(rng):
 
 
 def test_encoder_traps_pinned():
-    enc = ConformerEncoder(**TINY)
+    enc = ConformerEncoder(**TINY, device="cpu")
     eps = {m.eps for m in enc.modules() if isinstance(m, torch.nn.LayerNorm)}
     assert eps == {1e-6}  # flax's LayerNorm epsilon, not torch's 1e-5
     lens = np.arange(0, 40)
@@ -104,9 +104,9 @@ def test_encoder_traps_pinned():
 
 
 def test_encoder_seeded_init_is_deterministic():
-    a = ConformerEncoder(**TINY, generator=torch.Generator().manual_seed(3))
-    b = ConformerEncoder(**TINY, generator=torch.Generator().manual_seed(3))
-    c = ConformerEncoder(**TINY, generator=torch.Generator().manual_seed(4))
+    a, b, c = (ConformerEncoder(**TINY, device="cpu",
+                                generator=torch.Generator().manual_seed(s))
+               for s in (3, 3, 4))
     for (name, x), y in zip(a.state_dict().items(),
                             b.state_dict().values()):
         assert torch.equal(x, y), name

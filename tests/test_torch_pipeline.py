@@ -18,9 +18,11 @@ import torch
 
 import __graft_entry__ as graft
 from end2end_tpu.models import streaming as jstream
+from end2end_tpu.ops import lm as jlm
 from end2end_tpu.ops.beam_search_pallas import beam_search_pallas
 from end2end_tpu_torch import ConformerCTCPipeline, PipelineConfig
 from end2end_tpu_torch.models import streaming as tstream
+from end2end_tpu_torch.ops import lm as tlm
 
 torch.set_num_threads(1)
 torch.set_float32_matmul_precision("highest")
@@ -36,7 +38,8 @@ def pipes():
     ns = np.array([4000, 3200, 2400], np.int32)
     params = jax.device_get(jpipe.init(jax.random.key(0), wav, ns))
     tpipe = ConformerCTCPipeline(PipelineConfig(
-        vocab_size=16, d_model=64, num_layers=2, num_heads=2, n_mels=16))
+        vocab_size=16, d_model=64, num_layers=2, num_heads=2, n_mels=16),
+        device="cpu")
     tpipe.load_flax_params(params)
     return jpipe, params, tpipe, wav, ns
 
@@ -72,6 +75,38 @@ def test_pipeline_pruned_beam_matches_kernel(pipes):
     for b in range(3):
         assert gt[b, : gl[b]].tolist() == wt[b, 0, : wl[b, 0]].tolist()
     np.testing.assert_allclose(gs, ws[:, 0], atol=5e-4, rtol=0)
+
+
+def test_pipeline_lm_decode_matches_jax(pipes):
+    # JAX on the CPU routes an LM decode to its per-frame scan; at
+    # prune_k=None (K = V, ks = V) the scan and the port's in-kernel fusion
+    # (K5's plain twin here) have the same semantics
+    jpipe, params, tpipe, wav, ns = pipes
+    rng = np.random.default_rng(5)
+    big = jlm.bigram_from_counts(rng.integers(0, 20, (16, 16)))
+    st = rng.standard_normal(16).astype(np.float32)
+    eos = rng.standard_normal(16).astype(np.float32)
+    kw = dict(beam_width=4, lm_alpha=0.7, lm_beta=0.5)
+    want = [np.asarray(x) for x in jpipe.decode(
+        params, wav, ns, lm=jlm.NGramLM(big, st, eos), **kw)]
+    got = [x.numpy() for x in tpipe.decode(
+        wav, ns, lm=tlm.NGramLM(big, st, eos, device="cpu"), **kw)]
+    plain = tpipe.decode(wav, ns, beam_width=4)
+    for b in range(3):
+        assert (got[0][b, : got[1][b]].tolist()
+                == want[0][b, : want[1][b]].tolist())
+    np.testing.assert_allclose(got[2], want[2], atol=5e-4, rtol=0)
+    assert not np.allclose(got[2], plain[2].numpy())
+
+
+def test_default_device_is_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ConformerCTCPipeline(PipelineConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tlm.NGramLM(np.zeros((4, 4), np.float32))
+    pipe = ConformerCTCPipeline(PipelineConfig(), device="cpu")
+    assert pipe.device.type == "cpu"
 
 
 def test_long_form_matches_jax(pipes):

@@ -40,7 +40,8 @@ def setup():
     tl = np.array([3, 2, 1], np.int32)
     params = jax.device_get(jpipe.init(jax.random.key(0), wav, ns))
     tpipe = ConformerCTCPipeline(PipelineConfig(
-        vocab_size=16, d_model=64, num_layers=2, num_heads=2, n_mels=16))
+        vocab_size=16, d_model=64, num_layers=2, num_heads=2, n_mels=16),
+        device="cpu")
     tpipe.load_flax_params(params)
 
     def jloss(p):
