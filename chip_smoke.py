@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving and training paths once on one GPU
-and check them.
+"""Drive the PyTorch/CUDA port's serving and training paths (CTC and
+transducer) once on one GPU and check them.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -59,7 +59,29 @@ Phases (every failure raises, so the exit code is nonzero):
  14. timings: K5, K6, K7 alone vs their plain twins, the LM-fused and the
      chunked word-LM decodes at B=128, T=1000, V=29 (seq/s; the chunked
      one split into kernel and chunk-boundary time), the pipeline's LM
-     decode at B=8 x 30 s, and torch.topk beside K3.
+     decode at B=8 x 30 s, and torch.topk beside K3;
+ 15. the RNN-T alpha (K8) and posterior (K9) kernels vs the plain scans at
+     the JAX bench row's shape (B=8, T=400, U=80, V=256, random logits,
+     from logits) and two edge batches (U > T with variable lengths and an
+     empty target; blank = V-1): NLL within max(1e-4, 20 ulp) abs + 2e-6
+     rel, K9's posteriors on the same residuals within 1e-6, the logits
+     gradient within 1e-5; against the plain float64 scan the gradient
+     within 1e-4 and the NLL within 1e-4 relative;
+ 16. the transducer training slice: the full-width ConformerTransducer
+     (vocab 32, 80 mels, d 144, 2 layers, 4 heads, conv 15, enc 144, emb
+     64, GRU 128, joint 128; seeded random weights, built on the card by
+     default) takes 3 AdamW steps on batches of 8 requests (30/22/15 s as
+     log-mel features, padded to 30 s, T'=750) with random targets of
+     T'/5 labels (lattice (8, 750, 151, 32)); the counters must show K8
+     and K9 once per step and every loss finite and > 0; on the first
+     batch the CUDA loss within 1e-3 rel of the CPU model's, every
+     parameter's gradient through the kernels within 1e-4 (of its max)
+     of the plain scan's, and K8/K9 within phase 15's tolerances at this
+     shape; then greedy decoding (lengths within the cap, finite scores,
+     the count of requests decoding alike on the card and the CPU);
+ 17. timings: K8, K9 and their twins at the training and bench shapes,
+     the loss+gradient at the bench shape (also as lattice cells/s), the
+     transducer train step with its parts, and the greedy decode.
 The line before the last is the card's name and power limit; the line
 before it the per-kernel JSON (with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its operations over 67 TFLOP/s float32); the last
@@ -78,12 +100,16 @@ import time
 import numpy as np
 import torch
 
-from end2end_tpu_torch import ConformerCTCPipeline, PipelineConfig
+from end2end_tpu_torch import (ConformerCTCPipeline, ConformerTransducer,
+                               PipelineConfig, TransducerConfig)
+from end2end_tpu_torch.models.frontend import log_mel_spectrogram, num_frames
 from end2end_tpu_torch.ops import (beam_chunked, beam_search_cuda,
                                    ctc_common, ctc_loss_cuda, ctc_loss_plain,
-                                   topk_cuda)
+                                   rnnt_loss_cuda, rnnt_loss_plain, topk_cuda)
 from end2end_tpu_torch.ops.beam_search import beam_search_decode
 from end2end_tpu_torch.ops.ctc_loss import ctc_nll
+from end2end_tpu_torch.ops.rnnt_decode import rnnt_greedy_decode
+from end2end_tpu_torch.ops.rnnt_loss import rnnt_nll
 from end2end_tpu_torch.ops.lm import (NGramLM, QuantizedBigramGuide,
                                       WordNGramLM, bigram_from_counts)
 from end2end_tpu_torch.utils import cuda_build
@@ -103,6 +129,18 @@ CTC_SHAPES = {  # name: (B, T, S, V), tests/test_full_configs.py
     "librispeech-char": (32, 1000, 200, 29),
     "bpe-asr": (16, 1500, 150, 1024),
 }
+RNNT_SHAPES = {  # name: (B, T, U, V, blank, variable lengths)
+    "bench": (8, 400, 80, 256, 0, False),  # bench.py's RNN-T loss row
+    "U > T, empty target": (6, 60, 150, 64, 0, True),
+    "blank = V-1": (4, 100, 20, 64, 63, True),
+}
+# K8/K9 vs plain: NLL and logits gradient as for K1/K2 (CTC_LOSS_RTOL,
+# CTC_GRAD_TOL); posteriors on the same residuals within 1e-6 (the same
+# sums in the same order, libm exp rounding only); the float32 kernels vs
+# the float64 scan within 1e-4 on the gradient and 1e-4 relative on the NLL
+# (the NLL reaches ~2e3 at the bench row, where float32's spacing is 2.4e-4)
+RNNT_POST_TOL = 1e-6
+RNNT_F64_TOL = 1e-4
 LM_ALPHA, LM_BETA = 0.6, 0.3  # LM weight and insertion bonus
 CHUNK_T = 128  # frames per chunk of the chunked LM decode
 # H100 SXM data sheet: HBM bandwidth and float32 rate outside the tensor
@@ -652,6 +690,196 @@ def time_chunk_split(inputs, lm, W, reps=5):
             "boundary_other_b128": loop - kern - walk - compact - replay}
 
 
+def rnnt_problem(rng, dev, b, t, u, v, blank=0, variable=False):
+    """Random logits (bench.py's RNN-T row draws them so) and targets;
+    with `variable`, random lengths, sample 1's target empty."""
+    x = torch.from_numpy(
+        rng.standard_normal((b, t, u + 1, v)).astype(np.float32)).to(dev)
+    lo, hi = (1, v) if blank == 0 else (0, v - 1)
+    tgt = rng.integers(lo, hi, (b, u)).astype(np.int32)
+    il, ul = np.full(b, t, np.int32), np.full(b, u, np.int32)
+    if variable:
+        il = rng.integers(t // 2, t + 1, b).astype(np.int32)
+        ul = rng.integers(1, u + 1, b).astype(np.int32)
+        il[0], ul[0], ul[1] = t, u, 0
+    return (x, *(torch.from_numpy(a).to(dev) for a in (tgt, il, ul)))
+
+
+def rnnt_nll_and_grad(x, tgt, il, ul, blank, implementation):
+    x = x.detach().clone().requires_grad_(True)
+    nll = rnnt_nll(x, tgt, il, ul, blank=blank, implementation=implementation)
+    nll.sum().backward()
+    return nll.detach(), x.grad
+
+
+def rnnt_dp_inputs(x, tgt, il, ul, blank):
+    """The (N, T, U+1) planes the loss's DP sees, and K8's outputs and
+    the split logZ on them."""
+    y = torch.nn.functional.pad(tgt.long(), (0, 1))
+    b_pl, l_pl = rnnt_loss_plain.planes(torch.log_softmax(x.detach(), -1), y,
+                                        ul.long(), blank)
+    tape, rcum = rnnt_loss_cuda.alpha(b_pl, l_pl)
+    zs, zo = rnnt_loss_plain.log_z(b_pl, tape, rcum, il.long(), ul.long())
+    return b_pl, l_pl, tape, rcum, il.long(), ul.long(), zs, zo
+
+
+def check_rnnt(x, tgt, il, ul, blank, what):
+    """K8/K9 (through rnnt_nll, from logits) vs the plain float32 and
+    float64 scans on the card, and K9 alone vs its plain twin on the same
+    residuals.  Returns (nll err, posterior err)."""
+    k_nll, k_grad = rnnt_nll_and_grad(x, tgt, il, ul, blank, "pallas")
+    p_nll, p_grad = rnnt_nll_and_grad(x, tgt, il, ul, blank, "xla")
+    d_nll, d_grad = rnnt_nll_and_grad(x.double(), tgt, il, ul, blank, "xla")
+    b_pl, l_pl, tape, rcum, *rest = rnnt_dp_inputs(x, tgt, il, ul, blank)
+    p_tape, p_rcum = rnnt_loss_plain.alpha(b_pl, l_pl)
+    post = rnnt_loss_cuda.posteriors(b_pl, l_pl, tape, rcum, *rest)
+    p_post = rnnt_loss_plain.posteriors(b_pl, l_pl, tape, rcum, *rest)
+    torch.cuda.synchronize()
+    nll_err = float((k_nll - p_nll).abs().max())
+    ulp = float(np.spacing(np.float32(p_nll.abs().max().item())))
+    if ((k_nll - p_nll).abs()
+            > max(1e-4, 20 * ulp) + CTC_LOSS_RTOL * p_nll.abs()).any():
+        raise AssertionError(f"{what}: K8/K9 NLL vs plain, err {nll_err}")
+    post_err = max(float((a - b).abs().max()) for a, b in zip(post, p_post))
+    if post_err > RNNT_POST_TOL:
+        raise AssertionError(f"{what}: K9 posteriors vs plain, err {post_err}")
+    grad_err = float((k_grad - p_grad).abs().max())
+    if grad_err > CTC_GRAD_TOL or not torch.isfinite(k_grad).all():
+        raise AssertionError(f"{what}: K8/K9 grad vs plain, err {grad_err}")
+    d_rel = float(((k_nll.double() - d_nll).abs()
+                   / d_nll.abs().clamp(min=1.0)).max())
+    d_grad_err = float((k_grad.double() - d_grad).abs().max())
+    if d_rel > RNNT_F64_TOL or d_grad_err > RNNT_F64_TOL:
+        raise AssertionError(f"{what}: float32 kernels vs float64 scan: NLL "
+                             f"rel err {d_rel}, grad err {d_grad_err}")
+    log(f"{what}: K8/K9 vs plain NLL err {nll_err:.3g} (NLL up to "
+        f"{float(p_nll.abs().max()):.1f}), posteriors err {post_err:.3g}, "
+        f"logits grad err {grad_err:.3g}; K8 tape err "
+        f"{float((tape - p_tape).abs().max()):.3g}, offsets equal "
+        f"{bool(torch.equal(rcum, p_rcum))}; vs float64: NLL rel err "
+        f"{d_rel:.3g}, grad err {d_grad_err:.3g}")
+    return nll_err, post_err
+
+
+def rnnt_bound(b_pl, posteriors):
+    """K8 reads the two (N, T, U+1) planes and writes the (D, N, U+1) tape
+    and the (D, N) offsets; K9 reads the planes, the tape and the offsets
+    and writes the two posterior planes.  Per lattice node, K8 does ~12
+    operations (a logaddexp2, two adds, the renorm's max, subtract and
+    clamp), K9 ~30 (two logaddexp2, the two posteriors' sums and exps)."""
+    n, t, up = b_pl.shape
+    d = t + up - 1
+    plane, tape = n * t * up * 4, d * n * up * 4 + d * n * 4
+    nbytes = 2 * plane + tape + (2 * plane + n * 16 if posteriors else 0)
+    return bound(nbytes, (30 if posteriors else 12) * n * t * up)
+
+
+def transducer_batches(rng, dev, vocab, n_batches=3):
+    """Batches of 8 requests (30/22/15 s, padded to 30 s) as log-mel
+    features on the card, with random targets of T'/5 labels."""
+    out = []
+    for i in range(n_batches):
+        secs = np.roll(np.array([30, 22, 15, 30, 22, 15, 22, 15]), i)
+        wav = np.zeros((8, 30 * 16000), np.float32)
+        for j, s in enumerate(secs):
+            wav[j, : s * 16000] = 0.1 * rng.standard_normal(s * 16000)
+        feats = log_mel_spectrogram(torch.from_numpy(wav).to(dev))
+        lens = num_frames(torch.from_numpy(secs * 16000))
+        tl = (((lens + 1) // 2 + 1) // 2 // 5).numpy().astype(np.int32)
+        tgt = rng.integers(1, vocab, (8, int(tl.max()))).astype(np.int32)
+        out.append((feats, lens, tgt, tl))
+    return out
+
+
+def transducer_grads(model, batch, implementation):
+    model.zero_grad()
+    loss = model.loss(*batch, implementation=implementation)
+    loss.backward()
+    return loss.detach(), {k: p.grad.clone()
+                           for k, p in model.named_parameters()
+                           if p.grad is not None}
+
+
+def check_transducer_batch(model, batch):
+    """First batch: CUDA vs CPU loss, kernel vs plain gradients of every
+    parameter, and K8/K9 vs plain at this shape.  Returns (nll err,
+    posterior err, the DP inputs of this batch)."""
+    k_loss, k_grads = transducer_grads(model, batch, "auto")
+    p_loss, p_grads = transducer_grads(model, batch, "xla")
+    cpu = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        c_loss = cpu.loss(*batch).item()
+    rel = abs(k_loss.item() - c_loss) / abs(c_loss)
+    log(f"phase 16 first batch: CUDA loss {k_loss.item():.6f}, CPU loss "
+        f"{c_loss:.6f} (rel err {rel:.3g}), plain-path loss "
+        f"{p_loss.item():.6f}")
+    if rel > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"transducer CUDA loss vs CPU: rel err {rel}")
+    worst = 0.0
+    for name, kg in k_grads.items():
+        # floor 1e-3: the attention key bias's gradient is 0 in exact
+        # arithmetic and rounding noise on both paths
+        scale = max(float(p_grads[name].abs().max()), 1e-3)
+        worst = max(worst, float((kg - p_grads[name]).abs().max()) / scale)
+    log(f"phase 16 gradients of {len(k_grads)} tensors, kernels vs plain: "
+        f"max err {worst:.3g} of each tensor's max")
+    if worst > TRAIN_GRAD_RTOL or set(k_grads) != set(p_grads):
+        raise AssertionError(f"transducer grads differ: {worst}")
+    with torch.no_grad():
+        enc, enc_len = model.encode(batch[0], batch[1])
+        x = model.joint_logits(enc, model._pred_states(batch[2]))
+    tgt, tl = (torch.as_tensor(a, device=x.device) for a in batch[2:])
+    errs = check_rnnt(x, tgt, enc_len, tl, 0,
+                      f"phase 16 K8/K9 at the training shape {tuple(x.shape)}")
+    return (*errs, rnnt_dp_inputs(x, tgt, enc_len, tl, 0), cpu)
+
+
+TRANSDUCER_PARTS = ("tr_encoder_fwd_bwd", "tr_predictor_fwd_bwd",
+                    "tr_joint_fwd_bwd", "tr_loss_grad", "tr_adamw")
+
+
+def time_transducer_parts(model, batch):
+    """The train step's pieces, each forward + backward on its own (the
+    backward seeded with ones): the encoder, the predictor's U-step GRU
+    loop, the joint logits, the loss + gradient wrt the logits (K8, K9 and
+    the vocabulary prep and combine), and the AdamW update."""
+    feats, lens, tgt, tl = batch
+    with torch.no_grad():
+        enc, enc_len = model.encode(feats, lens)
+        hs = model._pred_states(tgt)
+        x = model.joint_logits(enc, hs)
+    tgt_d, tl_d = (torch.as_tensor(a, device=x.device) for a in (tgt, tl))
+    enc, hs = enc.requires_grad_(True), hs.requires_grad_(True)
+    opt = torch.optim.AdamW(model.parameters(), lr=0.0)
+    return {
+        "tr_encoder_fwd_bwd": time_ms(
+            lambda: model.encode(feats, lens)[0].sum().backward()),
+        "tr_predictor_fwd_bwd": time_ms(
+            lambda: model._pred_states(tgt).sum().backward()),
+        "tr_joint_fwd_bwd": time_ms(
+            lambda: model.joint_logits(enc, hs).sum().backward()),
+        "tr_loss_grad": time_ms(
+            lambda: rnnt_nll_and_grad(x, tgt_d, enc_len, tl_d, 0, "auto")),
+        "tr_adamw": time_ms(opt.step),
+    }
+
+
+def decode_steps(model, feats, lens):
+    """How many lockstep joint evaluations the greedy decode makes."""
+    enc, enc_len = model.encode(feats, lens)
+    pred, h0, joint = model.decoder_fns()
+    calls = [0]
+
+    def counted(f, h):
+        calls[0] += 1
+        return joint.from_projected(f, h)
+
+    counting = copy.copy(joint)
+    counting.from_projected = counted
+    rnnt_greedy_decode(enc, enc_len, pred, h0, counting)
+    return calls[0]
+
+
 def main() -> None:
     # 1. the device
     if not torch.cuda.is_available():
@@ -994,11 +1222,116 @@ def main() -> None:
                  ("decode_word_chunked_b128", 128),
                  ("decode_beam8_lm_b8_30s", 8)):
         log(f"phase 14 {k}: {b * 1e3 / ms[k]:.1f} seq/s")
+
+    # 15. RNN-T kernels K8/K9 vs plain at the bench row's shape and three
+    # edge batches (U > T with variable lengths and an empty target,
+    # blank = V-1)
+    rnnt_err = [0.0, 0.0]
+    rnnt_inputs = {}
+    for name, (b, t, u, v, blank, var) in RNNT_SHAPES.items():
+        args = rnnt_problem(rng, dev, b, t, u, v, blank, var)
+        rnnt_inputs[name] = (*args, blank)
+        errs = check_rnnt(*args, blank, f"phase 15 {name} (B={b}, T={t}, "
+                                        f"U={u}, V={v}, blank={blank})")
+        rnnt_err = [max(a, e) for a, e in zip(rnnt_err, errs)]
+
+    # 16. the transducer training slice at full width
+    tcfg = TransducerConfig()  # vocab 32, d 144, 2 layers, joint 128
+    model = ConformerTransducer(tcfg, seed=SEED)
+    if model.device != dev:
+        raise AssertionError(f"the transducer was built on {model.device}")
+    xbatches = transducer_batches(rng, dev, tcfg.vocab_size)
+    *errs, main_dp, model_cpu = check_transducer_batch(model, xbatches[0])
+    rnnt_err = [max(a, e) for a, e in zip(rnnt_err, errs)]
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
+    torch.cuda.synchronize()
+    for k in rnnt_loss_cuda.launches:
+        rnnt_loss_cuda.launches[k] = 0
+    losses = []
+    for batch in xbatches:
+        opt.zero_grad()
+        loss = model.loss(*batch)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    rnnt_launches = dict(rnnt_loss_cuda.launches)
+    log(f"phase 16 training: 3 AdamW steps x 8 requests, lattice "
+        f"{tuple(main_dp[0].shape)} x V={tcfg.vocab_size}, losses "
+        f"{[round(x, 6) for x in losses]}, launches {rnnt_launches}")
+    if rnnt_launches != {"rnnt_alpha": 3, "rnnt_posteriors": 3}:
+        raise AssertionError(
+            f"kernels missed on the transducer path: {rnnt_launches}")
+    if not all(np.isfinite(x) and x > 0 for x in losses):
+        raise AssertionError(f"bad transducer loss: {losses}")
+    feats, lens = xbatches[0][:2]
+    tok, tlen, tsc = model.decode(feats, lens)
+    cap = tok.shape[1]
+    if (tlen > cap).any() or not torch.isfinite(tsc).all():
+        raise AssertionError("bad greedy transducer decode")
+    model_cpu.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    c_tok, c_len, _ = model_cpu.decode(feats, lens)
+    same = sum(torch.equal(tok[i, : int(tlen[i])].cpu(),
+                           c_tok[i, : int(c_len[i])]) for i in range(8))
+    log(f"phase 16 greedy decode: B=8, cap {cap}, lengths "
+        f"{tlen.tolist()}, scores finite; {same} of 8 requests decode to "
+        "the same tokens on the card and on the CPU")
+
+    # 17. RNN-T timings: K8, K9 and their twins at the training shape and
+    # the bench row's, the loss+gradient, the train step and the decode
+    for name, dp in (("main", main_dp),
+                     ("bench", rnnt_dp_inputs(*rnnt_inputs["bench"]))):
+        b_pl, l_pl, tape, rcum, *rest = dp
+        ms[f"rnnt_alpha_{name}"] = time_ms(
+            lambda: rnnt_loss_cuda.alpha(b_pl, l_pl))
+        ms[f"rnnt_alpha_plain_{name}"] = time_ms(
+            lambda: rnnt_loss_plain.alpha(b_pl, l_pl))
+        ms[f"rnnt_posteriors_{name}"] = time_ms(
+            lambda: rnnt_loss_cuda.posteriors(b_pl, l_pl, tape, rcum, *rest))
+        ms[f"rnnt_posteriors_plain_{name}"] = time_ms(
+            lambda: rnnt_loss_plain.posteriors(b_pl, l_pl, tape, rcum,
+                                               *rest))
+        if name == "main":
+            rnnt_b = [rnnt_bound(b_pl, post) for post in (0, 1)]
+    x, tgt, il, ul, blank = rnnt_inputs["bench"]
+    for impl, key in (("pallas", ""), ("xla", "_plain")):
+        ms[f"rnnt_loss_grad{key}_bench"] = time_ms(
+            lambda: rnnt_nll_and_grad(x, tgt, il, ul, blank, impl))
+    cells = x.shape[0] * x.shape[1] * x.shape[2]
+
+    def transducer_step():
+        opt.zero_grad()
+        model.loss(*xbatches[0]).backward()
+        opt.step()
+
+    ms["transducer_step_b8_30s"] = time_ms(transducer_step)
+    ms.update(time_transducer_parts(model, xbatches[0]))
+    ms["transducer_greedy_b8_30s"] = time_ms(
+        lambda: model.decode(feats, lens))
+    steps = decode_steps(model, feats, lens)
+    log(f"phase 17 greedy decode: {steps} lockstep joint steps, "
+        f"{ms['transducer_greedy_b8_30s'] / steps:.3f} ms each")
+    for k in ("rnnt_alpha_main", "rnnt_alpha_plain_main",
+              "rnnt_posteriors_main", "rnnt_posteriors_plain_main",
+              "rnnt_alpha_bench", "rnnt_alpha_plain_bench",
+              "rnnt_posteriors_bench", "rnnt_posteriors_plain_bench",
+              "rnnt_loss_grad_bench", "rnnt_loss_grad_plain_bench",
+              "transducer_step_b8_30s", *TRANSDUCER_PARTS,
+              "transducer_greedy_b8_30s"):
+        log(f"phase 17 time {k}: {ms[k]:.3f} ms")
+    for k in ("rnnt_loss_grad_bench", "rnnt_loss_grad_plain_bench"):
+        log(f"phase 17 {k} (B=8, T=400, U=80, V=256): "
+            f"{cells / ms[k] / 1e3:.1f} M lattice cells/s")
+    for k in ("transducer_step_b8_30s", "transducer_greedy_b8_30s"):
+        log(f"phase 17 {k}: {8e3 / ms[k]:.1f} seq/s")
     log(json.dumps({"card": card, "ms": ms}))
 
     beam_src = "end2end_tpu_torch/csrc/beam_step.cu"
     beam_tpu = "end2end_tpu/ops/beam_search_pallas.py"
     ctc_src = "end2end_tpu_torch/csrc/ctc_loss.cu"
+    rnnt_src = "end2end_tpu_torch/csrc/rnnt_loss.cu"
+    rnnt_tpu = "end2end_tpu/ops/rnnt_loss_pallas.py"
     rows = [  # name, source, replaces, launches, err, ms key, bound, library
         ("topk", "end2end_tpu_torch/csrc/topk.cu",
          "end2end_tpu/ops/topk_pallas.py:64", launches["topk"], topk_err,
@@ -1019,6 +1352,13 @@ def main() -> None:
         ("beam_step_resume", beam_src, f"{beam_tpu}:129",
          chunk_launches["launches_resume"], chunk_err, "beam_resume_chunk",
          resume_b, None),
+        # torch has no transducer loss (and torchaudio is not installed)
+        ("rnnt_alpha", rnnt_src, f"{rnnt_tpu}:108",
+         rnnt_launches["rnnt_alpha"], rnnt_err[0], "rnnt_alpha_main",
+         rnnt_b[0], None),
+        ("rnnt_posteriors", rnnt_src, f"{rnnt_tpu}:194",
+         rnnt_launches["rnnt_posteriors"], rnnt_err[1],
+         "rnnt_posteriors_main", rnnt_b[1], None),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -4,7 +4,8 @@ of `end2end_tpu/ops/semiring.py`).
 Masked states carry a large *finite* log-zero instead of ``-inf``, so that
 ``LOG0 - LOG0`` stays finite inside masked lanes (``-inf - -inf`` is NaN).
 Any value at or below ``LOG0_THRESHOLD`` is treated as impossible.  The CUDA
-kernels (csrc/beam_step.cu, csrc/ctc_loss.cu) use the same two constants.
+kernels (csrc/beam_step.cu, csrc/ctc_loss.cu, csrc/rnnt_loss.cu) use the
+same two constants.
 """
 
 from __future__ import annotations
@@ -27,6 +28,13 @@ def logaddexp2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     d = torch.clamp(-(a - b).abs(), min=LOG0)
     out = m_safe + torch.log1p(torch.exp(d))
     return torch.where(m > LOG0_THRESHOLD, out, torch.full_like(out, LOG0))
+
+
+def round_to_half(x: torch.Tensor) -> torch.Tensor:
+    """The nearest multiple of 0.5, ties to even (`torch.round`, like
+    `jnp.round` and CUDA's `rintf`; C's `roundf` rounds ties away from
+    zero and would not do)."""
+    return torch.round(x * 2.0) * 0.5
 
 
 def logaddexp3(a: torch.Tensor, b: torch.Tensor,

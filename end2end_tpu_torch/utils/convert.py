@@ -1,9 +1,10 @@
-"""Carry weights from the flax Conformer to the torch port.
+"""Carry weights from the JAX models to the torch port.
 
 `conformer_state_dict_from_flax(params)` takes the flax parameter tree as
 nested dicts of numpy arrays (for example `jax.device_get(params)`) and
-returns a `state_dict` for `models.conformer.ConformerEncoder`.  It needs
-neither jax nor flax.  Layouts:
+returns a `state_dict` for `models.conformer.ConformerEncoder`;
+`transducer_state_dict_from_jax` does the same for the transducer.  They
+need neither jax nor flax.  Conformer layouts:
   * Dense kernels are (in, out): transposed to torch's (out, in);
   * 2-D conv kernels are HWIO: permuted to OIHW;
   * the depthwise kernel (15, 1, d) becomes (d, 1, 15);
@@ -69,4 +70,24 @@ def conformer_state_dict_from_flax(params) -> dict[str, torch.Tensor]:
         layer_norm(f"{pre}.ln", blk["LayerNorm_0"])
         i += 1
     dense("out", p["Dense_0"])
+    return sd
+
+
+def transducer_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
+    """The JAX `ConformerTransducer`'s {"enc", "pred", "joint"} params
+    (nested dicts of numpy arrays) -> a `state_dict` for the port's
+    `models.transducer.ConformerTransducer`.  Layouts:
+      * enc: the flax Conformer, through `conformer_state_dict_from_flax`;
+      * pred: the GRU cell's arrays as they are: emb (V, E); wz, wr, wh
+        (E+H, H), each applied to concat([x, h]) as ``xh @ w``; bz, br,
+        bh (H,); wo (H, V), bo (V,);
+      * joint: w_enc (E, J), w_pred (H, J), w_out (J, V) stay (in, out)
+        matrices (the port multiplies ``x @ w`` as JAX does); b (J,),
+        b_out (V,).
+    """
+    sd = {f"encoder.{k}": v
+          for k, v in conformer_state_dict_from_flax(params["enc"]).items()}
+    for part in ("pred", "joint"):
+        for k, v in params[part].items():
+            sd[f"{part}.{k}"] = _t(v)
     return sd

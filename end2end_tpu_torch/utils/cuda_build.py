@@ -46,6 +46,12 @@ _SIGNATURES = {
     # t_max, n, v, s_max, blank, every, stream
     "e2e_ctc_beta_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                          _VP, _I, _I, _I, _I, _I, _I, _VP),
+    # b_pl, l_pl, tape, rcum, n, t_max, up, stream
+    "e2e_rnnt_alpha_f32": (_VP, _VP, _VP, _VP, _I, _I, _I, _VP),
+    # b_pl, l_pl, tape, rcum, il, ul, z_small, z_off, gb, gl, n, t_max, up,
+    # stream
+    "e2e_rnnt_post_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                          _I, _I, _I, _VP),
 }
 
 

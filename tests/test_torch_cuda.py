@@ -10,10 +10,12 @@ import numpy as np
 import pytest
 import torch
 
-from end2end_tpu_torch.ops import beam_search_cuda, ctc_loss_cuda, topk_cuda
+from end2end_tpu_torch.ops import (beam_search_cuda, ctc_loss_cuda,
+                                   rnnt_loss_cuda, rnnt_loss_plain, topk_cuda)
 from end2end_tpu_torch.ops import lm as tlm
 from end2end_tpu_torch.ops.beam_search import beam_search_decode
 from end2end_tpu_torch.ops.ctc_loss import ctc_nll
+from end2end_tpu_torch.ops.rnnt_loss import rnnt_loss, rnnt_nll
 
 pytestmark = pytest.mark.cuda
 
@@ -223,3 +225,95 @@ def test_ctc_kernels_reject_what_they_cannot_run(dev):
     big = torch.zeros((x.shape[1], 6000), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         ctc_loss_cuda.ctc_nll_cuda(x.float(), big, *args[1:])
+
+
+def _rnnt_case(seed, n, t, u, v, blank, dev):
+    """Random logits on the card, variable lengths, sample 1's target
+    empty (when n > 1)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(
+        rng.standard_normal((n, t, u + 1, v)).astype(np.float32)).to(dev)
+    lo, hi = (1, v) if blank == 0 else (0, v - 1)
+    tgt = rng.integers(lo, hi, (n, u)).astype(np.int32)
+    il = rng.integers(max(t // 2, 1), t + 1, n).astype(np.int32)
+    ul = rng.integers(0, u + 1, n).astype(np.int32)
+    il[0], ul[0] = t, u
+    if n > 1:
+        ul[1] = 0
+    return x, *(torch.from_numpy(a).to(dev) for a in (tgt, il, ul))
+
+
+def _rnnt_loss_grad(x, tgt, il, ul, blank, implementation):
+    x = x.detach().clone().requires_grad_(True)
+    nll = rnnt_nll(x, tgt, il, ul, blank=blank,
+                   implementation=implementation)
+    nll.sum().backward()
+    return nll.detach(), x.grad
+
+
+@pytest.mark.parametrize("n,t,u,v,blank", [
+    (4, 7, 3, 9, 0), (3, 5, 12, 6, 0), (5, 40, 9, 17, 16),
+    (2, 3, 1100, 5, 0)])  # U+1 > 1024 threads: several lanes per thread
+def test_rnnt_kernels_match_plain(dev, n, t, u, v, blank):
+    """K8/K9 vs the plain scans on the card: NLL within 1e-4 + 2e-6 rel,
+    K9's posteriors on the same residuals within 1e-6, the logits
+    gradient within 1e-5, and both within 1e-4 of the float64 scan."""
+    x, tgt, il, ul = _rnnt_case(0, n, t, u, v, blank, dev)
+    before = dict(rnnt_loss_cuda.launches)
+    k_nll, k_grad = _rnnt_loss_grad(x, tgt, il, ul, blank, "auto")
+    assert rnnt_loss_cuda.launches == {k: c + 1 for k, c in before.items()}
+    p_nll, p_grad = _rnnt_loss_grad(x, tgt, il, ul, blank, "xla")
+    d_nll, d_grad = _rnnt_loss_grad(x.double(), tgt, il, ul, blank, "auto")
+    torch.testing.assert_close(k_nll, p_nll, atol=1e-4, rtol=2e-6)
+    torch.testing.assert_close(k_grad, p_grad, atol=1e-5, rtol=0)
+    torch.testing.assert_close(k_nll.double(), d_nll, atol=1e-4, rtol=1e-6)
+    torch.testing.assert_close(k_grad.double(), d_grad, atol=1e-4, rtol=0)
+    y = torch.nn.functional.pad(tgt.long(), (0, 1))
+    b_pl, l_pl = rnnt_loss_plain.planes(torch.log_softmax(x, -1), y,
+                                        ul.long(), blank)
+    tape, rcum = rnnt_loss_cuda.alpha(b_pl, l_pl)
+    p_tape, p_rcum = rnnt_loss_plain.alpha(b_pl, l_pl)
+    assert torch.equal(rcum, p_rcum)
+    torch.testing.assert_close(tape, p_tape, atol=1e-6, rtol=0)
+    rest = (il.long(), ul.long(), *rnnt_loss_plain.log_z(
+        b_pl, tape, rcum, il.long(), ul.long()))
+    got = rnnt_loss_cuda.posteriors(b_pl, l_pl, tape, rcum, *rest)
+    want = rnnt_loss_plain.posteriors(b_pl, l_pl, tape, rcum, *rest)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-6, rtol=0)
+
+
+def test_rnnt_loss_reaches_the_kernels(dev):
+    """rnnt_loss on CUDA float32 launches K8 once forward and K9 once
+    backward, from logits, log-probs and planes; float64 does not."""
+    x, tgt, il, ul = _rnnt_case(1, 3, 9, 4, 7, 0, dev)
+    for kw in ({}, {"from_logits": False}):
+        inp = x if kw == {} else torch.log_softmax(x, -1)
+        before = dict(rnnt_loss_cuda.launches)
+        xi = inp.detach().clone().requires_grad_(True)
+        rnnt_loss(xi, tgt, il, ul, **kw).backward()
+        assert rnnt_loss_cuda.launches == {k: c + 1
+                                           for k, c in before.items()}
+    before = dict(rnnt_loss_cuda.launches)
+    rnnt_loss(x.double(), tgt, il, ul)
+    assert rnnt_loss_cuda.launches == before
+    with pytest.raises(ValueError, match="pallas"):
+        rnnt_loss(x.double(), tgt, il, ul, implementation="pallas")
+    with pytest.raises(ValueError, match="float32"):
+        rnnt_loss_cuda.alpha(x[..., 0].double(), x[..., 1].double())
+
+
+def test_transducer_defaults_to_the_card(dev):
+    from end2end_tpu_torch import ConformerTransducer, TransducerConfig
+
+    model = ConformerTransducer(TransducerConfig(
+        vocab_size=8, n_mels=12, d_model=16, num_layers=1, num_heads=2,
+        conv_kernel=7, enc_dim=16, emb_dim=6, pred_hidden=10, joint_dim=12))
+    assert model.device.type == "cuda"
+    feats = torch.randn(2, 37, 12, device=dev)
+    lens = torch.tensor([37, 29], device=dev)
+    before = dict(rnnt_loss_cuda.launches)
+    model.loss(feats, lens, [[1, 2, 3], [4, 5, 0]], [3, 2]).backward()
+    assert rnnt_loss_cuda.launches == {k: c + 1 for k, c in before.items()}
+    tokens, lengths, scores = model.decode(feats, lens, max_symbols=8)
+    assert tokens.shape == (2, 8) and torch.isfinite(scores).all()
