@@ -1,5 +1,6 @@
-"""Drive the PyTorch/CUDA port's serving and training paths (CTC and
-transducer) once on one GPU and check them.
+"""Drive the PyTorch/CUDA port's serving and training paths (CTC,
+transducer and the fused transducer joint) once on one GPU and check
+them.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -81,16 +82,38 @@ Phases (every failure raises, so the exit code is nonzero):
      the count of requests decoding alike on the card and the CPU);
  17. timings: K8, K9 and their twins at the training and bench shapes,
      the loss+gradient at the bench shape (also as lattice cells/s), the
-     transducer train step with its parts, and the greedy decode.
+     transducer train step with its parts, and the greedy decode;
+ 18. the online-softmax fused joint's kernels K10 (forward), K11 (dh) and
+     K12 (dW, db) vs their plain twins on the card at JAX's test problem
+     (R=56, J=8, V=11), V=13 with blank 5, V=1100 with J=16, blank 600
+     and R=1000, and the JAX bench row (B=8, T=400, U=80, V=32768, J=128:
+     R=259,200), with the DP's real cotangents: planes, m and log s
+     within 1e-5, dh, dW and db within 1e-3 of each tensor's max;
+ 19. the fused-joint slice: 3 AdamW steps on enc_proj, pred_proj, w_out
+     and b_out at the bench row (bench.py's draw) through
+     `rnnt_nll_fused_pallas` with a mean loss; the counters must show K10,
+     K11, K12, K8 and K9 once per step and every loss finite and > 0; on
+     step 1 the NLL within 2e-3 relative of the float32 chunked
+     `rnnt_nll_fused` (chunk_t 8) and the four gradients with cosine >
+     0.995 and within 1.5e-2 (of each tensor's max) of the bf16-joint
+     chunked loss's;
+ 20. timings at the bench row: K10, K11, K12 and their twins, the bf16
+     torch.matmul products of each (row-blocked, the library yardstick),
+     the fused loss+gradient, its torch work outside the kernels (the
+     activation forward and backward, the bf16 casts) and the float32
+     chunked loss+gradient (the two losses also as lattice cells/s).
 The line before the last is the card's name and power limit; the line
-before it the per-kernel JSON (with each kernel's bound: the larger of its
-bytes over 3.35 TB/s and its operations over 67 TFLOP/s float32); the last
-line is the JSON result.  It imports nothing of JAX.
+before it the per-kernel JSON (with each kernel's bound: the largest of
+its bytes over 3.35 TB/s, its float32 operations over 67 TFLOP/s, its bf16
+tensor-core operations over 989 TFLOP/s and its exps over 16 per SM clock
+on 132 SMs at the max SM clock); the last line is the JSON result.  It
+imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import statistics
 import subprocess
@@ -105,11 +128,15 @@ from end2end_tpu_torch import (ConformerCTCPipeline, ConformerTransducer,
 from end2end_tpu_torch.models.frontend import log_mel_spectrogram, num_frames
 from end2end_tpu_torch.ops import (beam_chunked, beam_search_cuda,
                                    ctc_common, ctc_loss_cuda, ctc_loss_plain,
+                                   rnnt_joint_cuda, rnnt_joint_plain,
                                    rnnt_loss_cuda, rnnt_loss_plain, topk_cuda)
 from end2end_tpu_torch.ops.beam_search import beam_search_decode
 from end2end_tpu_torch.ops.ctc_loss import ctc_nll
 from end2end_tpu_torch.ops.rnnt_decode import rnnt_greedy_decode
-from end2end_tpu_torch.ops.rnnt_loss import rnnt_nll
+from end2end_tpu_torch.ops.rnnt_joint import rnnt_nll_fused_pallas
+from end2end_tpu_torch.ops.rnnt_loss import (fused_additive_joint, rnnt_nll,
+                                             rnnt_nll_from_planes,
+                                             rnnt_nll_fused)
 from end2end_tpu_torch.ops.lm import (NGramLM, QuantizedBigramGuide,
                                       WordNGramLM, bigram_from_counts)
 from end2end_tpu_torch.utils import cuda_build
@@ -143,10 +170,36 @@ RNNT_POST_TOL = 1e-6
 RNNT_F64_TOL = 1e-4
 LM_ALPHA, LM_BETA = 0.6, 0.3  # LM weight and insertion bonus
 CHUNK_T = 128  # frames per chunk of the chunked LM decode
-# H100 SXM data sheet: HBM bandwidth and float32 rate outside the tensor
-# cores, the yardsticks of each kernel's bound
+JOINT_SHAPES = {  # name: (N, T, U, V, J, blank, bias scale); R = N T (U+1)
+    "JAX test problem": (2, 7, 3, 11, 8, 0, 0.1),  # test_rnnt_joint_pallas
+    "V=13, blank=5": (2, 7, 3, 13, 8, 5, 0.1),
+    "V=1100, J=16, blank=600, R=1000": (2, 25, 19, 1100, 16, 600, 0.1),
+    "bench": (8, 400, 80, 32768, 128, 0, 0.0),  # bench_rnnt_fused_pallas
+}
+# K10-K12 vs their plain twins on the card: the forward outputs within 1e-5
+# (float32 sums in other orders and __expf; 2.4e-6 at the bench row on an
+# H100); dh, dW and db within 1e-3 of each tensor's max (a last-bit
+# difference of the float32 d can round it to the neighbouring bf16 value)
+JOINT_FWD_TOL = 1e-5
+JOINT_GRAD_RTOL = 1e-3
+JOINT_PLAIN_ROWS = 1 << 15  # the twins' row block at the bench row (memory)
+# the fused joint vs the float32 and the bf16-joint chunked loss (step 1 of
+# phase 19): tests/test_rnnt_joint_pallas.py's budget, its gradient
+# tolerance of 1.5e-2 taken of each tensor's max (the test's gradients are
+# O(1); at the bench row w_out's sums 259,200 rows and reaches O(100), and
+# the error, from the bf16 rounding of d, grows with it)
+FUSED_NLL_RTOL = 2e-3
+FUSED_GRAD_COS = 0.995
+FUSED_GRAD_RTOL = 1.5e-2
+FUSED_CHUNK_T = 8  # frames per chunk of the float32 reference (0.7 GB)
+# H100 SXM data sheet: HBM bandwidth, the float32 rate outside the tensor
+# cores and the dense bf16 tensor-core rate, the yardsticks of each
+# kernel's bound; the exp rate is 16 a clock on each of 132 SMs at the
+# card's max SM clock (exp_per_s)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
+N_SMS, EXP_PER_SM_CLOCK = 132, 16
 BEAM_COUNTERS = ("launches", "launches_lm", "launches_cls",
                  "launches_resume")
 
@@ -180,6 +233,12 @@ def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+def time_plain(fn) -> float:
+    """Device time of one call of a plain twin in ms: its Python loop takes
+    0.1-10 s and is only a yardstick, so one run, no warm-up."""
+    return time_ms(fn, reps=1, warmup=0)
+
+
 def peaked_lattice(rng, t, b, v):
     """Log-probs with one dominant token per frame (blank half the time)
     over a noisy background: the regime a trained CTC model produces."""
@@ -190,13 +249,28 @@ def peaked_lattice(rng, t, b, v):
     return x.astype(np.float32)
 
 
-def bound(nbytes: float, nops: float):
+@functools.cache
+def exp_per_s() -> float:
+    """The card's exp rate: 16 a clock per SM at the max SM clock."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return N_SMS * EXP_PER_SM_CLOCK * mhz * 1e6
+
+
+def bound(nbytes: float, nops: float = 0.0, tensor_ops: float = 0.0,
+          exps: float = 0.0):
     """(ms, what bounds it): the least time the card could take to move
-    `nbytes` and do `nops` float32 operations."""
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = nops / FP32_OPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                           "operations")
+    `nbytes`, do `nops` float32 operations, `tensor_ops` bf16 tensor-core
+    operations and `exps` exponentials."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "operations": nops / FP32_OPS_PER_S,
+             "bf16 tensor ops": tensor_ops / BF16_TC_OPS_PER_S,
+             "exp": exps / exp_per_s() if exps else 0.0}
+    what = max(times, key=times.get)
+    return times[what] * 1e3, what
 
 
 def topk_bound(x, k):
@@ -607,20 +681,20 @@ def time_ctc(name, lp, tgt, il, tl):
     ms = {
         f"ctc_alpha_{name}": time_ms(
             lambda: ctc_loss_cuda.alpha_cuda(lp, tgt, il, tl)),
-        f"ctc_alpha_plain_{name}": time_ms(
+        f"ctc_alpha_plain_{name}": time_plain(
             lambda: ctc_loss_plain.forward_scan(
                 ctc_common.gather_lp_ext(lp, tables), tables.skip2, il64,
                 tl64)),
         f"ctc_beta_{name}": time_ms(
             lambda: ctc_loss_cuda.beta_cuda(lp, tgt, il, tl, fwd[2], fwd[3],
                                             fwd[0], fwd[1])),
-        f"ctc_beta_plain_{name}": time_ms(
+        f"ctc_beta_plain_{name}": time_plain(
             lambda: ctc_loss_plain.backward_scan(
                 lp_ext, pfwd[2], pfwd[3], pfwd[4], pfwd[1], tables, il64,
                 tl64)),
         f"ctc_loss_grad_{name}": time_ms(
             lambda: nll_and_grad(lp, tgt, il, tl, "pallas")),
-        f"ctc_loss_grad_plain_{name}": time_ms(
+        f"ctc_loss_grad_plain_{name}": time_plain(
             lambda: nll_and_grad(lp, tgt, il, tl, "xla")),
         f"ctc_library_fwd_{name}": time_ms(
             lambda: library_ctc(lp, tgt, il64, tl64, grad=False)),
@@ -880,6 +954,149 @@ def decode_steps(model, feats, lens):
     return calls[0]
 
 
+def joint_problem(rng, dev, n, t, u, v, j, blank, bias):
+    """bench.py's draw for the fused joint (bench_rnnt_fused_pallas):
+    enc_proj and pred_proj standard normal, w_out ~ N(0, 1)/sqrt(J), b_out
+    `bias` x N(0, 1) (0 at the bench row), targets in [0, V) without the
+    blank, full lengths.  Float32 tensors on the card."""
+    enc = rng.standard_normal((n, t, j))
+    pred = rng.standard_normal((n, u + 1, j))
+    w = rng.standard_normal((j, v)) / np.sqrt(j)
+    b = bias * rng.standard_normal(v)
+    tgt = rng.integers(1, v, (n, u))
+    tgt = np.where(tgt == blank, (blank + 1) % v, tgt).astype(np.int32)
+    lens = (np.full(n, t, np.int32), np.full(n, u, np.int32))
+    return ([torch.from_numpy(x.astype(np.float32)).to(dev)
+             for x in (enc, pred, w, b)],
+            *(torch.from_numpy(x).to(dev) for x in (tgt, *lens)))
+
+
+def joint_inputs(enc, pred, w, b, tgt, blank):
+    """The (h, w, b, y, blank) the fused joint's kernels see."""
+    n, t, j = enc.shape
+    up = pred.shape[1]
+    h = torch.tanh(enc[:, :, None] + pred[:, None]).reshape(-1, j)
+    y = torch.nn.functional.pad(tgt.long(), (0, up - tgt.shape[1]))
+    y = y[:, None, :].expand(n, t, up).reshape(-1).to(torch.int32)
+    return h, w, b, y, blank
+
+
+def joint_cotangents(args, il, ul, shape):
+    """The forward's m, log s and the DP's cotangents of the two planes
+    (the plain twin's planes through the DP; gb, gl = -posteriors)."""
+    b_pl, l_pl, m, logs = rnnt_joint_plain.joint_fwd(
+        *args, rows=JOINT_PLAIN_ROWS)
+    planes = [p.reshape(shape).requires_grad_(True) for p in (b_pl, l_pl)]
+    rnnt_nll_from_planes(*planes, il, ul).sum().backward()
+    return m, logs, planes[0].grad.reshape(-1), planes[1].grad.reshape(-1)
+
+
+def rel_max_err(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-6))
+
+
+def check_joint(args, stats, what):
+    """K10, K11, K12 vs their plain twins on the card.  Returns the max
+    abs errors (forward, dh, dW/db)."""
+    got = rnnt_joint_cuda.joint_fwd(*args)
+    want = rnnt_joint_plain.joint_fwd(*args, rows=JOINT_PLAIN_ROWS)
+    dh = rnnt_joint_cuda.joint_dh(*args, *stats)
+    p_dh = rnnt_joint_plain.joint_dh(*args, *stats, rows=JOINT_PLAIN_ROWS)
+    dw = rnnt_joint_cuda.joint_dw(*args, *stats)
+    p_dw = rnnt_joint_plain.joint_dw(*args, *stats, rows=JOINT_PLAIN_ROWS)
+    torch.cuda.synchronize()
+    fwd_err = max(float((g - p).abs().max()) for g, p in zip(got, want))
+    rel = [rel_max_err(dh, p_dh)] + [rel_max_err(g, p)
+                                     for g, p in zip(dw, p_dw)]
+    log(f"{what}: K10 vs plain max abs err {fwd_err:.3g} (planes, m, log "
+        f"s); K11 dh {rel[0]:.3g}, K12 dW {rel[1]:.3g}, db {rel[2]:.3g} of "
+        "each tensor's max")
+    if fwd_err > JOINT_FWD_TOL or not all(torch.isfinite(g).all()
+                                          for g in got):
+        raise AssertionError(f"{what}: K10 vs plain, err {fwd_err}")
+    if max(rel) > JOINT_GRAD_RTOL:
+        raise AssertionError(f"{what}: K11/K12 vs plain, errs {rel}")
+    return (fwd_err, float((dh - p_dh).abs().max()),
+            max(float((g - p).abs().max()) for g, p in zip(dw, p_dw)))
+
+
+def fused_grads(loss_fn, params):
+    """The mean loss and the four gradients of loss_fn(*params)."""
+    xs = [p.detach().clone().requires_grad_(True) for p in params]
+    nll = loss_fn(*xs)
+    nll.mean().backward()
+    return nll.detach(), [x.grad for x in xs]
+
+
+def cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()).clamp(min=1e-30))
+
+
+def check_fused_slice(params, tgt, il, ul):
+    """Step 1 of the slice: the fused joint's NLL vs the float32 chunked
+    loss, and its gradients vs the bf16-joint chunked loss's."""
+    enc, pred, w, b = params
+    with torch.no_grad():
+        ref = rnnt_nll_fused(enc, pred, fused_additive_joint(w, b), tgt, il,
+                             ul, chunk_t=FUSED_CHUNK_T)
+    got, grads = fused_grads(
+        lambda *x: rnnt_nll_fused_pallas(*x, tgt, il, ul), params)
+    _, ref_grads = fused_grads(
+        lambda e, p, ww, bb: rnnt_nll_fused(
+            e, p, fused_additive_joint(ww, bb, matmul_dtype="bfloat16"), tgt,
+            il, ul, chunk_t=FUSED_CHUNK_T), params)
+    nll_rel = float(((got - ref).abs() / ref.abs()).max())
+    log(f"phase 19 step 1: NLL {got.tolist()} vs float32 chunked "
+        f"{ref.tolist()}: max rel err {nll_rel:.3g}")
+    if nll_rel > FUSED_NLL_RTOL or not torch.isfinite(got).all():
+        raise AssertionError(f"fused joint NLL vs float32: {nll_rel}")
+    worst = (1.0, 0.0)
+    for name, g, r in zip(("enc_proj", "pred_proj", "w_out", "b_out"), grads,
+                          ref_grads):
+        cos, err = cosine(g, r), rel_max_err(g, r)
+        log(f"phase 19 step 1 gradient {name}: cosine {cos:.6f}, max abs "
+            f"err {float((g - r).abs().max()):.3g} = {err:.3g} of the max "
+            f"{float(r.abs().max()):.3g}, vs the bf16-joint chunked loss")
+        worst = (min(worst[0], cos), max(worst[1], err))
+    if worst[0] < FUSED_GRAD_COS or worst[1] > FUSED_GRAD_RTOL:
+        raise AssertionError(f"fused joint gradients: {worst}")
+    return nll_rel, worst
+
+
+def joint_bound(args, kernel):
+    """K10 reads h, W, b and y and writes four (R,) rows; K11 and K12 also
+    read m, log s, gb, gl, K11 writes dh (R, J) and K12 dW, db.  K10 does
+    2 R J V bf16 tensor-core operations, K11 and K12 twice that (the
+    logits again, then d W^T or h^T d); each does R V exps."""
+    h, w, _, _, _ = args
+    r, j = h.shape
+    v = w.shape[1]
+    inputs = (r * j + j * v + v + r) * 4
+    nbytes = {"fwd": inputs + 4 * r * 4,
+              "dh": inputs + 4 * r * 4 + r * j * 4,
+              "dw": inputs + 4 * r * 4 + (j * v + v) * 4}[kernel]
+    flops = (2 if kernel == "fwd" else 4) * r * j * v
+    return bound(nbytes, tensor_ops=flops, exps=r * v)
+
+
+def library_joint(args, kernel, rows=1 << 14):
+    """The bf16 torch.matmul products of one kernel, row-blocked (the
+    yardstick only): the logits h W and, for K10, their logsumexp; for K11
+    also (logits) W^T, for K12 also h^T (logits)."""
+    h, w = args[0].to(torch.bfloat16), args[1].to(torch.bfloat16)
+    acc = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+    for r0 in range(0, h.shape[0], rows):
+        x = h[r0:r0 + rows] @ w
+        if kernel == "fwd":
+            torch.logsumexp(x, -1)
+        elif kernel == "dh":
+            x @ w.T
+        else:
+            acc += h[r0:r0 + rows].T @ x
+    return acc
+
+
 def main() -> None:
     # 1. the device
     if not torch.cuda.is_available():
@@ -984,8 +1201,9 @@ def main() -> None:
     lpk, ck, lpb, il_ref, s_cap_ref = beam_inputs
     ms["beam_ref"] = time_ms(lambda: beam_search_cuda.beam_step_cuda(
         lpk, ck, lpb, il_ref, 8, 16, s_cap_ref, 0))
-    ms["beam_plain_ref"] = time_ms(lambda: beam_search_cuda.beam_step_plain(
-        lpk, ck, lpb, il_ref, 8, 16, s_cap_ref, 0), warmup=0)
+    ms["beam_plain_ref"] = time_plain(
+        lambda: beam_search_cuda.beam_step_plain(lpk, ck, lpb, il_ref, 8, 16,
+                                                 s_cap_ref, 0))
     bp, score, _, _ = beam_search_cuda.beam_step_cuda(lpk, ck, lpb, il_ref,
                                                       8, 16, s_cap_ref, 0)
     ms["backtrace_ref"] = time_ms(lambda: beam_search_cuda.backtrace(
@@ -994,8 +1212,9 @@ def main() -> None:
     mlpb = lp_gpu[:, :, 0].contiguous()
     ms["beam_main"] = time_ms(lambda: beam_search_cuda.beam_step_cuda(
         mlpk, mck, mlpb, il, 8, 16, s_cap, 0))
-    ms["beam_plain_main"] = time_ms(lambda: beam_search_cuda.beam_step_plain(
-        mlpk, mck, mlpb, il, 8, 16, s_cap, 0))
+    ms["beam_plain_main"] = time_plain(
+        lambda: beam_search_cuda.beam_step_plain(mlpk, mck, mlpb, il, 8, 16,
+                                                 s_cap, 0))
     beam_b = beam_bound(mlpk, il, 8, 16)
     bp, score, _, _ = beam_search_cuda.beam_step_cuda(mlpk, mck, mlpb, il, 8,
                                                       16, s_cap, 0)
@@ -1157,9 +1376,8 @@ def main() -> None:
     margs = (mlpk, mck, mlpb, serve_il, W, K, s_cap, 0)
     ms["beam_lm_main"] = time_ms(
         lambda: beam_search_cuda.beam_step_cuda(*margs, inc=inc32))
-    ms["beam_lm_plain_main"] = time_ms(
-        lambda: beam_search_cuda.beam_step_plain(*margs, inc=inc32),
-        warmup=0)
+    ms["beam_lm_plain_main"] = time_plain(
+        lambda: beam_search_cuda.beam_step_plain(*margs, inc=inc32))
     lm_b = beam_bound(mlpk, serve_il, W, K, inc=inc32)
     first = {}  # the first chunk's kernel inputs, resumed from the start
     for name in ("word LM, V=29", "bigram LM + 63-class guide, V=1024"):
@@ -1174,8 +1392,8 @@ def main() -> None:
         args, kw = first[name]
         ms[f"beam_{key}_chunk"] = time_ms(
             lambda: beam_search_cuda.beam_step_cuda(*args, **kw))
-        ms[f"beam_{key}_plain_chunk"] = time_ms(
-            lambda: beam_search_cuda.beam_step_plain(*args, **kw), warmup=0)
+        ms[f"beam_{key}_plain_chunk"] = time_plain(
+            lambda: beam_search_cuda.beam_step_plain(*args, **kw))
     args, kw = first["word LM, V=29"]
     resume_b = beam_bound(args[0], args[3], W, K, resume=True)
     args, kw = first["bigram LM + 63-class guide, V=1024"]
@@ -1285,11 +1503,11 @@ def main() -> None:
         b_pl, l_pl, tape, rcum, *rest = dp
         ms[f"rnnt_alpha_{name}"] = time_ms(
             lambda: rnnt_loss_cuda.alpha(b_pl, l_pl))
-        ms[f"rnnt_alpha_plain_{name}"] = time_ms(
+        ms[f"rnnt_alpha_plain_{name}"] = time_plain(
             lambda: rnnt_loss_plain.alpha(b_pl, l_pl))
         ms[f"rnnt_posteriors_{name}"] = time_ms(
             lambda: rnnt_loss_cuda.posteriors(b_pl, l_pl, tape, rcum, *rest))
-        ms[f"rnnt_posteriors_plain_{name}"] = time_ms(
+        ms[f"rnnt_posteriors_plain_{name}"] = time_plain(
             lambda: rnnt_loss_plain.posteriors(b_pl, l_pl, tape, rcum,
                                                *rest))
         if name == "main":
@@ -1325,6 +1543,99 @@ def main() -> None:
             f"{cells / ms[k] / 1e3:.1f} M lattice cells/s")
     for k in ("transducer_step_b8_30s", "transducer_greedy_b8_30s"):
         log(f"phase 17 {k}: {8e3 / ms[k]:.1f} seq/s")
+
+    # 18. the fused joint's kernels K10-K12 vs their plain twins
+    joint_err = [0.0, 0.0, 0.0]
+    for name, (n, t, u, v, j, blank, bias) in JOINT_SHAPES.items():
+        params, tgt, il, ul = joint_problem(rng, dev, n, t, u, v, j, blank,
+                                            bias)
+        args = joint_inputs(*params, tgt, blank)
+        stats = joint_cotangents(args, il, ul, (n, t, u + 1))
+        errs = check_joint(args, stats, f"phase 18 {name} (R={n * t * (u + 1)}"
+                                        f", J={j}, V={v}, blank={blank})")
+        joint_err = [max(a, e) for a, e in zip(joint_err, errs)]
+
+    # 19. the fused-joint slice: 3 AdamW steps at the bench row (the last
+    # problem of phase 18)
+    params = [torch.nn.Parameter(x) for x in params]
+    fused_nll_err, fused_grad_err = check_fused_slice(params, tgt, il, ul)
+    opt = torch.optim.AdamW(params, lr=1e-3, weight_decay=1e-4)
+    torch.cuda.synchronize()
+    for counts in (rnnt_joint_cuda.launches, rnnt_loss_cuda.launches):
+        for k in counts:
+            counts[k] = 0
+    losses = []
+    for _ in range(3):
+        opt.zero_grad()
+        loss = rnnt_nll_fused_pallas(*params, tgt, il, ul).mean()
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    joint_launches = {**rnnt_joint_cuda.launches, **rnnt_loss_cuda.launches}
+    log(f"phase 19 fused joint: 3 AdamW steps at B={n}, T={t}, U={u}, "
+        f"V={v}, J={j}, losses {[round(x, 6) for x in losses]}, launches "
+        f"{joint_launches}")
+    if set(joint_launches.values()) != {3}:
+        raise AssertionError(
+            f"kernels missed on the fused-joint path: {joint_launches}")
+    if not all(np.isfinite(x) and x > 0 for x in losses):
+        raise AssertionError(f"bad fused-joint loss: {losses}")
+
+    # 20. fused-joint timings at the bench row
+    args = joint_inputs(*(p.detach() for p in params), tgt, blank)
+    stats = joint_cotangents(args, il, ul, (n, t, u + 1))
+    for kernel, fn in (("fwd", "joint_fwd"), ("dh", "joint_dh"),
+                       ("dw", "joint_dw")):
+        extra = () if kernel == "fwd" else stats
+        ms[f"joint_{kernel}_bench"] = time_ms(
+            lambda: getattr(rnnt_joint_cuda, fn)(*args, *extra))
+        ms[f"joint_{kernel}_plain_bench"] = time_plain(
+            lambda: getattr(rnnt_joint_plain, fn)(*args, *extra,
+                                                  rows=JOINT_PLAIN_ROWS))
+        ms[f"joint_{kernel}_library_bench"] = time_ms(
+            lambda: library_joint(args, kernel))
+    joint_b = {k: joint_bound(args, k) for k in ("fwd", "dh", "dw")}
+
+    def fused_loss_grad(loss_fn):
+        return lambda: fused_grads(loss_fn, params)
+
+    ms["fused_pallas_loss_grad_bench"] = time_ms(fused_loss_grad(
+        lambda *x: rnnt_nll_fused_pallas(*x, tgt, il, ul)))
+    ms["fused_f32_chunked_loss_grad_bench"] = time_ms(fused_loss_grad(
+        lambda e, p, ww, bb: rnnt_nll_fused(
+            e, p, fused_additive_joint(ww, bb), tgt, il, ul,
+            chunk_t=FUSED_CHUNK_T)))
+    gh = torch.ones((n, t, u + 1, j), device=dev)
+
+    def joint_glue():
+        """The torch work of one fused loss+gradient outside the kernels
+        (bar the label rows, 1 MB): the activation forward and backward,
+        and the bf16 casts of h and W made by each of the three kernel
+        calls."""
+        e, p = (x.detach().requires_grad_(True) for x in params[:2])
+        h = torch.tanh(e[:, :, None] + p[:, None])
+        h.backward(gh)
+        for _ in range(3):
+            h.detach().to(torch.bfloat16)
+            rnnt_joint_cuda._bf16_w(params[2].detach(), v)
+
+    ms["fused_glue_bench"] = time_ms(joint_glue)
+    cells = n * t * (u + 1)
+    for k in ("joint_fwd_bench", "joint_fwd_plain_bench",
+              "joint_fwd_library_bench", "joint_dh_bench",
+              "joint_dh_plain_bench", "joint_dh_library_bench",
+              "joint_dw_bench", "joint_dw_plain_bench",
+              "joint_dw_library_bench", "fused_pallas_loss_grad_bench",
+              "fused_glue_bench", "fused_f32_chunked_loss_grad_bench"):
+        log(f"phase 20 time {k}: {ms[k]:.3f} ms")
+    for k in ("fwd", "dh", "dw"):
+        log(f"phase 20 bound joint_{k}: {joint_b[k][0]:.3f} ms "
+            f"({joint_b[k][1]})")
+    for k in ("fused_pallas_loss_grad_bench",
+              "fused_f32_chunked_loss_grad_bench"):
+        log(f"phase 20 {k} (B={n}, T={t}, U={u}, V={v}, J={j}): "
+            f"{cells / ms[k] / 1e3:.1f} M lattice cells/s")
     log(json.dumps({"card": card, "ms": ms}))
 
     beam_src = "end2end_tpu_torch/csrc/beam_step.cu"
@@ -1332,6 +1643,8 @@ def main() -> None:
     ctc_src = "end2end_tpu_torch/csrc/ctc_loss.cu"
     rnnt_src = "end2end_tpu_torch/csrc/rnnt_loss.cu"
     rnnt_tpu = "end2end_tpu/ops/rnnt_loss_pallas.py"
+    joint_src = "end2end_tpu_torch/csrc/rnnt_joint.cu"
+    joint_tpu = "end2end_tpu/ops/rnnt_joint_pallas.py"
     rows = [  # name, source, replaces, launches, err, ms key, bound, library
         ("topk", "end2end_tpu_torch/csrc/topk.cu",
          "end2end_tpu/ops/topk_pallas.py:64", launches["topk"], topk_err,
@@ -1359,12 +1672,21 @@ def main() -> None:
         ("rnnt_posteriors", rnnt_src, f"{rnnt_tpu}:194",
          rnnt_launches["rnnt_posteriors"], rnnt_err[1],
          "rnnt_posteriors_main", rnnt_b[1], None),
+        ("rnnt_joint_fwd", joint_src, f"{joint_tpu}:78",
+         joint_launches["joint_fwd"], joint_err[0], "joint_fwd_bench",
+         joint_b["fwd"], ms["joint_fwd_library_bench"]),
+        ("rnnt_joint_dh", joint_src, f"{joint_tpu}:114",
+         joint_launches["joint_dh"], joint_err[1], "joint_dh_bench",
+         joint_b["dh"], ms["joint_dh_library_bench"]),
+        ("rnnt_joint_dw", joint_src, f"{joint_tpu}:152",
+         joint_launches["joint_dw"], joint_err[2], "joint_dw_bench",
+         joint_b["dw"], ms["joint_dw_library_bench"]),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": n, "max_abs_err": err, "ms": ms[key],
          "plain_ms": ms[key.replace("_main", "_plain_main").replace(
-             "_chunk", "_plain_chunk")],
+             "_chunk", "_plain_chunk").replace("_bench", "_plain_bench")],
          "bound_ms": b[0], "bound_by": b[1], "library_ms": lib}
         for name, src, rep, n, err, key, b, lib in rows]
     if any(k["launches"] < 1 for k in kernels):

@@ -6,11 +6,13 @@ beam-search CTC decoding, with LM shallow fusion (dense bigram in the
 kernel, class-keyed guides, chunked word-LM decoding, N-best rescoring,
 ARPA loading).  The Conformer-Transducer's training path and greedy
 decoding: the RNN-T loss and its gradient (from logits, log-probs or
-planes, and over a chunked never-materialised joint).  On CUDA tensors the
+planes, over a chunked never-materialised joint, and through the
+online-softmax fused joint `rnnt_nll_fused_pallas`).  On CUDA tensors the
 CTC loss runs two hand-written kernels (csrc/ctc_loss.cu), the beam search
 two more (csrc/topk.cu, csrc/beam_step.cu, whose beam kernel has the LM
-modes) and the RNN-T loss two (csrc/rnnt_loss.cu), built with nvcc at
-first use; on CPU tensors their plain torch versions.  Models and LMs are
+modes), the RNN-T loss two (csrc/rnnt_loss.cu) and the fused joint three
+(csrc/rnnt_joint.cu), built with nvcc at first use; on CPU tensors their
+plain torch versions.  Models and LMs are
 built on the card unless `device="cpu"` is passed.  This package imports
 torch and numpy, never jax or the JAX package.
 """
@@ -34,6 +36,7 @@ from .ops.lm import (
 )
 from .ops.rescore import rescore_nbest
 from .ops.rnnt_decode import rnnt_greedy_decode
+from .ops.rnnt_joint import rnnt_nll_fused_pallas
 from .ops.rnnt_loss import (
     RNNTLoss,
     fused_additive_joint,
@@ -76,4 +79,5 @@ __all__ = [
     "rnnt_nll",
     "rnnt_nll_from_planes",
     "rnnt_nll_fused",
+    "rnnt_nll_fused_pallas",
 ]

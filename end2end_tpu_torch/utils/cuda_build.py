@@ -52,6 +52,15 @@ _SIGNATURES = {
     # stream
     "e2e_rnnt_post_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                           _I, _I, _I, _VP),
+    # h, w, b, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, stream
+    "e2e_rnnt_joint_fwd": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _I,
+                           _I, _I, _I, _VP),
+    # h, w, b, y, m, logs, gb, gl, dh, R, J, V, Vp, blank, stream
+    "e2e_rnnt_joint_dh": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL,
+                          _I, _I, _I, _I, _VP),
+    # h, w, b, y, m, logs, gb, gl, dw, db, R, J, V, Vp, blank, stream
+    "e2e_rnnt_joint_dw": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                          _LL, _I, _I, _I, _I, _VP),
 }
 
 

@@ -11,10 +11,12 @@ import pytest
 import torch
 
 from end2end_tpu_torch.ops import (beam_search_cuda, ctc_loss_cuda,
+                                   rnnt_joint_cuda, rnnt_joint_plain,
                                    rnnt_loss_cuda, rnnt_loss_plain, topk_cuda)
 from end2end_tpu_torch.ops import lm as tlm
 from end2end_tpu_torch.ops.beam_search import beam_search_decode
 from end2end_tpu_torch.ops.ctc_loss import ctc_nll
+from end2end_tpu_torch.ops.rnnt_joint import rnnt_nll_fused_pallas
 from end2end_tpu_torch.ops.rnnt_loss import rnnt_loss, rnnt_nll
 
 pytestmark = pytest.mark.cuda
@@ -317,3 +319,98 @@ def test_transducer_defaults_to_the_card(dev):
     assert rnnt_loss_cuda.launches == {k: c + 1 for k, c in before.items()}
     tokens, lengths, scores = model.decode(feats, lens, max_symbols=8)
     assert tokens.shape == (2, 8) and torch.isfinite(scores).all()
+
+
+def _joint_case(seed, r, j, v, blank, dev):
+    """An activation h (R, J), the joint's W, b, labels y (R,), the forward's
+    statistics and random plane cotangents, on the card."""
+    rng = np.random.default_rng(seed)
+    h = np.tanh(rng.standard_normal((r, j)))
+    w = rng.standard_normal((j, v)) / np.sqrt(j)
+    b = 0.1 * rng.standard_normal(v)
+    y = rng.integers(0, v, r).astype(np.int32)
+    g = rng.random((2, r))
+    h, w, b, y, gb, gl = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                          for a in (h, w, b, y, g[0], g[1]))
+    h, w, b, gb, gl = (x.float() for x in (h, w, b, gb, gl))
+    m, logs = rnnt_joint_plain.joint_fwd(h, w, b, y, blank)[2:]
+    return (h, w, b, y, blank), (m, logs, gb, gl)
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-6))
+
+
+# (R, J, V, blank): JAX's test problem (n=2, t=7, u=3), V=13 with blank=5,
+# V=1100 with blank in the fifth tile and R not a multiple of 64, J not a
+# multiple of 8 (the kernels' scalar h loads) and the widest J
+@pytest.mark.parametrize("r,j,v,blank", [
+    (56, 8, 11, 0), (56, 8, 13, 5), (1000, 16, 1100, 600), (300, 6, 257, 256),
+    (130, 100, 40, 3), (200, 128, 300, 0)])
+def test_joint_kernels_match_plain(dev, r, j, v, blank):
+    """K10, K11, K12 vs their plain twins on the card: the forward within
+    1e-4; dh, dW and db within 1e-3 of each tensor's max (a last-bit
+    difference of the float32 d can round it to a neighbouring bf16)."""
+    args, stats = _joint_case(0, r, j, v, blank, dev)
+    before = dict(rnnt_joint_cuda.launches)
+    got = rnnt_joint_cuda.joint_fwd(*args)
+    want = rnnt_joint_plain.joint_fwd(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+    dh = rnnt_joint_cuda.joint_dh(*args, *stats)
+    dw, db = rnnt_joint_cuda.joint_dw(*args, *stats)
+    assert rnnt_joint_cuda.launches == {k: c + 1 for k, c in before.items()}
+    assert _rel_err(dh, rnnt_joint_plain.joint_dh(*args, *stats)) < 1e-3
+    p_dw, p_db = rnnt_joint_plain.joint_dw(*args, *stats)
+    assert _rel_err(dw, p_dw) < 1e-3 and _rel_err(db, p_db) < 1e-3
+    assert dh.shape == (r, j) and dw.shape == (j, v) and db.shape == (v,)
+
+
+def test_fused_pallas_reaches_the_kernels(dev):
+    """rnnt_nll_fused_pallas on CUDA float32 launches K10 once forward and
+    K11 and K12 once backward (K8 and K9 for the DP), and agrees with the
+    same function on the CPU (its plain twins)."""
+    rng = np.random.default_rng(5)
+    n, t, u, v, j = 3, 9, 4, 70, 16
+    arrays = (rng.standard_normal((n, t, j)),
+              rng.standard_normal((n, u + 1, j)),
+              rng.standard_normal((j, v)) / np.sqrt(j),
+              0.1 * rng.standard_normal(v))
+    tgt = rng.integers(1, v, (n, u)).astype(np.int32)
+    il, ul = np.array([9, 6, 9], np.int32), np.array([4, 2, 0], np.int32)
+    out = {}
+    for device in ("cpu", dev):
+        xs = [torch.tensor(a, dtype=torch.float32, device=device,
+                           requires_grad=True) for a in arrays]
+        before = (dict(rnnt_joint_cuda.launches),
+                  dict(rnnt_loss_cuda.launches))
+        nll = rnnt_nll_fused_pallas(*xs, tgt, il, ul)
+        nll.sum().backward()
+        after = (dict(rnnt_joint_cuda.launches), dict(rnnt_loss_cuda.launches))
+        step = int(device != "cpu")
+        assert after == tuple({k: c + step for k, c in d.items()}
+                              for d in before)
+        out[str(device)] = [nll.detach().cpu()] + [x.grad.cpu() for x in xs]
+    got, want = out[str(dev)], out["cpu"]
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=1e-5)
+    for g, w in zip(got[1:], want[1:]):
+        assert _rel_err(g, w) < 1e-3
+
+
+def test_joint_kernels_reject_what_they_cannot_run(dev):
+    args, stats = _joint_case(1, 40, 8, 20, 0, dev)
+    h, w, b, y, blank = args
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rnnt_joint_cuda.joint_fwd(h.cpu(), w.cpu(), b.cpu(), y.cpu(), blank)
+    with pytest.raises(ValueError, match="float32"):
+        rnnt_joint_cuda.joint_fwd(h.double(), w, b, y, blank)
+    with pytest.raises(ValueError, match="float32"):
+        rnnt_joint_cuda.joint_dh(*args, stats[0].double(), *stats[1:])
+    wide = torch.zeros((40, 129), device=dev)
+    with pytest.raises(ValueError, match="J=129"):
+        rnnt_joint_cuda.joint_fwd(wide, torch.zeros((129, 20), device=dev),
+                                  b, y, blank)
+    with pytest.raises(ValueError, match="contiguous"):
+        rnnt_joint_cuda.joint_fwd(h.T.contiguous().T, w, b, y, blank)
+    with pytest.raises(ValueError, match="blank"):
+        rnnt_joint_cuda.joint_fwd(h, w, b, y, 20)
