@@ -101,27 +101,58 @@ Phases (every failure raises, so the exit code is nonzero):
      torch.matmul products of each (row-blocked, the library yardstick),
      the fused loss+gradient, its torch work outside the kernels (the
      activation forward and backward, the bf16 casts) and the float32
-     chunked loss+gradient (the two losses also as lattice cells/s).
+     chunked loss+gradient (the two losses also as lattice cells/s);
+ 21. J > 128 (the kernels walk J in 128-row slabs): K10-K12 vs their
+     twins at J = 200, 256 and 320 (R=1000, V=1100, blank 600) and at the
+     bench row with J=256, to phase 18's tolerances; K10-K12 and their
+     twins timed at that bench row;
+ 22. the CTC gradient's combine kernel at the metric shape: two gradient
+     runs through K1, K2 and the combine bit-equal, and the combine within
+     1e-5 of the plain `scatter_add_` combine on the same gamma;
+ 23. the vocabulary-sharded kernels K10tp, K11tp, K12tp, D=4 shards run
+     one after another on the card, vs their TP twins (phase 18's
+     tolerances), and the shards combined (MAX and SUM in torch) vs
+     unsharded K10-K12: planes, m and log s within 1e-5, the summed
+     partial dh and the concatenated dW, db within 1e-3 of each tensor's
+     max; at V=16 with blank 9 (a middle shard owns it), V=1100 with J=16
+     and blank 600, and the bench row;
+ 24. the vocabulary-parallel slice: 4 processes, gloo ranks through the
+     host on the one card (`file://` rendezvous), each holding its shard
+     of w_out and b_out and its shard's AdamW state, take 3 steps through
+     `rnnt_nll_fused_pallas_vocab_parallel` at the bench row; every
+     rank's counters must show K10tp, K11tp, K12tp, K8 and K9 once per
+     step and no unsharded joint kernel; on step 1 the NLL within 1e-5
+     relative of the unsharded `rnnt_nll_fused_pallas` and the four
+     gradients (w_out's and b_out's the ranks' shards side by side) to
+     phase 19's bf16 budget; a rank that fails fails the run;
+ 25. timings at the bench row: K10tp-K12tp on each shard, their twins
+     (shard 0), the bf16 torch.matmul yardsticks at the shard's shape; and
+     the combine against the `scatter_add_` combine.
 The line before the last is the card's name and power limit; the line
 before it the per-kernel JSON (with each kernel's bound: the largest of
 its bytes over 3.35 TB/s, its float32 operations over 67 TFLOP/s, its bf16
 tensor-core operations over 989 TFLOP/s and its exps over 16 per SM clock
-on 132 SMs at the max SM clock); the last line is the JSON result.  It
+on 132 SMs at the max SM clock; `bound_by` says "bytes" or "operations",
+the log line which operations); the last line is the JSON result.  It
 imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import copy
+import datetime
 import functools
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from end2end_tpu_torch import (ConformerCTCPipeline, ConformerTransducer,
                                PipelineConfig, TransducerConfig)
@@ -133,7 +164,8 @@ from end2end_tpu_torch.ops import (beam_chunked, beam_search_cuda,
 from end2end_tpu_torch.ops.beam_search import beam_search_decode
 from end2end_tpu_torch.ops.ctc_loss import ctc_nll
 from end2end_tpu_torch.ops.rnnt_decode import rnnt_greedy_decode
-from end2end_tpu_torch.ops.rnnt_joint import rnnt_nll_fused_pallas
+from end2end_tpu_torch.ops.rnnt_joint import (
+    rnnt_nll_fused_pallas, rnnt_nll_fused_pallas_vocab_parallel)
 from end2end_tpu_torch.ops.rnnt_loss import (fused_additive_joint, rnnt_nll,
                                              rnnt_nll_from_planes,
                                              rnnt_nll_fused)
@@ -192,6 +224,26 @@ FUSED_NLL_RTOL = 2e-3
 FUSED_GRAD_COS = 0.995
 FUSED_GRAD_RTOL = 1.5e-2
 FUSED_CHUNK_T = 8  # frames per chunk of the float32 reference (0.7 GB)
+JOINT_WIDE_SHAPES = {  # J > 128: name as JOINT_SHAPES
+    "J=200 (a ragged slab)": (2, 25, 19, 1100, 200, 600, 0.1),
+    "J=256": (2, 25, 19, 1100, 256, 600, 0.1),
+    "J=320": (2, 25, 19, 1100, 320, 600, 0.1),
+    "bench, J=256": (8, 400, 80, 32768, 256, 0, 0.0),
+}
+TP_RANKS = 4  # vocabulary shards (D)
+TP_SHAPES = {  # the bench row is phase 20's problem
+    "V=16, blank 9": (2, 7, 3, 16, 8, 9, 0.1),
+    "V=1100, J=16, blank 600": (2, 25, 19, 1100, 16, 600, 0.1),
+}
+# the vocabulary-parallel slice's step 1 vs the unsharded kernels: the NLL
+# within 1e-5 relative (the same bf16 products; only the cross-shard order
+# of the sum-exp differs); the gradients to phase 19's bf16 budget
+# (FUSED_GRAD_COS, FUSED_GRAD_RTOL), since the last bits of log s differ
+# and flip the bf16 rounding of some d, and enc_proj's gradient sums U+1
+# rows of dh that mostly cancel (its max 0.05 against pred_proj's 5.9 at
+# the bench row), so one flip moves it by more of its own max
+TP_NLL_RTOL = 1e-5
+TP_TIMEOUT = datetime.timedelta(seconds=300)  # a stuck collective raises
 # H100 SXM data sheet: HBM bandwidth, the float32 rate outside the tensor
 # cores and the dense bf16 tensor-core rate, the yardsticks of each
 # kernel's bound; the exp rate is 16 a clock on each of 132 SMs at the
@@ -562,9 +614,8 @@ def kernel_outputs(lp, tgt, il, tl, every):
 def check_ctc(lp, tgt, il, tl, what):
     """K1/K2 (through ctc_nll) vs the plain float32 and float64 scans on
     the card, and the kernels' tape and checkpoint modes against each other
-    (bit-identical outputs; the gradient then goes through scatter_add_'s
-    atomics, so it is compared there with a tolerance).  Returns (loss
-    err, grad err)."""
+    (bit-identical outputs and gradients).  Returns (loss err, grad
+    err)."""
     k_loss, k_grad = nll_and_grad(lp, tgt, il, tl, "pallas")
     c_loss, c_grad = nll_and_grad(lp, tgt, il, tl, "pallas", every=64)
     p_loss, p_grad = nll_and_grad(lp, tgt, il, tl, "xla")
@@ -574,7 +625,7 @@ def check_ctc(lp, tgt, il, tl, what):
     if not (torch.equal(tape[0], ckpt[0]) and torch.equal(tape[1], ckpt[1])
             and torch.equal(c_loss, k_loss)):
         raise AssertionError(f"{what}: checkpoint mode != tape mode")
-    if float((c_grad - k_grad).abs().max()) > CTC_GRAD_TOL:
+    if not torch.equal(c_grad, k_grad):
         raise AssertionError(f"{what}: checkpoint-mode gradient differs")
     fin = torch.isfinite(p_loss)
     if not torch.equal(torch.isfinite(k_loss), fin):
@@ -604,7 +655,8 @@ def check_ctc(lp, tgt, il, tl, what):
                              f"both 1e-4 and torch's own {t_err}")
     log(f"{what}: K1/K2 vs plain loss err {loss_err:.3g}, grad err "
         f"{grad_err:.3g}; vs float64 grad err {k_err:.3g} (torch "
-        f"{t_err:.3g}); checkpoint_every=64: loss and gamma bit-identical")
+        f"{t_err:.3g}); checkpoint_every=64: loss, gamma and gradient "
+        "bit-identical")
     return loss_err, grad_err
 
 
@@ -671,11 +723,15 @@ def check_training_batch(pipe, batch):
 
 
 def time_ctc(name, lp, tgt, il, tl):
-    """K1 and K2 alone, the plain scans they replace (emission gather
-    included in both forward columns), and the whole loss+gradient."""
+    """K1, K2 and the combine alone, the plain scans and combine they
+    replace (emission gather included in both forward columns), and the
+    whole loss+gradient."""
     tables = ctc_common.build_ctc_tables(tgt, tl, 0, lp.shape[-1])
     il64, tl64 = il.long(), tl.long()
     fwd = ctc_loss_cuda.alpha_cuda(lp, tgt, il, tl)
+    gamma = ctc_loss_cuda.beta_cuda(lp, tgt, il, tl, fwd[2], fwd[3], fwd[0],
+                                    fwd[1])
+    g = torch.ones(lp.shape[1], device=lp.device)
     lp_ext = ctc_common.gather_lp_ext(lp, tables)
     pfwd = ctc_loss_plain.forward_scan(lp_ext, tables.skip2, il64, tl64)
     ms = {
@@ -692,6 +748,11 @@ def time_ctc(name, lp, tgt, il, tl):
             lambda: ctc_loss_plain.backward_scan(
                 lp_ext, pfwd[2], pfwd[3], pfwd[4], pfwd[1], tables, il64,
                 tl64)),
+        f"ctc_grad_{name}": time_ms(
+            lambda: ctc_loss_cuda.grad_cuda(lp, tgt, il, tl, gamma, g)),
+        f"ctc_grad_plain_{name}": time_plain(
+            lambda: ctc_loss_plain.nll_grad(lp, gamma, tables.ext_labels,
+                                            il64, g)),
         f"ctc_loss_grad_{name}": time_ms(
             lambda: nll_and_grad(lp, tgt, il, tl, "pallas")),
         f"ctc_loss_grad_plain_{name}": time_plain(
@@ -1097,6 +1158,205 @@ def library_joint(args, kernel, rows=1 << 14):
     return acc
 
 
+def ctc_grad_bound(lp, tgt, il, tl):
+    """The combine writes the (T, N, V) gradient, reads the log-probs and
+    gamma of each running frame (t < il) and the targets; one exp per
+    running frame and column."""
+    t_max, n, v = lp.shape
+    il = il.long().clamp(0, t_max)
+    frames = int(il.sum())
+    states = int((il * (2 * tl.long().clamp(0, tgt.shape[1]) + 1)).sum())
+    nbytes = t_max * n * v * 4 + frames * v * 4 + states * 4 + tgt.numel() * 4
+    return bound(nbytes, frames * v, exps=frames * v)
+
+
+def check_ctc_determinism(lp, tgt, il, tl, what):
+    """Two gradients through K1, K2 and the combine bit-equal; the combine
+    vs the plain combine on the same gamma.  Returns its max abs err."""
+    runs = [nll_and_grad(lp, tgt, il, tl, "pallas")[1] for _ in range(2)]
+    z, ne, a, an = ctc_loss_cuda.alpha_cuda(lp, tgt, il, tl)
+    gamma = ctc_loss_cuda.beta_cuda(lp, tgt, il, tl, a, an, z, ne)
+    g = torch.ones(lp.shape[1], device=lp.device)
+    got = ctc_loss_cuda.grad_cuda(lp, tgt, il, tl, gamma, g)
+    ext = ctc_common.build_ctc_tables(tgt, tl, 0, lp.shape[-1]).ext_labels
+    want = ctc_loss_plain.nll_grad(lp, gamma, ext, il.long(), g)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    log(f"{what}: two gradients bit-equal: {torch.equal(*runs)}; the "
+        f"combine vs the plain scatter_add_ combine max abs err {err:.3g}")
+    if not (torch.equal(*runs) and torch.equal(got, runs[0])):
+        raise AssertionError(f"{what}: the CTC gradient is not deterministic")
+    if err > CTC_GRAD_TOL:
+        raise AssertionError(f"{what}: the combine vs plain, err {err}")
+    return err
+
+
+def tp_shard(args, rank):
+    """Rank `rank`'s (h, w, b, y, blank) of D=TP_RANKS: its W and b
+    columns, the labels and blank shard-relative (-1 elsewhere)."""
+    h, w, b, y, blank = args
+    vl = w.shape[1] // TP_RANKS
+    lo = rank * vl
+    y = torch.where((y >= lo) & (y < lo + vl), y - lo, -1).to(torch.int32)
+    return (h, w[:, lo:lo + vl].contiguous(), b[lo:lo + vl].contiguous(),
+            y, blank - lo if lo <= blank < lo + vl else -1)
+
+
+def check_joint_tp(args, stats, what):
+    """K10tp, K11tp, K12tp on each shard vs their TP twins, and the shards
+    combined vs K10-K12 unsharded.  Returns the max abs errors vs the
+    twins (forward, dh, dW/db)."""
+    errs = [0.0, 0.0, 0.0]
+    fwd, dh, dw, db = [], 0.0, [], []
+    for rank in range(TP_RANKS):
+        shard = tp_shard(args, rank)
+        got = rnnt_joint_cuda.joint_fwd_tp(*shard)
+        want = rnnt_joint_plain.joint_fwd_tp(*shard, rows=JOINT_PLAIN_ROWS)
+        s_dh = rnnt_joint_cuda.joint_dh_tp(*shard, *stats)
+        p_dh = rnnt_joint_plain.joint_dh_tp(*shard, *stats,
+                                            rows=JOINT_PLAIN_ROWS)
+        s_dw = rnnt_joint_cuda.joint_dw_tp(*shard, *stats)
+        p_dw = rnnt_joint_plain.joint_dw_tp(*shard, *stats,
+                                            rows=JOINT_PLAIN_ROWS)
+        torch.cuda.synchronize()
+        fwd_err = max(float((g - p).abs().max()) for g, p in zip(got, want))
+        rel = [rel_max_err(s_dh, p_dh)] + [rel_max_err(g, p)
+                                           for g, p in zip(s_dw, p_dw)]
+        if fwd_err > JOINT_FWD_TOL or max(rel) > JOINT_GRAD_RTOL:
+            raise AssertionError(f"{what} shard {rank}: K10tp-K12tp vs their"
+                                 f" twins, errs {fwd_err}, {rel}")
+        errs = [max(errs[0], fwd_err),
+                max(errs[1], float((s_dh - p_dh).abs().max())),
+                max([errs[2]] + [float((g - p).abs().max())
+                                 for g, p in zip(s_dw, p_dw)])]
+        fwd.append(got)
+        dh, dw, db = dh + s_dh, dw + [s_dw[0]], db + [s_dw[1]]
+    xb, xy, m_l, logs_l = (torch.stack(c) for c in zip(*fwd))
+    m = m_l.amax(0)
+    logs = torch.log(torch.exp(logs_l + (m_l - m)).sum(0))
+    combined = ((xb.sum(0) - m) - logs, (xy.sum(0) - m) - logs, m, logs)
+    whole = rnnt_joint_cuda.joint_fwd(*args)
+    u_dh = rnnt_joint_cuda.joint_dh(*args, *stats)
+    u_dw, u_db = rnnt_joint_cuda.joint_dw(*args, *stats)
+    torch.cuda.synchronize()
+    c_err = max(float((g - p).abs().max()) for g, p in zip(combined, whole))
+    c_rel = [rel_max_err(dh, u_dh), rel_max_err(torch.cat(dw, 1), u_dw),
+             rel_max_err(torch.cat(db), u_db)]
+    log(f"{what}: K10tp-K12tp vs their twins max abs errs {errs[0]:.3g} "
+        f"(forward), {errs[1]:.3g} (dh), {errs[2]:.3g} (dW, db); the {TP_RANKS}"
+        f" shards combined vs K10-K12 unsharded: forward {c_err:.3g}, summed "
+        f"dh {c_rel[0]:.3g}, dW {c_rel[1]:.3g}, db {c_rel[2]:.3g} of each "
+        "tensor's max")
+    if c_err > JOINT_FWD_TOL or max(c_rel) > JOINT_GRAD_RTOL:
+        raise AssertionError(f"{what}: shards combined vs unsharded, errs "
+                             f"{c_err}, {c_rel}")
+    return errs
+
+
+def tp_rank(rank, tmp):
+    """One rank of the vocabulary-parallel slice (a spawned process): 3
+    AdamW steps on its shard through rnnt_nll_fused_pallas_vocab_parallel;
+    the counters, losses, step times and step 1's NLL and gradients to
+    tmp/rank{rank}.pt."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
+                            world_size=TP_RANKS, rank=rank,
+                            timeout=TP_TIMEOUT)
+    try:
+        dev = torch.device("cuda", 0)
+        prob = torch.load(f"{tmp}/problem.pt")
+        enc, pred, w, b, tgt, il, ul = (prob[k].to(dev) for k in (
+            "enc", "pred", "w", "b", "tgt", "il", "ul"))
+        v = w.shape[1]
+        vl = v // TP_RANKS
+        lo = rank * vl
+        params = [torch.nn.Parameter(x) for x in (
+            enc, pred, w[:, lo:lo + vl].clone(), b[lo:lo + vl].clone())]
+        opt = torch.optim.AdamW(params, lr=1e-3, weight_decay=1e-4)
+
+        def full(x):  # this rank's shard in place, zeros elsewhere
+            return torch.nn.functional.pad(x, (lo, v - lo - vl))
+
+        counters = (rnnt_joint_cuda.launches, rnnt_loss_cuda.launches)
+        torch.cuda.synchronize()
+        for counts in counters:
+            for k in counts:
+                counts[k] = 0
+        losses, step_s, first = [], [], None
+        for step in range(3):
+            dist.barrier()
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            nll = rnnt_nll_fused_pallas_vocab_parallel(
+                params[0], params[1], full(params[2]), full(params[3]), tgt,
+                il, ul)
+            nll.mean().backward()
+            if step == 0:
+                first = [nll.detach().clone()] + [p.grad.clone()
+                                                  for p in params]
+            opt.step()
+            losses.append(nll.mean().item())
+            step_s.append(time.perf_counter() - t0)
+        launches = {**counters[0], **counters[1]}
+        torch.save({"launches": launches, "losses": losses,
+                    "step_s": step_s, "first": [x.cpu() for x in first]},
+                   f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def check_tp_slice(params, tgt, il, ul):
+    """Phase 24: spawn the ranks, hold step 1 against the unsharded fused
+    loss.  Returns (the ranks' results, NLL rel err, worst gradient err)."""
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as tmp:
+        torch.save({"enc": params[0].detach().cpu(),
+                    "pred": params[1].detach().cpu(),
+                    "w": params[2].detach().cpu(),
+                    "b": params[3].detach().cpu(), "tgt": tgt.cpu(),
+                    "il": il.cpu(), "ul": ul.cpu()}, f"{tmp}/problem.pt")
+        t0 = time.perf_counter()
+        mp.spawn(tp_rank, args=(tmp,), nprocs=TP_RANKS, join=True)
+        wall = time.perf_counter() - t0
+        res = [torch.load(f"{tmp}/rank{r}.pt") for r in range(TP_RANKS)]
+    ref, ref_grads = fused_grads(
+        lambda *x: rnnt_nll_fused_pallas(*x, tgt, il, ul), params)
+    ref, ref_grads = ref.cpu(), [g.cpu() for g in ref_grads]
+    firsts = [r["first"] for r in res]
+    for r, f in enumerate(firsts):
+        if not all(torch.equal(a, c) for a, c in zip(f[:3], firsts[0][:3])):
+            raise AssertionError(f"rank {r}'s NLL or enc/pred gradient "
+                                 "differs from rank 0's")
+    got = firsts[0][0]
+    grads = [firsts[0][1], firsts[0][2], torch.cat([f[3] for f in firsts], 1),
+             torch.cat([f[4] for f in firsts])]
+    nll_rel = float(((got - ref).abs() / ref.abs()).max())
+    errs = [rel_max_err(g, w) for g, w in zip(grads, ref_grads)]
+    cos = min(cosine(g, w) for g, w in zip(grads, ref_grads))
+    log(f"phase 24 {TP_RANKS} gloo ranks on one card, spawned and joined in "
+        f"{wall:.1f} s; step 1 vs the unsharded rnnt_nll_fused_pallas: NLL "
+        f"max rel err {nll_rel:.3g}; gradients enc_proj {errs[0]:.3g}, "
+        f"pred_proj {errs[1]:.3g}, w_out {errs[2]:.3g}, b_out {errs[3]:.3g} "
+        f"of each tensor's max, least cosine {cos:.8f}")
+    if nll_rel > TP_NLL_RTOL or not torch.isfinite(got).all():
+        raise AssertionError(f"TP slice NLL vs unsharded: {nll_rel}")
+    if max(errs) > FUSED_GRAD_RTOL or cos < FUSED_GRAD_COS:
+        raise AssertionError(f"TP slice gradients vs unsharded: {errs}, "
+                             f"cosine {cos}")
+    want = {"joint_fwd": 0, "joint_dh": 0, "joint_dw": 0, "joint_fwd_tp": 3,
+            "joint_dh_tp": 3, "joint_dw_tp": 3, "rnnt_alpha": 3,
+            "rnnt_posteriors": 3}
+    for r, x in enumerate(res):
+        log(f"phase 24 rank {r}: losses {[round(v, 6) for v in x['losses']]}"
+            f", step wall s {[round(v, 4) for v in x['step_s']]}, launches "
+            f"{x['launches']}")
+        if x["launches"] != want:
+            raise AssertionError(f"rank {r}: kernels missed on the TP path: "
+                                 f"{x['launches']}")
+        if not all(np.isfinite(v) and v > 0 for v in x["losses"]):
+            raise AssertionError(f"rank {r}: bad TP loss {x['losses']}")
+    return res, nll_rel, max(errs)
+
+
 def main() -> None:
     # 1. the device
     if not torch.cuda.is_available():
@@ -1266,7 +1526,7 @@ def main() -> None:
     train_launches = dict(ctc_loss_cuda.launches)
     log(f"phase 9 training: 3 AdamW steps x 8 requests, losses "
         f"{[round(x, 6) for x in losses]}, launches {train_launches}")
-    if train_launches != {"ctc_alpha": 3, "ctc_beta": 3}:
+    if train_launches != {"ctc_alpha": 3, "ctc_beta": 3, "ctc_grad": 3}:
         raise AssertionError(
             f"kernels missed on the training path: {train_launches}")
     if not all(np.isfinite(x) and x > 0 for x in losses):
@@ -1280,13 +1540,15 @@ def main() -> None:
         b, t = lp.shape[1], lp.shape[0]
         cells = b * t * (2 * tgt.shape[1] + 1)
         for k in ("ctc_alpha", "ctc_alpha_plain", "ctc_beta",
-                  "ctc_beta_plain", "ctc_loss_grad", "ctc_loss_grad_plain",
+                  "ctc_beta_plain", "ctc_grad", "ctc_grad_plain",
+                  "ctc_loss_grad", "ctc_loss_grad_plain",
                   "ctc_library_fwd", "ctc_library_fwd_bwd"):
             log(f"phase 10 {k}_{name} (B={b}, T={t}, S={tgt.shape[1]}): "
                 f"{ms[f'{k}_{name}']:.3f} ms, "
                 f"{cells / ms[f'{k}_{name}'] / 1e3:.1f} M lattice cells/s")
         if name == "main":
             ctc_b = [ctc_bound(lp, tgt, il, tl, beta) for beta in (0, 1)]
+            ctc_grad_b = ctc_grad_bound(lp, tgt, il, tl)
 
     def train_step():
         opt.zero_grad()
@@ -1576,7 +1838,10 @@ def main() -> None:
     log(f"phase 19 fused joint: 3 AdamW steps at B={n}, T={t}, U={u}, "
         f"V={v}, J={j}, losses {[round(x, 6) for x in losses]}, launches "
         f"{joint_launches}")
-    if set(joint_launches.values()) != {3}:
+    if joint_launches != {"joint_fwd": 3, "joint_dh": 3, "joint_dw": 3,
+                          "joint_fwd_tp": 0, "joint_dh_tp": 0,
+                          "joint_dw_tp": 0, "rnnt_alpha": 3,
+                          "rnnt_posteriors": 3}:
         raise AssertionError(
             f"kernels missed on the fused-joint path: {joint_launches}")
     if not all(np.isfinite(x) and x > 0 for x in losses):
@@ -1636,6 +1901,102 @@ def main() -> None:
               "fused_f32_chunked_loss_grad_bench"):
         log(f"phase 20 {k} (B={n}, T={t}, U={u}, V={v}, J={j}): "
             f"{cells / ms[k] / 1e3:.1f} M lattice cells/s")
+
+    # 21. J > 128: K10-K12 in 128-row J slabs vs their twins
+    for name, (n2, t2, u2, v2, j2, blank2, bias) in JOINT_WIDE_SHAPES.items():
+        wparams, wtgt, wil, wul = joint_problem(rng, dev, n2, t2, u2, v2, j2,
+                                                blank2, bias)
+        wargs = joint_inputs(*wparams, wtgt, blank2)
+        wstats = joint_cotangents(wargs, wil, wul, (n2, t2, u2 + 1))
+        errs = check_joint(wargs, wstats, f"phase 21 {name} (R="
+                           f"{n2 * t2 * (u2 + 1)}, J={j2}, V={v2}, "
+                           f"blank={blank2})")
+        joint_err = [max(a, e) for a, e in zip(joint_err, errs)]
+    for kernel, fn in (("fwd", "joint_fwd"), ("dh", "joint_dh"),
+                       ("dw", "joint_dw")):
+        extra = () if kernel == "fwd" else wstats
+        ms[f"joint_{kernel}_j256_bench"] = time_ms(
+            lambda: getattr(rnnt_joint_cuda, fn)(*wargs, *extra))
+        ms[f"joint_{kernel}_plain_j256_bench"] = time_plain(
+            lambda: getattr(rnnt_joint_plain, fn)(*wargs, *extra,
+                                                  rows=JOINT_PLAIN_ROWS))
+        b_ms, b_by = joint_bound(wargs, kernel)
+        log(f"phase 21 time joint_{kernel} at the bench row with J=256: "
+            f"{ms[f'joint_{kernel}_j256_bench']:.3f} ms (plain "
+            f"{ms[f'joint_{kernel}_plain_j256_bench']:.3f} ms, bound "
+            f"{b_ms:.3f} ms by {b_by})")
+    del wparams, wargs, wstats
+
+    # 22. the CTC gradient's combine: deterministic at the metric shape
+    combine_err = check_ctc_determinism(
+        *ctc_inputs["metric"], "phase 22 CTC gradient at the metric shape "
+        "(B=32, T=1000, S=100, V=1024)")
+
+    # 23. K10tp-K12tp, D shards one after another, vs their TP twins and,
+    # combined, vs K10-K12 unsharded
+    tp_err = [0.0, 0.0, 0.0]
+    tp_problems = {}
+    for name, (n2, t2, u2, v2, j2, blank2, bias) in TP_SHAPES.items():
+        tparams, ttgt, til, tul = joint_problem(rng, dev, n2, t2, u2, v2, j2,
+                                                blank2, bias)
+        targs = joint_inputs(*tparams, ttgt, blank2)
+        tp_problems[name] = (targs, joint_cotangents(targs, til, tul,
+                                                     (n2, t2, u2 + 1)))
+    tp_problems["bench"] = (args, stats)  # phase 20's
+    for name, (targs, tstats) in tp_problems.items():
+        h2, w2 = targs[0], targs[1]
+        errs = check_joint_tp(targs, tstats, f"phase 23 {name} (R="
+                              f"{h2.shape[0]}, J={h2.shape[1]}, V="
+                              f"{w2.shape[1]}, D={TP_RANKS}, blank="
+                              f"{targs[4]})")
+        tp_err = [max(a, e) for a, e in zip(tp_err, errs)]
+
+    # 24. the vocabulary-parallel slice: 4 gloo ranks on the one card
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tp_res, tp_nll_err, tp_grad_err = check_tp_slice(params, tgt, il, ul)
+    tp_launches = {k: sum(r["launches"][k] for r in tp_res)
+                   for k in ("joint_fwd_tp", "joint_dh_tp", "joint_dw_tp")}
+    ms["tp_step_wall_4ranks_bench"] = 1e3 * statistics.median(
+        max(r["step_s"][i] for r in tp_res) for i in range(3))
+    log(f"phase 24 the 4-rank step (gloo through the host on one card, the "
+        "slowest rank, median of 3 steps): "
+        f"{ms['tp_step_wall_4ranks_bench']:.3f} ms")
+
+    # 25. TP timings at the bench row, per shard
+    for rank in range(TP_RANKS):
+        shard = tp_shard(args, rank)
+        for kernel in ("fwd", "dh", "dw"):
+            extra = () if kernel == "fwd" else stats
+            fn = getattr(rnnt_joint_cuda, f"joint_{kernel}_tp")
+            ms[f"joint_{kernel}_tp{rank}_bench"] = time_ms(
+                lambda: fn(*shard, *extra))
+        if rank == 0:
+            shard0 = shard
+            for kernel in ("fwd", "dh", "dw"):
+                extra = () if kernel == "fwd" else stats
+                fn = getattr(rnnt_joint_plain, f"joint_{kernel}_tp")
+                ms[f"joint_{kernel}_tp_plain_bench"] = time_plain(
+                    lambda: fn(*shard, *extra, rows=JOINT_PLAIN_ROWS))
+                ms[f"joint_{kernel}_tp_library_bench"] = time_ms(
+                    lambda: library_joint(shard, kernel))
+    tp_b = {k: joint_bound(shard0, k) for k in ("fwd", "dh", "dw")}
+    for kernel in ("fwd", "dh", "dw"):
+        per = [ms[f"joint_{kernel}_tp{r}_bench"] for r in range(TP_RANKS)]
+        ms[f"joint_{kernel}_tp_bench"] = per[0]
+        ms[f"joint_{kernel}_tp_sum_bench"] = sum(per)
+        log(f"phase 25 time joint_{kernel}_tp per shard (V/D="
+            f"{shard0[1].shape[1]}): {[round(x, 3) for x in per]} ms, sum "
+            f"{sum(per):.3f} ms vs unsharded {ms[f'joint_{kernel}_bench']:.3f}"
+            f" ms; plain {ms[f'joint_{kernel}_tp_plain_bench']:.3f} ms; bf16 "
+            f"matmul yardstick {ms[f'joint_{kernel}_tp_library_bench']:.3f} "
+            f"ms; bound {tp_b[kernel][0]:.3f} ms by {tp_b[kernel][1]}")
+    for name in ("metric", "main"):
+        log(f"phase 25 time the CTC combine ({name}): "
+            f"{ms[f'ctc_grad_{name}']:.3f} ms vs the scatter_add_ combine "
+            f"{ms[f'ctc_grad_plain_{name}']:.3f} ms")
+    log(f"phase 25 bound ctc_grad (main): {ctc_grad_b[0]:.4f} ms "
+        f"({ctc_grad_b[1]})")
     log(json.dumps({"card": card, "ms": ms}))
 
     beam_src = "end2end_tpu_torch/csrc/beam_step.cu"
@@ -1681,13 +2042,28 @@ def main() -> None:
         ("rnnt_joint_dw", joint_src, f"{joint_tpu}:152",
          joint_launches["joint_dw"], joint_err[2], "joint_dw_bench",
          joint_b["dw"], ms["joint_dw_library_bench"]),
+        # launches: all ranks of phase 24; times: shard 0 of the bench row
+        ("rnnt_joint_fwd_tp", joint_src, f"{joint_tpu}:376",
+         tp_launches["joint_fwd_tp"], tp_err[0], "joint_fwd_tp_bench",
+         tp_b["fwd"], ms["joint_fwd_tp_library_bench"]),
+        ("rnnt_joint_dh_tp", joint_src, f"{joint_tpu}:411",
+         tp_launches["joint_dh_tp"], tp_err[1], "joint_dh_tp_bench",
+         tp_b["dh"], ms["joint_dh_tp_library_bench"]),
+        ("rnnt_joint_dw_tp", joint_src, f"{joint_tpu}:445",
+         tp_launches["joint_dw_tp"], tp_err[2], "joint_dw_tp_bench",
+         tp_b["dw"], ms["joint_dw_tp_library_bench"]),
+        ("ctc_grad", ctc_src, "end2end_tpu/ops/ctc_loss_xla.py:196",
+         train_launches["ctc_grad"], combine_err, "ctc_grad_main",
+         ctc_grad_b, None),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": n, "max_abs_err": err, "ms": ms[key],
          "plain_ms": ms[key.replace("_main", "_plain_main").replace(
              "_chunk", "_plain_chunk").replace("_bench", "_plain_bench")],
-         "bound_ms": b[0], "bound_by": b[1], "library_ms": lib}
+         "bound_ms": b[0],
+         "bound_by": "bytes" if b[1] == "bytes" else "operations",
+         "library_ms": lib}
         for name, src, rep, n, err, key, b, lib in rows]
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel never ran on its path: {kernels}")

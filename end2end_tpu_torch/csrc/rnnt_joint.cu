@@ -1,11 +1,24 @@
 // The online-softmax fused transducer joint on Hopper: the forward (K10),
 // the activation gradient dh (K11) and the output-projection gradients dW,
-// db (K12), bf16 tensor-core products with float32 sums.
+// db (K12), bf16 tensor-core products with float32 sums; and their
+// vocabulary-sharded modes K10tp, K11tp, K12tp.
 //
 // Replaces: end2end_tpu/ops/rnnt_joint_pallas.py::_fwd_kernel (K10, launched
-// at :223), ::_dh_kernel (K11, :257) and ::_dw_kernel (K12, :271).  Plain
-// versions: end2end_tpu_torch/ops/rnnt_joint_plain.py (joint_fwd, joint_dh,
-// joint_dw).
+// at :223), ::_dh_kernel (K11, :257), ::_dw_kernel (K12, :271), and
+// ::_fwd_kernel_tp (K10tp, :513), ::_dh_kernel_tp (K11tp, :563),
+// ::_dw_kernel_tp (K12tp, :577).  Plain versions:
+// end2end_tpu_torch/ops/rnnt_joint_plain.py (joint_fwd, joint_dh, joint_dw
+// and their _tp twins).
+//
+// The TP modes are the same kernels on one shard's (J, V/D) slice of W: the
+// blank and label ids are shard-relative, -1 where another shard owns the
+// column (the run-time compares `col == id` then match nothing), and K10
+// with `raw` set stores the raw blank and label logits (0 when unowned) and
+// the shard's local m and log s instead of the planes; the caller combines
+// them across shards.  K11 and K12 take the global (m, log s) unchanged and
+// give the shard's partial dh and its own dW, db columns.  K12tp keeps one
+// block per 128-column tile of the shard: at the bench row's V/D = 8192
+// that is 64 blocks on the 132 SMs, and the card is half idle.
 //
 // Semantics (the JAX package's): rows of the activation h (R, J) are
 // independent.  Per row, logits x = h W + b over V columns; K10 keeps an
@@ -38,9 +51,13 @@
 // of a row combine once at the end.  K11 writes d as a bf16 tile and
 // multiplies it by the W tile read back col_major (W^T for free); K12 reads
 // the h tile col_major (h^T).  J is padded with zeros to 16, 32, 64 or 128
-// in shared memory only (a template on the number of 16-wide slabs); J >
-// 128 is refused by the wrapper (K12's (J, 128) float32 accumulator lives
-// in registers, 64 a thread at J = 128).  The TPU's sequential K12 grid (V
+// in shared memory only (a template on the number of 16-wide slabs).  J >
+// 128 walks J in slabs of 128 rows through the same shared tiles (WIDE):
+// K10 streams h and W slab by slab into one set of logits fragments; K11
+// and K12, whose (64, J) and (J, 128) float32 accumulators would not fit in
+// registers, get a second grid dimension over the slabs, each block
+// recomputing the logits over the whole J and accumulating only its own
+// slab (J/128 times the logits work).  The TPU's sequential K12 grid (V
 // tile outer, row block inner, sums carried in scratch) becomes one block
 // per V tile that loops over every row block itself: deterministic, no
 // atomics.  W streams tile by tile from L2 (8 MB of bf16 at the bench row).
@@ -66,6 +83,7 @@ constexpr int kPad = 8;               // bf16 row pad: 16 bytes
 constexpr int kWld = kTile + kPad;    // W tile / d tile row stride (bf16)
 constexpr int kXld = kTile + 4;       // logits tile row stride (float)
 constexpr int kPerThread = kTile / 4; // columns of a tile per thread
+constexpr int kSlab = 128;            // J rows per slab when J > 128
 constexpr float kNeg = -3.0e38f;      // the running max's identity
 
 template <int NJ>
@@ -116,52 +134,59 @@ __device__ void zero_pads(const Smem& s, int J) {
     s.w[J * kWld + i] = z;
 }
 
-// Rows r0..r0+63 of the bf16 h (R, J) into the h tile; rows >= R as zeros.
+// Columns j0..j0+jn-1 of rows r0..r0+63 of the bf16 h (R, J) into columns
+// 0..jn-1 of the h tile; rows >= R as zeros.
 template <int NJ>
 __device__ void load_h(const bf16* __restrict__ h, const Smem& s, long r0,
-                       long R, int J) {
+                       long R, int J, int j0, int jn) {
   using L = Layout<NJ>;
-  if (J % 8 == 0) {  // 16-byte vectors
-    const int per_row = J / 8;
+  if (J % 8 == 0) {  // 16-byte vectors (j0 and jn are multiples of 8 too)
+    const int per_row = jn / 8;
     for (int i = threadIdx.x; i < kRows * per_row; i += kThreads) {
       const int r = i / per_row, q = i % per_row;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (r0 + r < R)
-        v = *reinterpret_cast<const uint4*>(h + (r0 + r) * J + q * 8);
+        v = *reinterpret_cast<const uint4*>(h + (r0 + r) * J + j0 + q * 8);
       *reinterpret_cast<uint4*>(s.h + r * L::HLD + q * 8) = v;
     }
   } else {
-    for (int i = threadIdx.x; i < kRows * J; i += kThreads) {
-      const int r = i / J, j = i % J;
+    for (int i = threadIdx.x; i < kRows * jn; i += kThreads) {
+      const int r = i / jn, j = i % jn;
       s.h[r * L::HLD + j] =
-          r0 + r < R ? h[(r0 + r) * J + j] : __float2bfloat16(0.0f);
+          r0 + r < R ? h[(r0 + r) * J + j0 + j] : __float2bfloat16(0.0f);
     }
   }
 }
 
-// Columns c0..c0+127 of the bf16 W (J, Vp) (zero past V) into the W tile,
-// and the bias of those columns (0 past V).
-__device__ void load_w(const bf16* __restrict__ w, const float* __restrict__ b,
-                       const Smem& s, int c0, int J, int V, int Vp) {
-  for (int i = threadIdx.x; i < J * (kTile / 8); i += kThreads) {
+// Rows j0..j0+jn-1 of the bf16 W (J, Vp) (zero past V), columns c0..c0+127,
+// into rows 0..jn-1 of the W tile.
+__device__ void load_w(const bf16* __restrict__ w, const Smem& s, int c0,
+                       int j0, int jn, int Vp) {
+  for (int i = threadIdx.x; i < jn * (kTile / 8); i += kThreads) {
     const int j = i / (kTile / 8), q = i % (kTile / 8);
     *reinterpret_cast<uint4*>(s.w + j * kWld + q * 8) =
-        *reinterpret_cast<const uint4*>(w + (size_t)j * Vp + c0 + q * 8);
+        *reinterpret_cast<const uint4*>(w + (size_t)(j0 + j) * Vp + c0 +
+                                        q * 8);
   }
+}
+
+// The bias of columns c0..c0+127 (0 past V).
+__device__ void load_bias(const float* __restrict__ b, const Smem& s, int c0,
+                          int V) {
   for (int c = threadIdx.x; c < kTile; c += kThreads)
     s.bias[c] = c0 + c < V ? b[c0 + c] : 0.0f;
 }
 
-// The 64 x 128 logits tile h W (without the bias) into s.x.  Warp w owns
-// rows 16 (w % 4).. and column slabs w / 4 + 2i, i < 4.
+using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// acc += the h tile's NJ 16-wide slabs times the W tile's.  Warp w owns
+// rows 16 (w % 4).. and column slabs w / 4 + 2i, i < 4, of the 64 x 128
+// logits tile.
 template <int NJ>
-__device__ void logits_tile(const Smem& s) {
+__device__ __forceinline__ void logits_mma(const Smem& s, Acc (&acc)[4]) {
   using L = Layout<NJ>;
   const int warp = threadIdx.x / 32;
   const int rm = warp % 4;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) wmma::fill_fragment(acc[i], 0.0f);
 #pragma unroll
   for (int k = 0; k < NJ; ++k) {
     wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
@@ -174,10 +199,53 @@ __device__ void logits_tile(const Smem& s) {
       wmma::mma_sync(acc[i], a, bw, acc[i]);
     }
   }
+}
+
+__device__ __forceinline__ void store_logits(const Smem& s, Acc (&acc)[4]) {
+  const int warp = threadIdx.x / 32;
+  const int rm = warp % 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     wmma::store_matrix_sync(s.x + rm * 16 * kXld + (warp / 4 + 2 * i) * 16,
                             acc[i], kXld, wmma::mem_row_major);
+}
+
+// The 64 x 128 logits tile h W (without the bias) into s.x, from the h and
+// W tiles in shared memory (J <= 128).
+template <int NJ>
+__device__ void logits_tile(const Smem& s) {
+  Acc acc[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) wmma::fill_fragment(acc[i], 0.0f);
+  logits_mma<NJ>(s, acc);
+  store_logits(s, acc);
+}
+
+// The same for J > 128, and the bias of the tile: rows r0.. of h and
+// columns c0.. of W stream through the h and W tiles one 128-row J slab at
+// a time, in slab order, the products accumulating in one set of fragments.
+// Begins with a barrier (the previous tile's reads of every shared region
+// are done); the caller's next barrier publishes s.x.  Afterwards the h
+// and W tiles hold the last slab.
+__device__ void logits_tile_wide(const bf16* __restrict__ h,
+                                 const bf16* __restrict__ w,
+                                 const float* __restrict__ b, const Smem& s,
+                                 long r0, long R, int J, int c0, int V,
+                                 int Vp) {
+  Acc acc[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) wmma::fill_fragment(acc[i], 0.0f);
+  for (int j0 = 0; j0 < J; j0 += kSlab) {
+    const int jn = min(kSlab, J - j0);
+    __syncthreads();
+    if (j0 == 0) load_bias(b, s, c0, V);
+    load_h<8>(h, s, r0, R, J, j0, jn);
+    load_w(w, s, c0, j0, jn, Vp);
+    if (jn < kSlab) zero_pads<8>(s, jn);  // the previous slab's rows
+    __syncthreads();
+    logits_mma<8>(s, acc);
+  }
+  store_logits(s, acc);
 }
 
 // The per-row inputs of the backward kernels.
@@ -218,8 +286,10 @@ __device__ __forceinline__ float d_value(const Smem& s, const RowStats& st,
   return d;
 }
 
-// K10.  Grid: one block per 64 rows.  Outputs b_pl, l_pl, m, logs (R,).
-template <int NJ>
+// K10 (K10tp with `raw`).  Grid: one block per 64 rows.  Outputs b_pl,
+// l_pl, m, logs (R,); with `raw`, the raw blank and label logits in place
+// of the planes and the shard's local m, logs.
+template <int NJ, bool WIDE>
 __global__ void __launch_bounds__(kThreads, 2)
     rnnt_joint_fwd_kernel(const bf16* __restrict__ h,
                           const bf16* __restrict__ w,
@@ -227,7 +297,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                           const int* __restrict__ y, float* __restrict__ b_pl,
                           float* __restrict__ l_pl, float* __restrict__ m_out,
                           float* __restrict__ logs_out, long R, int J, int V,
-                          int Vp, int blank) {
+                          int Vp, int blank, int raw) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Smem s = carve<NJ>(smem);
   const long r0 = (long)blockIdx.x * kRows;
@@ -235,14 +305,21 @@ __global__ void __launch_bounds__(kThreads, 2)
   const long grow = r0 + row;
   int yr = grow < R ? y[grow] : -1;
   if (yr >= V) yr = -1;  // a label past V matches no column
-  zero_pads<NJ>(s, J);
-  load_h<NJ>(h, s, r0, R, J);
+  if constexpr (!WIDE) {
+    zero_pads<NJ>(s, J);
+    load_h<NJ>(h, s, r0, R, J, 0, J);
+  }
   float m = kNeg, sum = 0.0f, xb = 0.0f, xy = 0.0f;
   for (int c0 = 0; c0 < Vp; c0 += kTile) {
-    __syncthreads();  // the previous tile's reads of s.w, s.x are done
-    load_w(w, b, s, c0, J, V, Vp);
-    __syncthreads();
-    logits_tile<NJ>(s);
+    if constexpr (WIDE) {
+      logits_tile_wide(h, w, b, s, r0, R, J, c0, V, Vp);
+    } else {
+      __syncthreads();  // the previous tile's reads of s.w, s.x are done
+      load_w(w, s, c0, 0, J, Vp);
+      load_bias(b, s, c0, V);
+      __syncthreads();
+      logits_tile<NJ>(s);
+    }
     __syncthreads();
     float vals[kPerThread];
     float tmax = kNeg;
@@ -275,16 +352,17 @@ __global__ void __launch_bounds__(kThreads, 2)
   xy += __shfl_xor_sync(0xffffffffu, xy, 2);
   if (seg == 0 && grow < R) {
     const float logs = logf(sr);
-    b_pl[grow] = (xb - mr) - logs;
-    l_pl[grow] = (xy - mr) - logs;
+    b_pl[grow] = raw ? xb : (xb - mr) - logs;
+    l_pl[grow] = raw ? xy : (xy - mr) - logs;
     m_out[grow] = mr;
     logs_out[grow] = logs;
   }
 }
 
-// K11.  Grid: one block per 64 rows.  Output dh (Rp, JP) float32, Rp the
-// row count rounded up to 64 (the wrapper slices [:R, :J]).
-template <int NJ>
+// K11.  Grid: one block per 64 rows (x) and, when WIDE, per 128-row J slab
+// (y).  Output dh (Rp, ldo) float32, Rp the row count rounded up to 64, ldo
+// the padded J (the wrapper slices [:R, :J]).
+template <int NJ, bool WIDE>
 __global__ void __launch_bounds__(kThreads, 2)
     rnnt_joint_dh_kernel(const bf16* __restrict__ h,
                          const bf16* __restrict__ w,
@@ -302,18 +380,30 @@ __global__ void __launch_bounds__(kThreads, 2)
   const long r0 = (long)blockIdx.x * kRows;
   const int row = threadIdx.x / 4, seg = threadIdx.x % 4;
   const int warp = threadIdx.x / 32, rm = warp % 4;
+  const int js = WIDE ? blockIdx.y : 0, last = (J - 1) / kSlab;
+  const int ldo = WIDE ? (last + 1) * kSlab : L::JP;
   const RowStats st = row_stats(r0 + row, R, y, m, logs, gb, gl);
-  zero_pads<NJ>(s, J);
-  load_h<NJ>(h, s, r0, R, J);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kFrags];
+  if constexpr (!WIDE) {
+    zero_pads<NJ>(s, J);
+    load_h<NJ>(h, s, r0, R, J, 0, J);
+  }
+  Acc acc[kFrags];
 #pragma unroll
   for (int i = 0; i < kFrags; ++i) wmma::fill_fragment(acc[i], 0.0f);
   for (int c0 = 0; c0 < Vp; c0 += kTile) {
-    __syncthreads();
-    load_w(w, b, s, c0, J, V, Vp);
-    __syncthreads();
-    logits_tile<NJ>(s);
-    __syncthreads();
+    if constexpr (WIDE) {
+      logits_tile_wide(h, w, b, s, r0, R, J, c0, V, Vp);
+      __syncthreads();
+      // the W tile holds the last slab; this block's product needs its own
+      if (js != last) load_w(w, s, c0, js * kSlab, kSlab, Vp);
+    } else {
+      __syncthreads();
+      load_w(w, s, c0, 0, J, Vp);
+      load_bias(b, s, c0, V);
+      __syncthreads();
+      logits_tile<NJ>(s);
+      __syncthreads();
+    }
 #pragma unroll 8
     for (int i = 0; i < kPerThread; ++i) {
       const int c = seg + 4 * i;
@@ -341,14 +431,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int i = 0; i < kFrags; ++i) {
     const int nj = warp / 4 + 2 * i;
     if (nj < NJ)
-      wmma::store_matrix_sync(dh + (r0 + rm * 16) * L::JP + nj * 16, acc[i],
-                              L::JP, wmma::mem_row_major);
+      wmma::store_matrix_sync(dh + (r0 + rm * 16) * ldo + js * kSlab + nj * 16,
+                              acc[i], ldo, wmma::mem_row_major);
   }
 }
 
-// K12.  Grid: one block per 128-column V tile; the block walks every row
-// block.  Outputs dw (JP, Vp) and db (Vp,) float32 (the wrapper slices).
-template <int NJ>
+// K12.  Grid: one block per 128-column V tile (x) and, when WIDE, per
+// 128-row J slab (y); the block walks every row block.  Outputs dw (JPad,
+// Vp) and db (Vp,) float32, JPad the padded J (the wrapper slices); the
+// blocks of slab 0 write db.
+template <int NJ, bool WIDE>
 __global__ void __launch_bounds__(kThreads, 2)
     rnnt_joint_dw_kernel(const bf16* __restrict__ h,
                          const bf16* __restrict__ w,
@@ -366,19 +458,30 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int c0 = blockIdx.x * kTile;
   const int row = threadIdx.x / 4, seg = threadIdx.x % 4;
   const int warp = threadIdx.x / 32;  // owns dW column slab `warp`
-  zero_pads<NJ>(s, J);
-  load_w(w, b, s, c0, J, V, Vp);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NJ];
+  const int js = WIDE ? blockIdx.y : 0, last = (J - 1) / kSlab;
+  if constexpr (!WIDE) {
+    zero_pads<NJ>(s, J);
+    load_w(w, s, c0, 0, J, Vp);
+    load_bias(b, s, c0, V);
+  }
+  Acc acc[NJ];
 #pragma unroll
   for (int i = 0; i < NJ; ++i) wmma::fill_fragment(acc[i], 0.0f);
   float db_acc = 0.0f;  // column threadIdx.x of the tile (threads < 128)
   for (long r0 = 0; r0 < R; r0 += kRows) {
-    __syncthreads();  // the previous row block's reads are done
-    load_h<NJ>(h, s, r0, R, J);
     const RowStats st = row_stats(r0 + row, R, y, m, logs, gb, gl);
-    __syncthreads();
-    logits_tile<NJ>(s);
-    __syncthreads();
+    if constexpr (WIDE) {
+      logits_tile_wide(h, w, b, s, r0, R, J, c0, V, Vp);
+      __syncthreads();
+      // the h tile holds the last slab; this block's product needs its own
+      if (js != last) load_h<8>(h, s, r0, R, J, js * kSlab, kSlab);
+    } else {
+      __syncthreads();  // the previous row block's reads are done
+      load_h<NJ>(h, s, r0, R, J, 0, J);
+      __syncthreads();
+      logits_tile<NJ>(s);
+      __syncthreads();
+    }
     // d, as float32 over the logits (for db) and as bf16 (for dW)
 #pragma unroll 8
     for (int i = 0; i < kPerThread; ++i) {
@@ -405,17 +508,22 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 #pragma unroll
   for (int jm = 0; jm < NJ; ++jm)
-    wmma::store_matrix_sync(dw + (size_t)jm * 16 * Vp + c0 + warp * 16,
-                            acc[jm], Vp, wmma::mem_row_major);
-  if (threadIdx.x < kTile) db[c0 + threadIdx.x] = db_acc;
+    wmma::store_matrix_sync(
+        dw + (size_t)(js * kSlab + jm * 16) * Vp + c0 + warp * 16, acc[jm],
+        Vp, wmma::mem_row_major);
+  if (js == 0 && threadIdx.x < kTile) db[c0 + threadIdx.x] = db_acc;
 }
 
-// The number of 16-wide J slabs the kernels are built for: 1, 2, 4 or 8.
+// The number of 16-wide J slabs the kernels are built for: 1, 2, 4 or 8
+// (J <= 128; wider J runs the WIDE kernels with 8).
 int slabs_for(int J) {
   int nj = 1;
   while (16 * nj < J) nj *= 2;
   return nj;
 }
+
+// 128-row J slabs of the WIDE kernels' second grid dimension.
+unsigned wide_slabs(int J) { return (unsigned)((J + kSlab - 1) / kSlab); }
 
 cudaError_t set_smem(const void* kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -423,46 +531,49 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <int NJ>
+template <int NJ, bool WIDE>
 cudaError_t fwd(const void* h, const void* w, const void* b, const void* y,
                 void* b_pl, void* l_pl, void* m, void* logs, long R, int J,
-                int V, int Vp, int blank, cudaStream_t stream) {
+                int V, int Vp, int blank, int raw, cudaStream_t stream) {
   const size_t smem = Layout<NJ>::fwd;
-  cudaError_t err = set_smem((const void*)rnnt_joint_fwd_kernel<NJ>, smem);
+  cudaError_t err =
+      set_smem((const void*)rnnt_joint_fwd_kernel<NJ, WIDE>, smem);
   if (err != cudaSuccess) return err;
   const unsigned blocks = (unsigned)((R + kRows - 1) / kRows);
-  rnnt_joint_fwd_kernel<NJ><<<blocks, kThreads, smem, stream>>>(
+  rnnt_joint_fwd_kernel<NJ, WIDE><<<blocks, kThreads, smem, stream>>>(
       (const bf16*)h, (const bf16*)w, (const float*)b, (const int*)y,
       (float*)b_pl, (float*)l_pl, (float*)m, (float*)logs, R, J, V, Vp,
-      blank);
+      blank, raw);
   return cudaGetLastError();
 }
 
-template <int NJ>
+template <int NJ, bool WIDE>
 cudaError_t dh(const void* h, const void* w, const void* b, const void* y,
                const void* m, const void* logs, const void* gb,
                const void* gl, void* out, long R, int J, int V, int Vp,
                int blank, cudaStream_t stream) {
   const size_t smem = Layout<NJ>::bwd;
-  cudaError_t err = set_smem((const void*)rnnt_joint_dh_kernel<NJ>, smem);
+  cudaError_t err = set_smem((const void*)rnnt_joint_dh_kernel<NJ, WIDE>, smem);
   if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)((R + kRows - 1) / kRows);
-  rnnt_joint_dh_kernel<NJ><<<blocks, kThreads, smem, stream>>>(
+  const dim3 grid((unsigned)((R + kRows - 1) / kRows),
+                  WIDE ? wide_slabs(J) : 1u);
+  rnnt_joint_dh_kernel<NJ, WIDE><<<grid, kThreads, smem, stream>>>(
       (const bf16*)h, (const bf16*)w, (const float*)b, (const int*)y,
       (const float*)m, (const float*)logs, (const float*)gb,
       (const float*)gl, (float*)out, R, J, V, Vp, blank);
   return cudaGetLastError();
 }
 
-template <int NJ>
+template <int NJ, bool WIDE>
 cudaError_t dw(const void* h, const void* w, const void* b, const void* y,
                const void* m, const void* logs, const void* gb,
                const void* gl, void* dw_out, void* db_out, long R, int J,
                int V, int Vp, int blank, cudaStream_t stream) {
   const size_t smem = Layout<NJ>::bwd;
-  cudaError_t err = set_smem((const void*)rnnt_joint_dw_kernel<NJ>, smem);
+  cudaError_t err = set_smem((const void*)rnnt_joint_dw_kernel<NJ, WIDE>, smem);
   if (err != cudaSuccess) return err;
-  rnnt_joint_dw_kernel<NJ><<<Vp / kTile, kThreads, smem, stream>>>(
+  const dim3 grid((unsigned)(Vp / kTile), WIDE ? wide_slabs(J) : 1u);
+  rnnt_joint_dw_kernel<NJ, WIDE><<<grid, kThreads, smem, stream>>>(
       (const bf16*)h, (const bf16*)w, (const float*)b, (const int*)y,
       (const float*)m, (const float*)logs, (const float*)gb,
       (const float*)gl, (float*)dw_out, (float*)db_out, R, J, V, Vp, blank);
@@ -472,23 +583,29 @@ cudaError_t dw(const void* h, const void* w, const void* b, const void* y,
 }  // namespace
 
 // h (R, J) bf16, w (J, Vp) bf16 zero past V, b (V,) f32, y (R,) i32;
-// Vp a multiple of 128, 1 <= J <= 128, 0 <= blank < V.
+// Vp a multiple of 128, J >= 1, -1 <= blank < V (-1, and labels outside
+// [0, V), match no column).  raw = 0: b_pl, l_pl are the planes; raw = 1
+// (K10tp): the raw blank and label logits.
 extern "C" int e2e_rnnt_joint_fwd(const void* h, const void* w, const void* b,
                                   const void* y, void* b_pl, void* l_pl,
                                   void* m, void* logs, long long R, int J,
-                                  int V, int Vp, int blank, void* stream) {
+                                  int V, int Vp, int blank, int raw,
+                                  void* stream) {
   if (R <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
+  if (J > kSlab)
+    return (int)fwd<8, true>(h, w, b, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, raw, st);
   switch (slabs_for(J)) {
-    case 1: return (int)fwd<1>(h, w, b, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, st);
-    case 2: return (int)fwd<2>(h, w, b, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, st);
-    case 4: return (int)fwd<4>(h, w, b, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, st);
-    case 8: return (int)fwd<8>(h, w, b, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, st);
+    case 1: return (int)fwd<1, false>(h, w, b, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, raw, st);
+    case 2: return (int)fwd<2, false>(h, w, b, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, raw, st);
+    case 4: return (int)fwd<4, false>(h, w, b, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, raw, st);
+    case 8: return (int)fwd<8, false>(h, w, b, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, raw, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// As e2e_rnnt_joint_fwd, plus m, logs, gb, gl (R,) f32; dh (Rp, JP) f32.
+// As e2e_rnnt_joint_fwd, plus m, logs, gb, gl (R,) f32; dh (Rp, JPad) f32,
+// JPad = 16, 32, 64, 128 or J rounded up to a multiple of 128.
 extern "C" int e2e_rnnt_joint_dh(const void* h, const void* w, const void* b,
                                  const void* y, const void* m,
                                  const void* logs, const void* gb,
@@ -496,16 +613,19 @@ extern "C" int e2e_rnnt_joint_dh(const void* h, const void* w, const void* b,
                                  int V, int Vp, int blank, void* stream) {
   if (R <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
+  if (J > kSlab)
+    return (int)dh<8, true>(h, w, b, y, m, logs, gb, gl, out, R, J, V, Vp, blank, st);
   switch (slabs_for(J)) {
-    case 1: return (int)dh<1>(h, w, b, y, m, logs, gb, gl, out, R, J, V, Vp, blank, st);
-    case 2: return (int)dh<2>(h, w, b, y, m, logs, gb, gl, out, R, J, V, Vp, blank, st);
-    case 4: return (int)dh<4>(h, w, b, y, m, logs, gb, gl, out, R, J, V, Vp, blank, st);
-    case 8: return (int)dh<8>(h, w, b, y, m, logs, gb, gl, out, R, J, V, Vp, blank, st);
+    case 1: return (int)dh<1, false>(h, w, b, y, m, logs, gb, gl, out, R, J, V, Vp, blank, st);
+    case 2: return (int)dh<2, false>(h, w, b, y, m, logs, gb, gl, out, R, J, V, Vp, blank, st);
+    case 4: return (int)dh<4, false>(h, w, b, y, m, logs, gb, gl, out, R, J, V, Vp, blank, st);
+    case 8: return (int)dh<8, false>(h, w, b, y, m, logs, gb, gl, out, R, J, V, Vp, blank, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// As e2e_rnnt_joint_dh; dw (JP, Vp) and db (Vp,) f32, every element written.
+// As e2e_rnnt_joint_dh; dw (JPad, Vp) and db (Vp,) f32, every element
+// written.
 extern "C" int e2e_rnnt_joint_dw(const void* h, const void* w, const void* b,
                                  const void* y, const void* m,
                                  const void* logs, const void* gb,
@@ -513,11 +633,13 @@ extern "C" int e2e_rnnt_joint_dw(const void* h, const void* w, const void* b,
                                  long long R, int J, int V, int Vp, int blank,
                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (J > kSlab)
+    return (int)dw<8, true>(h, w, b, y, m, logs, gb, gl, dw_out, db_out, R, J, V, Vp, blank, st);
   switch (slabs_for(J)) {
-    case 1: return (int)dw<1>(h, w, b, y, m, logs, gb, gl, dw_out, db_out, R, J, V, Vp, blank, st);
-    case 2: return (int)dw<2>(h, w, b, y, m, logs, gb, gl, dw_out, db_out, R, J, V, Vp, blank, st);
-    case 4: return (int)dw<4>(h, w, b, y, m, logs, gb, gl, dw_out, db_out, R, J, V, Vp, blank, st);
-    case 8: return (int)dw<8>(h, w, b, y, m, logs, gb, gl, dw_out, db_out, R, J, V, Vp, blank, st);
+    case 1: return (int)dw<1, false>(h, w, b, y, m, logs, gb, gl, dw_out, db_out, R, J, V, Vp, blank, st);
+    case 2: return (int)dw<2, false>(h, w, b, y, m, logs, gb, gl, dw_out, db_out, R, J, V, Vp, blank, st);
+    case 4: return (int)dw<4, false>(h, w, b, y, m, logs, gb, gl, dw_out, db_out, R, J, V, Vp, blank, st);
+    case 8: return (int)dw<8, false>(h, w, b, y, m, logs, gb, gl, dw_out, db_out, R, J, V, Vp, blank, st);
   }
   return (int)cudaErrorInvalidValue;
 }

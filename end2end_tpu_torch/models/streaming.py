@@ -7,8 +7,8 @@ port of `transcribe_long_form` in `end2end_tpu/models/streaming.py`).
      concatenate the log-probs along time,
   4. decode the stitched lattice once (greedy or beam).
 
-The bounded-latency streaming variant needs the streaming decoders
-(ROADMAP.md queue 1 item 7) and is not ported yet.
+The bounded-latency streaming variant needs the CTC streaming decoders
+(ROADMAP.md queue 1 item 5) and is not ported yet.
 """
 
 from __future__ import annotations

@@ -76,9 +76,10 @@ def ctc_nll(log_probs, targets, input_lengths, target_lengths, blank=0,
 
     checkpoint_every = K > 0 stores one alpha carry per K frames instead of
     the (T, N, L) alpha tape and recomputes each chunk in the backward pass
-    (alpha memory O(T/K + K)).  Losses and state occupations are
-    bit-identical to K = 0; so is the gradient on the CPU (on CUDA its
-    scatter_add_ combine orders duplicate-label sums differently per run)."""
+    (alpha memory O(T/K + K)).  Losses, state occupations and the
+    gradient are bit-identical to K = 0 (on the card the gradient's combine
+    kernel sums in one fixed order, so it is also bit-identical run to
+    run)."""
     dev = log_probs.device
     targets = torch.as_tensor(targets, device=dev)
     input_lengths = torch.as_tensor(input_lengths, device=dev)

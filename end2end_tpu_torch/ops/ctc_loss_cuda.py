@@ -1,13 +1,16 @@
-"""CTC loss on the card: the alpha kernel (K1) and the beta/occupation
-kernel (K2) of csrc/ctc_loss.cu, bound as one autograd function.
+"""CTC loss on the card: the alpha kernel (K1), the beta/occupation
+kernel (K2) and the gradient combine of csrc/ctc_loss.cu, bound as one
+autograd function.
 
 Port of `end2end_tpu/ops/ctc_loss_pallas.py`.  `ctc_nll_cuda` takes CUDA
 float32 log-probs (T, N, C) and padded (N, S) targets; its forward pass
 launches K1 (alpha tape, or one checkpoint row per `checkpoint_every`
 frames, and z_hat, norm_end2), its backward pass K2 (gamma, recomputing
-alpha per chunk in checkpoint mode), followed by the posterior->vocab
-combine in torch (`ctc_loss_plain.nll_grad`).  It never falls back to the
-plain version: anything the kernels do not take raises.
+alpha per chunk in checkpoint mode) and then the combine (`grad_cuda`, the
+card's counterpart of `ctc_loss_plain.nll_grad`: one warp per frame row,
+every sum in a fixed order, so the gradient is bit-identical run to run).
+It never falls back to the plain version: anything the kernels do not take
+raises.
 
 `launches` counts kernel launches by name (it is the only module state).
 """
@@ -17,10 +20,9 @@ from __future__ import annotations
 import torch
 
 from ..utils import cuda_build
-from .ctc_common import build_ctc_tables
-from .ctc_loss_plain import nll_from, nll_grad
+from .ctc_loss_plain import nll_from
 
-launches = {"ctc_alpha": 0, "ctc_beta": 0}
+launches = {"ctc_alpha": 0, "ctc_beta": 0, "ctc_grad": 0}
 
 # A block may use 227 KB of shared memory on the H100.
 _SMEM_LIMIT = 232448
@@ -118,6 +120,31 @@ def beta_cuda(log_probs, targets, input_lengths, target_lengths, alpha,
     return gamma
 
 
+def grad_cuda(log_probs, targets, input_lengths, target_lengths, gamma, g,
+              blank=0):
+    """Launch the combine on K2's gamma (T, N, L): d(sum_n g_n nll_n) /
+    d log_probs = (exp(lp) - posterior) * [t < il] * g, (T, N, C) float32;
+    `ctc_loss_plain.nll_grad`'s value, its sums in another fixed order."""
+    _check(log_probs, targets, 0)
+    dev = log_probs.device
+    t_max, n, v = log_probs.shape
+    lp = log_probs.contiguous()
+    tgt, il, tl = (_i32(x, dev) for x in (targets, input_lengths,
+                                          target_lengths))
+    gam = gamma.contiguous()
+    gn = g.to(device=dev, dtype=torch.float32).contiguous()
+    out = torch.empty_like(lp)
+    lib, _ = cuda_build.library()
+    with torch.cuda.device(dev):
+        status = lib.e2e_ctc_grad_f32(
+            lp.data_ptr(), gam.data_ptr(), tgt.data_ptr(), il.data_ptr(),
+            tl.data_ptr(), gn.data_ptr(), out.data_ptr(), t_max, n, v,
+            targets.shape[1], blank, _stream(dev))
+    cuda_build.check(status, "e2e_ctc_grad_f32")
+    launches["ctc_grad"] += 1
+    return out
+
+
 class _CTCNllCuda(torch.autograd.Function):
     @staticmethod
     def forward(ctx, log_probs, targets, input_lengths, target_lengths,
@@ -136,9 +163,7 @@ class _CTCNllCuda(torch.autograd.Function):
          norm_end2) = ctx.saved_tensors
         gamma = beta_cuda(log_probs, targets, il, tl, alpha, anorm2, z_hat,
                           norm_end2, ctx.blank, ctx.every)
-        ext = build_ctc_tables(targets, tl, ctx.blank,
-                               log_probs.shape[-1]).ext_labels
-        grad = nll_grad(log_probs, gamma, ext, il, g)
+        grad = grad_cuda(log_probs, targets, il, tl, gamma, g, ctx.blank)
         return grad, None, None, None, None, None
 
 

@@ -20,7 +20,9 @@ Numerical design (the JAX package's, kept as algorithm):
     kernel does.
   * gradient wrt log_probs: ``(exp(lp) - posterior) * [t < il] * g``, the
     posterior scattered from the state occupations gamma with
-    `scatter_add_` (duplicate labels add up).
+    `scatter_add_` (duplicate labels add up; on the CPU in index order; the
+    card runs the combine kernel of csrc/ctc_loss.cu instead, whose sums
+    have one fixed order where CUDA's scatter atomics have none).
 
 With `zero_infinity=False` an infeasible sample scores +inf and keeps a
 finite gradient (`exp(lp) * g`), the JAX package's convention.

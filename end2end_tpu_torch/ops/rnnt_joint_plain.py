@@ -1,9 +1,9 @@
 """The online-softmax fused transducer joint as plain torch: the twins of
 the CUDA kernels K10 (forward), K11 (dh) and K12 (dW, db) of
-csrc/rnnt_joint.cu.
+csrc/rnnt_joint.cu and of their vocabulary-sharded modes K10tp-K12tp.
 
 Port of the arithmetic of `end2end_tpu/ops/rnnt_joint_pallas.py`
-(`_fwd_kernel`, `_dh_kernel`, `_dw_kernel`).  Rows of the flattened
+(`_fwd_kernel`, `_dh_kernel`, `_dw_kernel` and the `_tp` three).  Rows of the flattened
 activation h (R, J) are independent; each function walks them in blocks of
 `rows` and, inside a block, the vocabulary in tiles of `tile` columns:
   * `joint_fwd(h, w, b, y, blank) -> (b_pl, l_pl, m, logs)`: per row, the
@@ -22,6 +22,14 @@ what the TPU kernel's -3e38 mask does.  A label outside [0, V) matches no
 column.  `tile` sets the online-softmax grouping (the kernels use
 TILE = 128); `rows` only bounds the temporaries (and orders dW's and db's
 sums over rows).
+
+The TP twins run one shard's (J, V/D) slice of W with shard-relative
+blank and label ids, -1 where another shard owns the column:
+`joint_fwd_tp` returns the raw blank and label logits (0 where unowned)
+and the shard's local m and log s, for the caller to combine across
+shards; `joint_dh_tp` and `joint_dw_tp`, given the global m and log s, are
+K11's and K12's arithmetic on the slice (a partial dh; the shard's own dW
+and db).
 
 A CPU tensor runs these; chip_smoke.py runs them on the card beside the
 kernels.
@@ -50,10 +58,9 @@ def _label_index(y, c0, c1):
     return hit, (y - c0).clamp(0, c1 - c0 - 1)[:, None]
 
 
-def joint_fwd(h, w, b, y, blank, *, rows=ROWS, tile=TILE):
-    """K10's twin.  h (R, J), w (J, V), b (V,) float32; y (R,) integer
-    labels.  Returns four (R,) float32 tensors: the blank plane, the label
-    plane, the row max m and log s."""
+def _fwd_columns(h, w, b, y, blank, rows, tile):
+    """(4, R) float32: the raw blank and label logits (0 where the id is
+    not a column), the row max m and log s."""
     r, v = h.shape[0], w.shape[1]
     hb, wb, y = _bf16(h), _bf16(w), y.long()
     out = torch.empty((4, r), dtype=torch.float32, device=h.device)
@@ -71,10 +78,25 @@ def joint_fwd(h, w, b, y, blank, *, rows=ROWS, tile=TILE):
                 xb = x[:, blank - c0]
             hit, col = _label_index(yr, c0, c1)
             xy = torch.where(hit, x.gather(1, col)[:, 0], xy)
-        logs = torch.log(s)
-        out[:, r0:r0 + rows] = torch.stack([(xb - m) - logs, (xy - m) - logs,
-                                            m, logs])
-    return out[0], out[1], out[2], out[3]
+        out[:, r0:r0 + rows] = torch.stack([xb, xy, m, torch.log(s)])
+    return out
+
+
+def joint_fwd(h, w, b, y, blank, *, rows=ROWS, tile=TILE):
+    """K10's twin.  h (R, J), w (J, V), b (V,) float32; y (R,) integer
+    labels.  Returns four (R,) float32 tensors: the blank plane, the label
+    plane, the row max m and log s."""
+    xb, xy, m, logs = _fwd_columns(h, w, b, y, blank, rows, tile)
+    return (xb - m) - logs, (xy - m) - logs, m, logs
+
+
+def joint_fwd_tp(h, w, b, y, blank, *, rows=ROWS, tile=TILE):
+    """K10tp's twin on one shard: w (J, V/D), b (V/D,), blank and y
+    shard-relative (-1 where another shard owns the column).  Returns
+    (xb, xy, m, logs), each (R,) float32: the raw blank and label logits
+    (0 where unowned) and the shard's local m and log s."""
+    xb, xy, m, logs = _fwd_columns(h, w, b, y, blank, rows, tile)
+    return xb, xy, m, logs
 
 
 def _d_tiles(h, w, b, y, blank, m, logs, gb, gl, rows, tile):
@@ -119,3 +141,10 @@ def joint_dw(h, w, b, y, blank, m, logs, gb, gl, *, rows=ROWS, tile=TILE):
         dw[:, c0:c1] += hr.T @ _bf16(d)
         db[c0:c1] += d.sum(0)
     return dw, db
+
+
+# K11tp and K12tp are K11's and K12's arithmetic on the shard's slice, with
+# the global m and log s (an id of -1 matches no column): a partial dh, and
+# the shard's own dW and db.
+joint_dh_tp = joint_dh
+joint_dw_tp = joint_dw

@@ -46,15 +46,18 @@ _SIGNATURES = {
     # t_max, n, v, s_max, blank, every, stream
     "e2e_ctc_beta_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                          _VP, _I, _I, _I, _I, _I, _I, _VP),
+    # lp, gamma, targets, il, tl, g, out, t_max, n, v, s_max, blank, stream
+    "e2e_ctc_grad_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                         _I, _VP),
     # b_pl, l_pl, tape, rcum, n, t_max, up, stream
     "e2e_rnnt_alpha_f32": (_VP, _VP, _VP, _VP, _I, _I, _I, _VP),
     # b_pl, l_pl, tape, rcum, il, ul, z_small, z_off, gb, gl, n, t_max, up,
     # stream
     "e2e_rnnt_post_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                           _I, _I, _I, _VP),
-    # h, w, b, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, stream
+    # h, w, b, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, raw, stream
     "e2e_rnnt_joint_fwd": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _I,
-                           _I, _I, _I, _VP),
+                           _I, _I, _I, _I, _VP),
     # h, w, b, y, m, logs, gb, gl, dh, R, J, V, Vp, blank, stream
     "e2e_rnnt_joint_dh": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL,
                           _I, _I, _I, _I, _VP),

@@ -11,8 +11,10 @@ import pytest
 import torch
 
 from end2end_tpu_torch.ops import (beam_search_cuda, ctc_loss_cuda,
-                                   rnnt_joint_cuda, rnnt_joint_plain,
-                                   rnnt_loss_cuda, rnnt_loss_plain, topk_cuda)
+                                   ctc_loss_plain, rnnt_joint_cuda,
+                                   rnnt_joint_plain, rnnt_loss_cuda,
+                                   rnnt_loss_plain, topk_cuda)
+from end2end_tpu_torch.ops.ctc_common import build_ctc_tables
 from end2end_tpu_torch.ops import lm as tlm
 from end2end_tpu_torch.ops.beam_search import beam_search_decode
 from end2end_tpu_torch.ops.ctc_loss import ctc_nll
@@ -197,16 +199,43 @@ def test_ctc_kernels_match_plain(dev, blank):
     torch.testing.assert_close(loss, want[0], atol=1e-4, rtol=2e-6)
     torch.testing.assert_close(grad, want[1], atol=1e-5, rtol=0)
     assert torch.isfinite(grad).all() and not grad[:, 6].any()
-    # The kernels' outputs are bit-identical across the tape and checkpoint
-    # modes; the gradient only to rounding, since the torch combine after
-    # K2 (scatter_add_) adds duplicate labels with CUDA atomics.
+    # The kernels' outputs, and the gradient (the combine kernel sums in
+    # one fixed order), are bit-identical across the tape and checkpoint
+    # modes.
     outs = {every: _kernel_outputs(lp, tgt, il, tl, dev, blank, every)
             for every in (0, 4, 64)}
     for every in (4, 64):
         assert torch.equal(got[every][0], loss)
-        torch.testing.assert_close(got[every][1], grad, atol=1e-6, rtol=0)
+        assert torch.equal(got[every][1], grad)
         assert torch.equal(outs[every][0], outs[0][0])
         assert torch.equal(outs[every][1], outs[0][1])
+
+
+def test_ctc_gradient_is_deterministic(dev):
+    """Two gradient runs through K1, K2 and the combine are bit-equal, with
+    duplicate labels in every target (the combine's fixed-order sums) and
+    within 1e-5 of the plain combine (`scatter_add_`) on the same gamma."""
+    rng = np.random.default_rng(3)
+    T, B, S, V = 300, 16, 60, 40
+    x = rng.standard_normal((T, B, V))
+    lp = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+    tgt = rng.integers(1, 6, (B, S)).astype(np.int32)
+    il = rng.integers(T // 2, T + 1, B).astype(np.int32)
+    tl = np.minimum(rng.integers(1, S + 1, B), il // 3).astype(np.int32)
+    runs = [_loss_grad(lp, tgt, il, tl, dev, 0, "pallas", 0)[1]
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    args = [torch.tensor(a, device=dev) for a in (lp, tgt, il, tl)]
+    z, ne, a, an = ctc_loss_cuda.alpha_cuda(*args)
+    gamma = ctc_loss_cuda.beta_cuda(*args, a, an, z, ne)
+    g = torch.ones(B, device=dev)
+    before = ctc_loss_cuda.launches["ctc_grad"]
+    got = ctc_loss_cuda.grad_cuda(*args, gamma, g)
+    assert ctc_loss_cuda.launches["ctc_grad"] == before + 1
+    ext = build_ctc_tables(args[1], args[3], 0, V).ext_labels
+    want = ctc_loss_plain.nll_grad(args[0], gamma, ext, args[2].long(), g)
+    assert torch.equal(got, runs[0])
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
 def _kernel_outputs(lp, tgt, il, tl, dev, blank, every):
@@ -343,10 +372,12 @@ def _rel_err(got, want):
 
 # (R, J, V, blank): JAX's test problem (n=2, t=7, u=3), V=13 with blank=5,
 # V=1100 with blank in the fifth tile and R not a multiple of 64, J not a
-# multiple of 8 (the kernels' scalar h loads) and the widest J
+# multiple of 8 (the kernels' scalar h loads), J = 128, and J in 128-row
+# slabs: two whole (256), two and a half (320), and a ragged 200
 @pytest.mark.parametrize("r,j,v,blank", [
     (56, 8, 11, 0), (56, 8, 13, 5), (1000, 16, 1100, 600), (300, 6, 257, 256),
-    (130, 100, 40, 3), (200, 128, 300, 0)])
+    (130, 100, 40, 3), (200, 128, 300, 0), (300, 200, 300, 7),
+    (1000, 256, 1100, 600), (130, 320, 257, 256)])
 def test_joint_kernels_match_plain(dev, r, j, v, blank):
     """K10, K11, K12 vs their plain twins on the card: the forward within
     1e-4; dh, dW and db within 1e-3 of each tensor's max (a last-bit
@@ -359,19 +390,66 @@ def test_joint_kernels_match_plain(dev, r, j, v, blank):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
     dh = rnnt_joint_cuda.joint_dh(*args, *stats)
     dw, db = rnnt_joint_cuda.joint_dw(*args, *stats)
-    assert rnnt_joint_cuda.launches == {k: c + 1 for k, c in before.items()}
+    assert rnnt_joint_cuda.launches == {
+        k: c + (not k.endswith("_tp")) for k, c in before.items()}
     assert _rel_err(dh, rnnt_joint_plain.joint_dh(*args, *stats)) < 1e-3
     p_dw, p_db = rnnt_joint_plain.joint_dw(*args, *stats)
     assert _rel_err(dw, p_dw) < 1e-3 and _rel_err(db, p_db) < 1e-3
     assert dh.shape == (r, j) and dw.shape == (j, v) and db.shape == (v,)
 
 
-def test_fused_pallas_reaches_the_kernels(dev):
+@pytest.mark.parametrize("r,j,v,blank", [(56, 8, 16, 9),
+                                          (1000, 16, 1100, 600)])
+def test_joint_tp_kernels_match_plain(dev, r, j, v, blank):
+    """K10tp, K11tp, K12tp vs their TP twins on the card, shard by shard
+    (D=4; the blank on a middle shard, -1 on the others), to the tolerances
+    of test_joint_kernels_match_plain; the shards combined equal K10-K12
+    unsharded (planes, m and log s within 1e-5; the summed partial dh and
+    the concatenated dW, db within 1e-3 of each tensor's max)."""
+    args, stats = _joint_case(4, r, j, v, blank, dev)
+    h, w, b, y, _ = args
+    vl = v // 4
+    fwd, dh, dw, db = [], 0.0, [], []
+    for rank in range(4):
+        lo = rank * vl
+        yr = torch.where((y >= lo) & (y < lo + vl), y - lo, -1).int()
+        shard = (h, w[:, lo:lo + vl].contiguous(),
+                 b[lo:lo + vl].contiguous(), yr.contiguous(),
+                 blank - lo if lo <= blank < lo + vl else -1)
+        before = dict(rnnt_joint_cuda.launches)
+        got = rnnt_joint_cuda.joint_fwd_tp(*shard)
+        for g, p in zip(got, rnnt_joint_plain.joint_fwd_tp(*shard)):
+            torch.testing.assert_close(g, p, atol=1e-4, rtol=0)
+        fwd.append(got)
+        s_dh = rnnt_joint_cuda.joint_dh_tp(*shard, *stats)
+        s_dw, s_db = rnnt_joint_cuda.joint_dw_tp(*shard, *stats)
+        assert rnnt_joint_cuda.launches == {
+            k: c + k.endswith("_tp") for k, c in before.items()}
+        assert _rel_err(s_dh, rnnt_joint_plain.joint_dh_tp(*shard,
+                                                          *stats)) < 1e-3
+        p_dw, p_db = rnnt_joint_plain.joint_dw_tp(*shard, *stats)
+        assert _rel_err(s_dw, p_dw) < 1e-3 and _rel_err(s_db, p_db) < 1e-3
+        dh, dw, db = dh + s_dh, dw + [s_dw], db + [s_db]
+    xb, xy, m_l, logs_l = (torch.stack(c) for c in zip(*fwd))
+    m = m_l.amax(0)
+    logs = torch.log(torch.exp(logs_l + (m_l - m)).sum(0))
+    xb, xy = xb.sum(0), xy.sum(0)
+    want = rnnt_joint_cuda.joint_fwd(*args)
+    for g, p in zip(((xb - m) - logs, (xy - m) - logs, m, logs), want):
+        torch.testing.assert_close(g, p, atol=1e-5, rtol=0)
+    assert _rel_err(dh, rnnt_joint_cuda.joint_dh(*args, *stats)) < 1e-3
+    u_dw, u_db = rnnt_joint_cuda.joint_dw(*args, *stats)
+    assert _rel_err(torch.cat(dw, 1), u_dw) < 1e-3
+    assert _rel_err(torch.cat(db), u_db) < 1e-3
+
+
+@pytest.mark.parametrize("j", [16, 256])
+def test_fused_pallas_reaches_the_kernels(dev, j):
     """rnnt_nll_fused_pallas on CUDA float32 launches K10 once forward and
     K11 and K12 once backward (K8 and K9 for the DP), and agrees with the
-    same function on the CPU (its plain twins)."""
+    same function on the CPU (its plain twins), J in one slab and in two."""
     rng = np.random.default_rng(5)
-    n, t, u, v, j = 3, 9, 4, 70, 16
+    n, t, u, v = 3, 9, 4, 70
     arrays = (rng.standard_normal((n, t, j)),
               rng.standard_normal((n, u + 1, j)),
               rng.standard_normal((j, v)) / np.sqrt(j),
@@ -388,8 +466,8 @@ def test_fused_pallas_reaches_the_kernels(dev):
         nll.sum().backward()
         after = (dict(rnnt_joint_cuda.launches), dict(rnnt_loss_cuda.launches))
         step = int(device != "cpu")
-        assert after == tuple({k: c + step for k, c in d.items()}
-                              for d in before)
+        assert after == tuple({k: c + step * (not k.endswith("_tp"))
+                               for k, c in d.items()} for d in before)
         out[str(device)] = [nll.detach().cpu()] + [x.grad.cpu() for x in xs]
     got, want = out[str(dev)], out["cpu"]
     torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=1e-5)
@@ -406,10 +484,12 @@ def test_joint_kernels_reject_what_they_cannot_run(dev):
         rnnt_joint_cuda.joint_fwd(h.double(), w, b, y, blank)
     with pytest.raises(ValueError, match="float32"):
         rnnt_joint_cuda.joint_dh(*args, stats[0].double(), *stats[1:])
-    wide = torch.zeros((40, 129), device=dev)
-    with pytest.raises(ValueError, match="J=129"):
-        rnnt_joint_cuda.joint_fwd(wide, torch.zeros((129, 20), device=dev),
+    empty = torch.zeros((40, 0), device=dev)
+    with pytest.raises(ValueError, match="J=0"):
+        rnnt_joint_cuda.joint_fwd(empty, torch.zeros((0, 20), device=dev),
                                   b, y, blank)
+    with pytest.raises(ValueError, match="blank=-1"):
+        rnnt_joint_cuda.joint_fwd(h, w, b, y, -1)  # only a shard takes -1
     with pytest.raises(ValueError, match="contiguous"):
         rnnt_joint_cuda.joint_fwd(h.T.contiguous().T, w, b, y, blank)
     with pytest.raises(ValueError, match="blank"):

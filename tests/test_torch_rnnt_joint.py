@@ -41,6 +41,8 @@ CASES = {
     # three 512-lane tiles, the last ragged, blank in the second; R = 720
     # rows: two 512-row blocks, the last ragged
     "v1100_j16": (2, 3, 40, 5, 1100, 16, 600),
+    "v16_blank9": (5, 2, 7, 3, 16, 8, 9),
+    "j256": (3, 2, 7, 3, 40, 256, 0),  # two of the kernels' 128-row J slabs
 }
 
 
@@ -256,3 +258,41 @@ def test_bad_inputs_raise():
         rnnt_nll_fused_pallas(*xs, tgt, il, ul, blank=11)
     with pytest.raises(ValueError, match="fit"):
         rnnt_nll_fused_pallas(xs[0], xs[1], xs[2].T, xs[3], tgt, il, ul)
+
+
+@pytest.mark.parametrize("name", ["v16_blank9", "v1100_j16"])
+def test_tp_twins_combine_to_unsharded(name):
+    """The TP twins on D=4 shards (blank and labels shard-relative, -1 on
+    the shards that do not own them), combined with MAX and SUM as the
+    vocabulary-parallel loss combines them, equal the unsharded twins: the
+    forward within 1e-5 (m exactly: a max), the summed partial dh and the
+    concatenated dW, db within GRAD_RTOL of each tensor's max."""
+    args, (gb, gl) = torch_rows(name)
+    h, w, b, y, blank = args
+    d, v = 4, w.shape[1]
+    vl = v // d
+    want = rnnt_joint_plain.joint_fwd(*args, rows=64)
+    stats = (want[2], want[3], gb, gl)
+    fwd, dh, dw, db = [], 0.0, [], []
+    for lo in range(0, v, vl):
+        own = (y >= lo) & (y < lo + vl)
+        shard = (h, w[:, lo:lo + vl], b[lo:lo + vl],
+                 torch.where(own, y - lo, -1),
+                 blank - lo if lo <= blank < lo + vl else -1)
+        fwd.append(rnnt_joint_plain.joint_fwd_tp(*shard, rows=64))
+        dh = dh + rnnt_joint_plain.joint_dh_tp(*shard, *stats, rows=64)
+        s_dw, s_db = rnnt_joint_plain.joint_dw_tp(*shard, *stats, rows=64)
+        dw, db = dw + [s_dw], db + [s_db]
+    xb, xy, m_l, logs_l = (torch.stack(c) for c in zip(*fwd))
+    m = m_l.amax(0)
+    logs = torch.log(torch.exp(logs_l + (m_l - m)).sum(0))
+    got = ((xb.sum(0) - m) - logs, (xy.sum(0) - m) - logs, m, logs)
+    for g, p, what in zip(got, want, ("b_pl", "l_pl", "m", "logs")):
+        torch.testing.assert_close(g, p, rtol=0, atol=1e-5, msg=what)
+    assert torch.equal(m, want[2])
+    assert_rel(dh.numpy(), rnnt_joint_plain.joint_dh(*args, *stats,
+                                                     rows=64).numpy(),
+               GRAD_RTOL, "dh")
+    u_dw, u_db = rnnt_joint_plain.joint_dw(*args, *stats, rows=64)
+    assert_rel(torch.cat(dw, 1).numpy(), u_dw.numpy(), GRAD_RTOL, "dW")
+    assert_rel(torch.cat(db).numpy(), u_db.numpy(), GRAD_RTOL, "db")
