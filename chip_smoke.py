@@ -101,14 +101,19 @@ Phases (every failure raises, so the exit code is nonzero):
      torch.matmul products of each (row-blocked, the library yardstick),
      the fused loss+gradient, its torch work outside the kernels (the
      activation forward and backward, the bf16 casts) and the float32
-     chunked loss+gradient (the two losses also as lattice cells/s);
+     chunked loss+gradient (the two losses also as lattice cells/s), and
+     K12's launch (row splits, blocks, registers, blocks per SM, shared
+     memory) and the card's SM clock, power and temperature while it runs
+     K12;
  21. J > 128 (the kernels walk J in 128-row slabs): K10-K12 vs their
      twins at J = 200, 256 and 320 (R=1000, V=1100, blank 600) and at the
      bench row with J=256, to phase 18's tolerances; K10-K12 and their
      twins timed at that bench row;
  22. the CTC gradient's combine kernel at the metric shape: two gradient
      runs through K1, K2 and the combine bit-equal, and the combine within
-     1e-5 of the plain `scatter_add_` combine on the same gamma;
+     1e-5 of the plain `scatter_add_` combine on the same gamma; K12 and
+     K12tp (each of the D=4 shards) at the bench row, two runs each, dW
+     and db bit-equal;
  23. the vocabulary-sharded kernels K10tp, K11tp, K12tp, D=4 shards run
      one after another on the card, vs their TP twins (phase 18's
      tolerances), and the shards combined (MAX and SUM in torch) vs
@@ -126,8 +131,10 @@ Phases (every failure raises, so the exit code is nonzero):
      gradients (w_out's and b_out's the ranks' shards side by side) to
      phase 19's bf16 budget; a rank that fails fails the run;
  25. timings at the bench row: K10tp-K12tp on each shard, their twins
-     (shard 0), the bf16 torch.matmul yardsticks at the shard's shape; and
-     the combine against the `scatter_add_` combine.
+     (shard 0), the bf16 torch.matmul yardsticks at the shard's shape,
+     K12tp's launch, the card's clock while it runs K12tp, and the shards'
+     K12tp time against K12's; and the combine against the `scatter_add_`
+     combine.
 The line before the last is the card's name and power limit; the line
 before it the per-kernel JSON (with each kernel's bound: the largest of
 its bytes over 3.35 TB/s, its float32 operations over 67 TFLOP/s, its bf16
@@ -171,6 +178,7 @@ from end2end_tpu_torch.ops.rnnt_loss import (fused_additive_joint, rnnt_nll,
                                              rnnt_nll_fused)
 from end2end_tpu_torch.ops.lm import (NGramLM, QuantizedBigramGuide,
                                       WordNGramLM, bigram_from_counts)
+from end2end_tpu_torch.tools.joint_dw_breakdown import under_load
 from end2end_tpu_torch.utils import cuda_build
 
 SEED = 0
@@ -283,6 +291,14 @@ def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def card_under_load(fn) -> str:
+    """The card's SM clock, power and temperature while fn() runs back to
+    back for 1.5 s (a card at its power or thermal limit clocks down, and
+    every kernel's time with it)."""
+    mhz, watts, temp = under_load(fn, seconds=1.5)
+    return f"SM clock {mhz:.0f} MHz, {watts:.1f} W, {temp:.0f} C"
 
 
 def time_plain(fn) -> float:
@@ -1170,6 +1186,34 @@ def ctc_grad_bound(lp, tgt, il, tl):
     return bound(nbytes, frames * v, exps=frames * v)
 
 
+def check_dw_determinism(args, stats, what):
+    """K12, and K12tp on each of the D shards, twice on the same inputs:
+    dW and db bit-equal."""
+    runs = [(rnnt_joint_cuda.joint_dw, args)] + [
+        (rnnt_joint_cuda.joint_dw_tp, tp_shard(args, rank))
+        for rank in range(TP_RANKS)]
+    for fn, inputs in runs:
+        first, second = fn(*inputs, *stats), fn(*inputs, *stats)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(first, second)):
+            raise AssertionError(f"{what}: {fn.__name__} is not "
+                                 "deterministic")
+    log(f"{what}: K12 and K12tp on each of the {TP_RANKS} shards, two runs "
+        "each, dW and db bit-equal")
+
+
+def dw_plan_line(args):
+    """K12's launch for these inputs, as a log line."""
+    h, w = args[0], args[1]
+    plan = rnnt_joint_cuda.dw_plan(h.shape[0], h.shape[1], w.shape[1],
+                                   h.device)
+    return (f"S={plan['splits']} row splits, {plan['blocks']} blocks on "
+            f"{plan['sms']} SMs, {plan['blocks_per_sm']} blocks per SM, "
+            f"{plan['regs']} registers per thread, {plan['spill_bytes']} B "
+            f"spilled, {plan['smem']} B shared memory, {plan['stages']} "
+            "stages")
+
+
 def check_ctc_determinism(lp, tgt, il, tl, what):
     """Two gradients through K1, K2 and the combine bit-equal; the combine
     vs the plain combine on the same gamma.  Returns its max abs err."""
@@ -1897,6 +1941,9 @@ def main() -> None:
     for k in ("fwd", "dh", "dw"):
         log(f"phase 20 bound joint_{k}: {joint_b[k][0]:.3f} ms "
             f"({joint_b[k][1]})")
+    log(f"phase 20 K12's plan at the bench row: {dw_plan_line(args)}")
+    log("phase 20 the card running K12 back to back: " + card_under_load(
+        lambda: rnnt_joint_cuda.joint_dw(*args, *stats)))
     for k in ("fused_pallas_loss_grad_bench",
               "fused_f32_chunked_loss_grad_bench"):
         log(f"phase 20 {k} (B={n}, T={t}, U={u}, V={v}, J={j}): "
@@ -1931,6 +1978,8 @@ def main() -> None:
     combine_err = check_ctc_determinism(
         *ctc_inputs["metric"], "phase 22 CTC gradient at the metric shape "
         "(B=32, T=1000, S=100, V=1024)")
+    check_dw_determinism(args, stats, f"phase 22 K12 at the bench row (R="
+                         f"{args[0].shape[0]}, J={j}, V={v})")
 
     # 23. K10tp-K12tp, D shards one after another, vs their TP twins and,
     # combined, vs K10-K12 unsharded
@@ -1991,6 +2040,11 @@ def main() -> None:
             f" ms; plain {ms[f'joint_{kernel}_tp_plain_bench']:.3f} ms; bf16 "
             f"matmul yardstick {ms[f'joint_{kernel}_tp_library_bench']:.3f} "
             f"ms; bound {tp_b[kernel][0]:.3f} ms by {tp_b[kernel][1]}")
+    log("phase 25 the card running K12tp back to back: " + card_under_load(
+        lambda: rnnt_joint_cuda.joint_dw_tp(*shard0, *stats)))
+    log(f"phase 25 K12tp's plan per shard: {dw_plan_line(shard0)}; the "
+        f"{TP_RANKS} shards' K12tp {ms['joint_dw_tp_sum_bench']:.3f} ms = "
+        f"{ms['joint_dw_tp_sum_bench'] / ms['joint_dw_bench']:.3f} x K12")
     for name in ("metric", "main"):
         log(f"phase 25 time the CTC combine ({name}): "
             f"{ms[f'ctc_grad_{name}']:.3f} ms vs the scatter_add_ combine "

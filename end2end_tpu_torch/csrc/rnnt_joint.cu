@@ -16,9 +16,9 @@
 // with `raw` set stores the raw blank and label logits (0 when unowned) and
 // the shard's local m and log s instead of the planes; the caller combines
 // them across shards.  K11 and K12 take the global (m, log s) unchanged and
-// give the shard's partial dh and its own dW, db columns.  K12tp keeps one
-// block per 128-column tile of the shard: at the bench row's V/D = 8192
-// that is 64 blocks on the 132 SMs, and the card is half idle.
+// give the shard's partial dh and its own dW, db columns; K12 splits the
+// rows over as many blocks as fill the card, so a shard's fewer V tiles do
+// not leave SMs idle.
 //
 // Semantics (the JAX package's): rows of the activation h (R, J) are
 // independent.  Per row, logits x = h W + b over V columns; K10 keeps an
@@ -40,36 +40,59 @@
 // tensor cores (2.2 ms for K10, 4.4 ms for K11 and K12 at 989 TFLOP/s) and
 // the exp unit (~2 ms at 16 exps per SM per clock), not by bytes.
 //
-// Design: 256 threads (8 warps), 64 rows x 128 columns per step.  The
-// products run on the tensor cores through nvcuda::wmma (bf16 16x16x16
-// fragments, float32 accumulators): a warp owns a 16-row slab and four of
-// the eight 16-column slabs of the logits tile.  The accumulators go to a
-// float32 tile in shared memory, where the epilogue reads them with the
-// layout thread -> (row tid/4, columns tid%4 + 4i), conflict-free.  K10
-// keeps each thread's own online (max, sum-exp) over its 32 columns of
+// Design of K10 and K11: 256 threads (8 warps), 64 rows x 128 columns per
+// step.  The products run on the tensor cores through nvcuda::wmma (bf16
+// 16x16x16 fragments, float32 accumulators): a warp owns a 16-row slab and
+// four of the eight 16-column slabs of the logits tile.  The accumulators
+// go to a float32 tile in shared memory, where the epilogue reads them
+// with the layout thread -> (row tid/4, columns tid%4 + 4i), conflict-free.
+// K10 keeps each thread's own online (max, sum-exp) over its 32 columns of
 // every tile, so a tile needs no cross-thread reduction; the four threads
 // of a row combine once at the end.  K11 writes d as a bf16 tile and
-// multiplies it by the W tile read back col_major (W^T for free); K12 reads
-// the h tile col_major (h^T).  J is padded with zeros to 16, 32, 64 or 128
-// in shared memory only (a template on the number of 16-wide slabs).  J >
-// 128 walks J in slabs of 128 rows through the same shared tiles (WIDE):
-// K10 streams h and W slab by slab into one set of logits fragments; K11
-// and K12, whose (64, J) and (J, 128) float32 accumulators would not fit in
-// registers, get a second grid dimension over the slabs, each block
-// recomputing the logits over the whole J and accumulating only its own
-// slab (J/128 times the logits work).  The TPU's sequential K12 grid (V
-// tile outer, row block inner, sums carried in scratch) becomes one block
-// per V tile that loops over every row block itself: deterministic, no
-// atomics.  W streams tile by tile from L2 (8 MB of bf16 at the bench row).
-// Shared memory: h tile 17 KB, W tile 34 KB, logits 33 KB, d tile 17 KB,
-// two blocks per SM.  __expf (ex2.approx) for the exps: its ~1e-6 relative
-// error is noise against the bf16 rounding of h and W.  A first design:
-// no cp.async/TMA pipelining and no wgmma.
+// multiplies it by the W tile read back col_major (W^T for free).  J is
+// padded with zeros to 16, 32, 64 or 128 in shared memory only (a
+// template on the number of 16-wide slabs).  J > 128 walks J in slabs of
+// 128 rows through the same shared tiles (WIDE): K10 streams h and W slab
+// by slab into one set of logits fragments; K11,
+// whose (64, J) float32 accumulator would not fit in registers, gets a
+// second grid dimension over the slabs, each block recomputing the logits
+// over the whole J and accumulating only its own slab (J/128 times the
+// logits work).  W streams tile by tile from L2 (8 MB of bf16 at the bench
+// row).  Shared memory: h tile 17 KB, W tile 34 KB, logits 33 KB, d tile
+// 17 KB, two blocks per SM.  __expf (ex2.approx) for the exps: its ~1e-6
+// relative error is noise against the bf16 rounding of h and W.  No
+// cp.async/TMA pipelining and no wgmma.
+//
+// Design of K12 (dW, db).  The TPU's sequential grid (V tile outer, row
+// block inner, sums carried in scratch) becomes a grid of 256-column V
+// tiles x row splits (x 128-row J slabs above J = 128): S contiguous runs
+// of whole 64-row blocks per tile, S chosen on the host (plan_splits in
+// ops/rnnt_joint_cuda.py) so that the grid fills the card; each split's
+// partial dW, db go to a workspace that a second kernel adds up in split
+// order: deterministic, no atomics.  512 threads, four warpgroups of 64
+// columns.  Per 64-row block a warpgroup computes the transposed logits
+// S^T = W_tile^T h^T with wgmma (m64n64k16, both operands read from
+// shared memory by the tensor cores), forms d in the accumulator
+// registers (one fused multiply-add and an exp2 per element, the row
+// statistics staged in shared memory), sums db in registers, and rounds d
+// to bf16 into the register A operand of dW^T += d^T h (m64nJk16, B the
+// same h tile read N-major): the logits and d never reach shared memory,
+// and a row block costs one barrier.  h and the row statistics stream
+// through a 3-stage cp.async ring, a row block ahead of the products; the
+// block's W tile is loaded once.  256 columns rather than 128 halve the h
+// traffic from L2 (17 GB at the bench row with 128); one block of 16
+// warps per SM, 128 registers a thread, 118 KB of shared memory.  On an
+// H100 its largest parts are the dW product and the h loads, and some
+// cards hold it at their 700 W limit, ~1,860 of 1,980 MHz (PERF.md).  J >
+// 128: each J slab's block recomputes the logits over the whole J, W
+// streaming slab by slab through a 2-stage ring with h.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -85,6 +108,8 @@ constexpr int kXld = kTile + 4;       // logits tile row stride (float)
 constexpr int kPerThread = kTile / 4; // columns of a tile per thread
 constexpr int kSlab = 128;            // J rows per slab when J > 128
 constexpr float kNeg = -3.0e38f;      // the running max's identity
+constexpr int kDwTile = 256;          // K12: vocabulary columns per block
+constexpr int kDwThreads = 512;       // K12: a warp per 16 columns
 
 template <int NJ>
 struct Layout {
@@ -436,12 +461,277 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// K12.  Grid: one block per 128-column V tile (x) and, when WIDE, per
-// 128-row J slab (y); the block walks every row block.  Outputs dw (JPad,
-// Vp) and db (Vp,) float32, JPad the padded J (the wrapper slices); the
-// blocks of slab 0 write db.
+// A wgmma shared-memory descriptor without swizzle: the operand is made of
+// 8 x 8 core matrices of 128 contiguous bytes (8 rows of 16 bytes), `sbo`
+// bytes apart along M or N and `lbo` bytes apart along K.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma accumulators
+// across the asynchronous product's issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// This thread's completed cp.async writes, visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// D (64 x 64) (+)= A (64 x 16, M-major) B (16 x 64, K-major), both from
+// shared memory descriptors; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x N) += A (64 x 16, registers) B (16 x N, N-major, a shared
+// memory descriptor).
+template <int N>
+__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                         uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 16 bytes (8 bf16) from global memory, or zeros when `live` is false.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                          bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(live ? 16 : 0));
+}
+
+// 4 bytes, or zeros when `live` is false.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                         bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(live ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kInf = __builtin_huge_valf();
+
+// 2^x (ex2.approx: ~2 ulp; 2^-inf = 0).
+__device__ __forceinline__ float ex2(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// K12's shared memory: a ring of stages, each an h tile (64 rows x JP
+// columns, one 128-row J slab when WIDE) and the 64 rows' statistics (a
+// float4 of m, log s, gb, gl a row, then y); when WIDE each stage also
+// holds the slab's W rows, else the block's W tile (JP x 128) sits
+// outside the ring, loaded once.  The h and W
+// tiles are laid out in core matrices (see smem_desc): h's of rows 8a..
+// and columns 8b.. at (8 b + a) * 128 bytes, W's of rows 8a.. and columns
+// 8b.. at (16 a + b) * 128 bytes; within one, row i at 16 i bytes.
 template <int NJ, bool WIDE>
-__global__ void __launch_bounds__(kThreads, 2)
+struct DwLayout {
+  static constexpr int JP = 16 * NJ;
+  static constexpr int kStages = WIDE ? 2 : 3;
+  static constexpr size_t h_bytes = (size_t)kRows * JP * 2;
+  static constexpr size_t w_bytes = (size_t)JP * kDwTile * 2;
+  static constexpr size_t st_bytes = (size_t)5 * kRows * 4;
+  static constexpr size_t stage = h_bytes + st_bytes + (WIDE ? w_bytes : 0);
+  static constexpr size_t bytes = kStages * stage + (WIDE ? 0 : w_bytes);
+};
+
+// The core-matrix strides of the h and W tiles.
+constexpr uint32_t kHRows8 = 128;          // h: 8 rows further
+constexpr uint32_t kHCols8 = 8 * 128;      // h: 8 columns (J) further
+constexpr uint32_t kWCols8 = 128;                // W: 8 columns (V) further
+constexpr uint32_t kWRows8 = kDwTile / 8 * 128;  // W: 8 rows (J) further
+
+// Columns j0..j0+JP-1 of rows r0..r0+63 of h (R, J) into an h tile, and,
+// when `w` is given, rows j0..j0+JP-1 of W's columns c0..c0+127 into a W
+// tile; zeros past R and J.  Eight neighbouring threads copy the 16-byte
+// rows of one core matrix: 128 contiguous bytes of shared memory, and
+// 16-byte pieces of 8 rows of global memory, 64 contiguous bytes a row for
+// a warp.
+template <int JP>
+__device__ __forceinline__ void issue_h(const bf16* __restrict__ h,
+                                        uint32_t hs, long r0, long R, int J,
+                                        int j0) {
+  for (int i = threadIdx.x; i < kRows * (JP / 8); i += kDwThreads) {
+    const int ri = i % 8, b = (i / 8) % (JP / 8), a = i / JP;
+    const long r = r0 + 8 * a + ri;
+    const int j = j0 + 8 * b;
+    const bool live = r < R && j < J;
+    cp_async16(hs + b * kHCols8 + a * kHRows8 + ri * 16,
+               live ? h + r * J + j : h, live);
+  }
+}
+
+template <int JP>
+__device__ __forceinline__ void issue_w(const bf16* __restrict__ w,
+                                        uint32_t ws, int c0, int J, int j0,
+                                        int Vp) {
+  for (int i = threadIdx.x; i < JP * (kDwTile / 8); i += kDwThreads) {
+    const int ji = i % 8, b = (i / 8) % (kDwTile / 8), a = i / kDwTile;
+    const int j = j0 + 8 * a + ji;
+    const bool live = j < J && c0 + 8 * b < Vp;
+    cp_async16(ws + a * kWRows8 + b * kWCols8 + ji * 16,
+               live ? w + (size_t)j * Vp + c0 + 8 * b : w, live);
+  }
+}
+
+// K12 (K12tp on a shard).  Grid: x the 256-column V tiles (fastest, so the
+// blocks in flight share rows and h is read from L2; a last tile past Vp
+// computes on zeros and stores nothing), y the 128-row J slabs (WIDE), z
+// the `splits` row splits, each a contiguous range of whole 64-row
+// blocks.  Each block writes dW (ldj, Vp) and db (Vp,) of its rows,
+// one after the other at dst + split * (ldj + 1) * Vp; with one split that
+// is the output, else the workspace that rnnt_joint_dw_sum_kernel adds up
+// in split order.  J is a multiple of 8 (the wrapper pads h and W).
+//
+// Warpgroup g owns vocabulary columns 64g..64g+63 of the tile and, per row
+// block, computes the transposed logits S^T = W_tile^T h^T (64 x 64) with
+// wgmma from shared memory into registers (warp w of the block: columns
+// 16w..16w+15), forms d from them in registers, adds its float32 d to the
+// two db sums of its columns, rounds d to bf16 and repacks the
+// accumulators as the register A operand of dW^T += d^T h (64 x JP), whose
+// B operand is the same h tile read N-major.
+template <int NJ, bool WIDE>
+__global__ void __launch_bounds__(kDwThreads, 1)
     rnnt_joint_dw_kernel(const bf16* __restrict__ h,
                          const bf16* __restrict__ w,
                          const float* __restrict__ b,
@@ -449,69 +739,183 @@ __global__ void __launch_bounds__(kThreads, 2)
                          const float* __restrict__ m,
                          const float* __restrict__ logs,
                          const float* __restrict__ gb,
-                         const float* __restrict__ gl, float* __restrict__ dw,
-                         float* __restrict__ db, long R, int J, int V, int Vp,
-                         int blank) {
-  using L = Layout<NJ>;
+                         const float* __restrict__ gl, float* __restrict__ dst,
+                         long R, int J, int V, int Vp, int blank, int splits) {
+  using L = DwLayout<NJ, WIDE>;
+  constexpr int S = L::kStages, JP = L::JP;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem s = carve<NJ>(smem);
-  const int c0 = blockIdx.x * kTile;
-  const int row = threadIdx.x / 4, seg = threadIdx.x % 4;
-  const int warp = threadIdx.x / 32;  // owns dW column slab `warp`
-  const int js = WIDE ? blockIdx.y : 0, last = (J - 1) / kSlab;
-  if constexpr (!WIDE) {
-    zero_pads<NJ>(s, J);
-    load_w(w, s, c0, 0, J, Vp);
-    load_bias(b, s, c0, V);
-  }
-  Acc acc[NJ];
-#pragma unroll
-  for (int i = 0; i < NJ; ++i) wmma::fill_fragment(acc[i], 0.0f);
-  float db_acc = 0.0f;  // column threadIdx.x of the tile (threads < 128)
-  for (long r0 = 0; r0 < R; r0 += kRows) {
-    const RowStats st = row_stats(r0 + row, R, y, m, logs, gb, gl);
-    if constexpr (WIDE) {
-      logits_tile_wide(h, w, b, s, r0, R, J, c0, V, Vp);
-      __syncthreads();
-      // the h tile holds the last slab; this block's product needs its own
-      if (js != last) load_h<8>(h, s, r0, R, J, js * kSlab, kSlab);
-    } else {
-      __syncthreads();  // the previous row block's reads are done
-      load_h<NJ>(h, s, r0, R, J, 0, J);
-      __syncthreads();
-      logits_tile<NJ>(s);
-      __syncthreads();
-    }
-    // d, as float32 over the logits (for db) and as bf16 (for dW)
-#pragma unroll 8
-    for (int i = 0; i < kPerThread; ++i) {
-      const int c = seg + 4 * i;
-      const float d = d_value(s, st, row, c, c0, V, blank);
-      s.x[row * kXld + c] = d;
-      s.d[row * kWld + c] = __float2bfloat16(d);
-    }
-    __syncthreads();
-    if (threadIdx.x < kTile)
-      for (int r = 0; r < kRows; ++r) db_acc += s.x[r * kXld + threadIdx.x];
-    // dW[slab jm, slab warp] += h^T (JP x 64) d (64 x 128)
-#pragma unroll
-    for (int k = 0; k < kRows / 16; ++k) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> dfr;
-      wmma::load_matrix_sync(dfr, s.d + k * 16 * kWld + warp * 16, kWld);
-#pragma unroll
-      for (int jm = 0; jm < NJ; ++jm) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> ht;
-        wmma::load_matrix_sync(ht, s.h + k * 16 * L::HLD + jm * 16, L::HLD);
-        wmma::mma_sync(acc[jm], ht, dfr, acc[jm]);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int c0 = blockIdx.x * kDwTile;
+  const int nslab = WIDE ? (int)gridDim.y : 1, js = WIDE ? blockIdx.y : 0;
+  const long nrb = (R + kRows - 1) / kRows;
+  const long rb0 = blockIdx.z * nrb / splits;
+  const long n_items = ((blockIdx.z + 1) * nrb / splits - rb0) * nslab;
+  const uint32_t ring = smem_addr(smem);
+  const uint32_t wtile = ring + S * L::stage;  // !WIDE: the block's W tile
+
+  // Item `it` (row block rb0 + it / nslab, J slab (js + 1 + it % nslab) %
+  // nslab: the block's own slab last) into stage `st`.
+  auto issue = [&](long it, int st) {
+    const uint32_t base = ring + st * L::stage;
+    const long r0 = (rb0 + it / nslab) * kRows;
+    const int q = (int)(it % nslab);
+    const int j0 = WIDE ? ((js + 1 + q) % nslab) * kSlab : 0;
+    issue_h<JP>(h, base, r0, R, J, j0);
+    if constexpr (WIDE)
+      issue_w<JP>(w, base + L::h_bytes + L::st_bytes, c0, J, j0, Vp);
+    if (q == nslab - 1) {  // the row statistics, for d (zeros past R)
+      for (int i = threadIdx.x; i < 5 * kRows; i += kDwThreads) {
+        const int k = i / kRows, r = i % kRows;
+        const bool live = r0 + r < R;
+        const long row = live ? r0 + r : 0;
+        const void* src = k == 0   ? (const void*)(m + row)
+                          : k == 1 ? (const void*)(logs + row)
+                          : k == 2 ? (const void*)(gb + row)
+                          : k == 3 ? (const void*)(gl + row)
+                                   : (const void*)(y + row);
+        cp_async4(base + L::h_bytes + (k < 4 ? 16 * r + 4 * k : 4 * i), src,
+                  live);
       }
     }
-  }
+  };
+
+  if constexpr (!WIDE) issue_w<JP>(w, wtile, c0, J, 0, Vp);  // group 0
 #pragma unroll
-  for (int jm = 0; jm < NJ; ++jm)
-    wmma::store_matrix_sync(
-        dw + (size_t)(js * kSlab + jm * 16) * Vp + c0 + warp * 16, acc[jm],
-        Vp, wmma::mem_row_major);
-  if (js == 0 && threadIdx.x < kTile) db[c0 + threadIdx.x] = db_acc;
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < n_items) issue(s, s);
+    cp_async_commit();
+  }
+
+  // this thread's two vocabulary columns: accumulator rows g and g + 8
+  const int ca = c0 + warp * 16 + g, cb = ca + 8;
+  // the bias in log2 units; -inf past V, where p = 0
+  const float ba = ca < V ? b[ca] * kLog2e : -kInf;
+  const float bb = cb < V ? b[cb] * kLog2e : -kInf;
+  const bool va = ca < V, vb = cb < V;
+  const bool blank_a = ca == blank, blank_b = cb == blank;
+  const uint32_t wg_cols = (warp / 4) * 8 * kWCols8;  // this warpgroup's
+  float sacc[32];      // S^T: 64 columns x 64 rows, 8 n-fragments of 4
+  float dacc[JP / 2];  // dW^T: 64 columns x JP
+  float dba = 0.0f, dbb = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sacc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < JP / 2; ++i) dacc[i] = 0.0f;
+
+  for (long it = 0; it < n_items; ++it) {
+    cp_async_wait<S - 2>();
+    fence_async_shared();
+    __syncthreads();  // item `it` landed; stage (it - 1) % S is free
+    if (it + S - 1 < n_items) issue(it + S - 1, (int)((it + S - 1) % S));
+    cp_async_commit();
+    const int q = (int)(it % nslab);
+    const uint32_t hs = ring + (it % S) * L::stage;
+    const uint32_t ws =
+        (WIDE ? hs + L::h_bytes + L::st_bytes : wtile) + wg_cols;
+    // S^T (+)= W_tile^T (64 x JP) h^T (JP x 64), 16 of J at a time
+    fence_regs(sacc);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < NJ; ++k)
+      wgmma_ss_n64(sacc, smem_desc(ws + 2 * k * kWRows8, kWRows8, kWCols8),
+                   smem_desc(hs + 2 * k * kHCols8, kHCols8, kHRows8),
+                   k > 0 || q > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sacc);
+    if (q != nslab - 1) continue;  // more J slabs of these rows
+
+    // d in place of the logits, in rnnt_joint_plain's order: -p (gb + gl),
+    // + gb at blank, + gl at y; p = 2^(x log2 e - (m + log s) log2 e).
+    // Rows past R have gb = gl = 0 and an infinite m + log s (p = 0).
+    const long r0 = (rb0 + it / nslab) * kRows;
+    const unsigned char* stats = smem + (it % S) * L::stage + L::h_bytes;
+    const float4* st = reinterpret_cast<const float4*>(stats);
+    const int2* sy = reinterpret_cast<const int2*>(stats + 16 * kRows);
+#pragma unroll
+    for (int nf = 0; nf < 8; ++nf) {
+      const int2 y2 = sy[nf * 4 + t];  // rows nf 8 + 2t, + 1
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = nf * 8 + 2 * t + e;
+        const float4 q4 = st[r];  // m, log s, gb, gl
+        const int yr = e ? y2.y : y2.x;
+        const float mr = r0 + r < R ? (q4.x + q4.y) * kLog2e : kInf;
+        const float nc = -(q4.z + q4.w);
+        float da = ex2(fmaf(sacc[4 * nf + e], kLog2e, ba - mr)) * nc;
+        float dv = ex2(fmaf(sacc[4 * nf + 2 + e], kLog2e, bb - mr)) * nc;
+        if (blank_a) da += q4.z;
+        if (blank_b) dv += q4.z;
+        if (va && ca == yr) da += q4.w;
+        if (vb && cb == yr) dv += q4.w;
+        sacc[4 * nf + e] = da;
+        sacc[4 * nf + 2 + e] = dv;
+        dba += da;
+        dbb += dv;
+      }
+    }
+    // dW^T += bf16(d)^T (64 x 64) h (64 x JP), 16 rows at a time: the
+    // accumulators of row fragments 2kk and 2kk + 1 are the A fragment of
+    // rows 16kk..16kk+15
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[kk][i] = pack_bf16(sacc[8 * kk + 2 * i], sacc[8 * kk + 2 * i + 1]);
+    fence_regs(dacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<JP>(dacc, a[kk],
+                   smem_desc(hs + 2 * kk * kHRows8, kHRows8, kHCols8));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dacc);
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  if (ca >= Vp) return;  // the half of a last tile past Vp
+  const int ldj = nslab * JP;
+  float* dw = dst + (size_t)blockIdx.z * (ldj + 1) * Vp;
+  float* db = dw + (size_t)ldj * Vp;
+#pragma unroll
+  for (int i = 0; i < JP / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const size_t j = js * JP + i * 8 + 2 * t + e;
+      dw[j * Vp + ca] = dacc[4 * i + e];
+      dw[j * Vp + cb] = dacc[4 * i + 2 + e];
+    }
+  // the quad's four partial sums of a column, in a fixed order
+  dba += __shfl_xor_sync(0xffffffffu, dba, 1);
+  dba += __shfl_xor_sync(0xffffffffu, dba, 2);
+  dbb += __shfl_xor_sync(0xffffffffu, dbb, 1);
+  dbb += __shfl_xor_sync(0xffffffffu, dbb, 2);
+  if (js == 0 && t == 0) {
+    db[ca] = dba;
+    db[cb] = dbb;
+  }
+}
+
+// K12's second pass: out[i] = the sum over s of ws[s n + i], s in order;
+// n a multiple of 4.
+__global__ void rnnt_joint_dw_sum_kernel(const float4* __restrict__ ws,
+                                         float4* __restrict__ out, long n4,
+                                         int splits) {
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (long)gridDim.x * blockDim.x) {
+    float4 acc = ws[i];
+    for (int s = 1; s < splits; ++s) {
+      const float4 v = ws[s * n4 + i];
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    }
+    out[i] = acc;
+  }
 }
 
 // The number of 16-wide J slabs the kernels are built for: 1, 2, 4 or 8
@@ -565,18 +969,54 @@ cudaError_t dh(const void* h, const void* w, const void* b, const void* y,
 }
 
 template <int NJ, bool WIDE>
+cudaError_t dw_smem(size_t* bytes) {
+  *bytes = DwLayout<NJ, WIDE>::bytes;
+  return set_smem((const void*)rnnt_joint_dw_kernel<NJ, WIDE>, *bytes);
+}
+
+// K12's resources: info[0] resident blocks per SM, [1] registers per
+// thread, [2] dynamic shared memory bytes, [3] local (spilled) bytes per
+// thread, [4] stages of the ring.
+template <int NJ, bool WIDE>
+cudaError_t dw_plan(int* info) {
+  size_t smem;
+  cudaError_t err = dw_smem<NJ, WIDE>(&smem);
+  if (err != cudaSuccess) return err;
+  const void* kernel = (const void*)rnnt_joint_dw_kernel<NJ, WIDE>;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[0], kernel,
+                                                      kDwThreads, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  info[1] = attr.numRegs;
+  info[2] = (int)smem;
+  info[3] = (int)attr.localSizeBytes;
+  info[4] = DwLayout<NJ, WIDE>::kStages;
+  return err;
+}
+
+template <int NJ, bool WIDE>
 cudaError_t dw(const void* h, const void* w, const void* b, const void* y,
                const void* m, const void* logs, const void* gb,
-               const void* gl, void* dw_out, void* db_out, long R, int J,
-               int V, int Vp, int blank, cudaStream_t stream) {
-  const size_t smem = Layout<NJ>::bwd;
-  cudaError_t err = set_smem((const void*)rnnt_joint_dw_kernel<NJ, WIDE>, smem);
+               const void* gl, void* out, void* ws, long R, int J, int V,
+               int Vp, int blank, int splits, cudaStream_t stream) {
+  size_t smem;
+  cudaError_t err = dw_smem<NJ, WIDE>(&smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)(Vp / kTile), WIDE ? wide_slabs(J) : 1u);
-  rnnt_joint_dw_kernel<NJ, WIDE><<<grid, kThreads, smem, stream>>>(
+  const unsigned slabs = WIDE ? wide_slabs(J) : 1u;
+  const dim3 grid((unsigned)((Vp + kDwTile - 1) / kDwTile), slabs,
+                  (unsigned)splits);
+  rnnt_joint_dw_kernel<NJ, WIDE><<<grid, kDwThreads, smem, stream>>>(
       (const bf16*)h, (const bf16*)w, (const float*)b, (const int*)y,
       (const float*)m, (const float*)logs, (const float*)gb,
-      (const float*)gl, (float*)dw_out, (float*)db_out, R, J, V, Vp, blank);
+      (const float*)gl, (float*)(splits > 1 ? ws : out), R, J, V, Vp, blank,
+      splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long n4 = ((long)slabs * 16 * NJ + 1) * Vp / 4;
+  const unsigned blocks = (unsigned)std::min<long>((n4 + 255) / 256, 4096);
+  rnnt_joint_dw_sum_kernel<<<blocks, 256, 0, stream>>>(
+      (const float4*)ws, (float4*)out, n4, splits);
   return cudaGetLastError();
 }
 
@@ -624,22 +1064,39 @@ extern "C" int e2e_rnnt_joint_dh(const void* h, const void* w, const void* b,
   return (int)cudaErrorInvalidValue;
 }
 
-// As e2e_rnnt_joint_dh; dw (JPad, Vp) and db (Vp,) f32, every element
-// written.
+// As e2e_rnnt_joint_dh, with J a multiple of 8; out holds dW (JPad, Vp)
+// and then db (Vp,), f32, every element written.  With splits > 1 the rows
+// are split over that many blocks per V tile (1 <= splits <= the 64-row
+// blocks, or 1 when R = 0) whose partial sums go to ws, splits x the size
+// of out, and a second kernel adds them up in split order.
 extern "C" int e2e_rnnt_joint_dw(const void* h, const void* w, const void* b,
                                  const void* y, const void* m,
                                  const void* logs, const void* gb,
-                                 const void* gl, void* dw_out, void* db_out,
+                                 const void* gl, void* out, void* ws,
                                  long long R, int J, int V, int Vp, int blank,
-                                 void* stream) {
+                                 int splits, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (J % 8 != 0 || splits < 1 || (splits > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (J > kSlab)
-    return (int)dw<8, true>(h, w, b, y, m, logs, gb, gl, dw_out, db_out, R, J, V, Vp, blank, st);
+    return (int)dw<8, true>(h, w, b, y, m, logs, gb, gl, out, ws, R, J, V, Vp, blank, splits, st);
   switch (slabs_for(J)) {
-    case 1: return (int)dw<1, false>(h, w, b, y, m, logs, gb, gl, dw_out, db_out, R, J, V, Vp, blank, st);
-    case 2: return (int)dw<2, false>(h, w, b, y, m, logs, gb, gl, dw_out, db_out, R, J, V, Vp, blank, st);
-    case 4: return (int)dw<4, false>(h, w, b, y, m, logs, gb, gl, dw_out, db_out, R, J, V, Vp, blank, st);
-    case 8: return (int)dw<8, false>(h, w, b, y, m, logs, gb, gl, dw_out, db_out, R, J, V, Vp, blank, st);
+    case 1: return (int)dw<1, false>(h, w, b, y, m, logs, gb, gl, out, ws, R, J, V, Vp, blank, splits, st);
+    case 2: return (int)dw<2, false>(h, w, b, y, m, logs, gb, gl, out, ws, R, J, V, Vp, blank, splits, st);
+    case 4: return (int)dw<4, false>(h, w, b, y, m, logs, gb, gl, out, ws, R, J, V, Vp, blank, splits, st);
+    case 8: return (int)dw<8, false>(h, w, b, y, m, logs, gb, gl, out, ws, R, J, V, Vp, blank, splits, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K12's resources at this J on the current device (info as dw_plan).
+extern "C" int e2e_rnnt_joint_dw_plan(int J, int* info) {
+  if (J > kSlab) return (int)dw_plan<8, true>(info);
+  switch (slabs_for(J)) {
+    case 1: return (int)dw_plan<1, false>(info);
+    case 2: return (int)dw_plan<2, false>(info);
+    case 4: return (int)dw_plan<4, false>(info);
+    case 8: return (int)dw_plan<8, false>(info);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -14,10 +14,29 @@ zero-padded to a whole number of 128-column tiles) for the kernels' tensor
 cores.  Nothing here falls back to the plain version: anything the kernels
 do not take raises.
 
-`launches` counts kernel launches by name (it is the only module state).
+K12 (`joint_dw`, `joint_dw_tp`) is bound by its bf16 tensor-core work,
+4 R J V operations (4.4 ms on an H100 at the JAX bench row: R = 259,200,
+J = 128, V = 32768; 1.1 ms on one of 4 vocabulary shards).  Its grid is
+256-column V tiles times S row splits; `plan_splits` picks S from the
+card's SM count and the kernel's resident blocks per SM (`dw_plan`) so
+that the grid fills at least one wave with the last one near full (S = 2
+unsharded, 8 per shard at the bench row), and a second kernel adds the S
+partial sums in split order, so dW and db are the same bits run to run.
+The logits and d stay in wgmma's accumulator registers and h streams
+through a cp.async ring (csrc/rnnt_joint.cu).  At the bench row the dW
+product and the h loads from L2 are its largest parts, and some cards
+hold it at their 700 W limit (~1,860 of 1,980 MHz; PERF.md).  The
+wrapper pads J to a multiple of 8 for the kernel's 16-byte copies and
+allocates the workspace, S x (J + 1) x V float32, with `torch.empty`.
+
+`launches` counts kernel launches by name (it is the only module state;
+K12's second pass counts as part of its launch).
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -27,6 +46,7 @@ launches = {"joint_fwd": 0, "joint_dh": 0, "joint_dw": 0,
             "joint_fwd_tp": 0, "joint_dh_tp": 0, "joint_dw_tp": 0}
 
 TILE_V = 128  # vocabulary columns per tile
+DW_TILE = 256  # K12's vocabulary columns per block
 ROWS = 64     # rows of h per block
 SLAB_J = 128  # J rows per slab above J = 128
 
@@ -162,19 +182,90 @@ def joint_dh_tp(h, w, b, y, blank, m, logs, gb, gl):
     return _dh(h, w, b, y, blank, m, logs, gb, gl, tp=True)
 
 
+def row_blocks(rows):
+    """K12's 64-row blocks of R rows (at least one: R = 0 still writes its
+    zero outputs)."""
+    return max(1, -(-rows // ROWS))
+
+
+def plan_splits(rows, tiles, sms, blocks_per_sm):
+    """K12's row splits S for a grid of `tiles` blocks per split (V tiles
+    times J slabs) on `sms` SMs holding `blocks_per_sm` blocks each.
+
+    The grid fills at least one wave of sms x blocks_per_sm blocks where
+    the row blocks allow it (S <= the row blocks); from there up to 4x
+    that S, the S whose estimated time, waves x row blocks per split, is
+    least (the smallest such S, for the least workspace)."""
+    blocks = row_blocks(rows)
+    wave = sms * blocks_per_sm
+    first = min(blocks, -(-wave // tiles))
+
+    def cost(s):
+        return -(-tiles * s // wave) * -(-blocks // s)
+
+    return min(range(first, min(blocks, 4 * first) + 1),
+               key=lambda s: (cost(s), s))
+
+
+def split_rows(rows, splits):
+    """The row range [r0, r1) of each split: contiguous runs of whole 64-row
+    blocks, as the kernel cuts them (split i takes blocks i n / S up to
+    (i + 1) n / S of the n)."""
+    n = row_blocks(rows)
+    return [(min(rows, i * n // splits * ROWS),
+             min(rows, (i + 1) * n // splits * ROWS)) for i in range(splits)]
+
+
+_PLAN_KEYS = ("blocks_per_sm", "regs", "smem", "spill_bytes", "stages")
+
+
+@functools.cache
+def _dw_resources(j, device_index):
+    lib, _ = cuda_build.library()
+    info = (ctypes.c_int * len(_PLAN_KEYS))()
+    with torch.cuda.device(device_index):
+        cuda_build.check(lib.e2e_rnnt_joint_dw_plan(j, info),
+                         "e2e_rnnt_joint_dw_plan")
+        sms = torch.cuda.get_device_properties(device_index)
+    return {"sms": sms.multi_processor_count, **dict(zip(_PLAN_KEYS, info))}
+
+
+def dw_plan(r, j, v, device):
+    """K12's launch on `device` for R rows, J, V: its resources (blocks per
+    SM, registers per thread, shared memory, spilled bytes, stages), the
+    SM count, the split count S and the grid's blocks."""
+    j8 = -(-j // 8) * 8
+    res = _dw_resources(j8, torch.device(device).index or 0)
+    tiles = -(-v // DW_TILE) * (-(-j8 // SLAB_J) if j8 > SLAB_J else 1)
+    splits = plan_splits(r, tiles, res["sms"], res["blocks_per_sm"])
+    return {**res, "splits": splits, "blocks": tiles * splits}
+
+
 def _dw(h, w, b, y, blank, m, logs, gb, gl, tp):
-    ptrs, _alive, r, j, v, vp = _bwd_args(h, w, b, y, blank, m, logs, gb,
-                                          gl, tp)
+    stats = (("m", m), ("logs", logs), ("gb", gb), ("gl", gl))
+    r, j, v = _check(h, w, b, y, blank, stats, tp)
     dev = h.device
-    dw = torch.empty((_slab_width(j), vp), dtype=torch.float32, device=dev)
-    db = torch.empty(vp, dtype=torch.float32, device=dev)
+    j8 = -(-j // 8) * 8  # K12's 16-byte copies: h and W padded to J8
+    hb = h.to(torch.bfloat16)
+    wb, vp = _bf16_w(w, v)
+    if j8 != j:
+        hb = torch.nn.functional.pad(hb, (0, j8 - j))
+        wb = torch.nn.functional.pad(wb, (0, 0, 0, j8 - j))
+    jp = _slab_width(j8)
+    splits = dw_plan(r, j, v, dev)["splits"]
+    out = torch.empty((jp + 1) * vp, dtype=torch.float32, device=dev)
+    ws = (torch.empty((splits, out.numel()), dtype=torch.float32,
+                      device=dev) if splits > 1 else None)
     lib, _ = cuda_build.library()
     with torch.cuda.device(dev):
-        status = lib.e2e_rnnt_joint_dw(*ptrs, dw.data_ptr(), db.data_ptr(), r,
-                                       j, v, vp, blank, _stream(dev))
+        status = lib.e2e_rnnt_joint_dw(
+            hb.data_ptr(), wb.data_ptr(), b.data_ptr(), y.data_ptr(),
+            m.data_ptr(), logs.data_ptr(), gb.data_ptr(), gl.data_ptr(),
+            out.data_ptr(), 0 if ws is None else ws.data_ptr(), r, j8, v, vp,
+            blank, splits, _stream(dev))
     cuda_build.check(status, "e2e_rnnt_joint_dw")
     launches["joint_dw_tp" if tp else "joint_dw"] += 1
-    return dw[:j, :v], db[:v]
+    return out[:jp * vp].view(jp, vp)[:j, :v], out[jp * vp:][:v]
 
 
 def joint_dw(h, w, b, y, blank, m, logs, gb, gl):

@@ -61,9 +61,12 @@ _SIGNATURES = {
     # h, w, b, y, m, logs, gb, gl, dh, R, J, V, Vp, blank, stream
     "e2e_rnnt_joint_dh": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL,
                           _I, _I, _I, _I, _VP),
-    # h, w, b, y, m, logs, gb, gl, dw, db, R, J, V, Vp, blank, stream
+    # h, w, b, y, m, logs, gb, gl, out, ws, R, J, V, Vp, blank, splits,
+    # stream
     "e2e_rnnt_joint_dw": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                          _LL, _I, _I, _I, _I, _VP),
+                          _LL, _I, _I, _I, _I, _I, _VP),
+    # J, info (int[5])
+    "e2e_rnnt_joint_dw_plan": (_I, _VP),
 }
 
 

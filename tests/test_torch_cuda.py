@@ -373,11 +373,14 @@ def _rel_err(got, want):
 # (R, J, V, blank): JAX's test problem (n=2, t=7, u=3), V=13 with blank=5,
 # V=1100 with blank in the fifth tile and R not a multiple of 64, J not a
 # multiple of 8 (the kernels' scalar h loads), J = 128, and J in 128-row
-# slabs: two whole (256), two and a half (320), and a ragged 200
+# slabs: two whole (256), two and a half (320), and a ragged 200; then
+# R = 20,000 (K12 splits the rows over many blocks, the last row block
+# ragged) at J = 128 and at J = 6 with the blank in the last column
 @pytest.mark.parametrize("r,j,v,blank", [
     (56, 8, 11, 0), (56, 8, 13, 5), (1000, 16, 1100, 600), (300, 6, 257, 256),
     (130, 100, 40, 3), (200, 128, 300, 0), (300, 200, 300, 7),
-    (1000, 256, 1100, 600), (130, 320, 257, 256)])
+    (1000, 256, 1100, 600), (130, 320, 257, 256), (20000, 128, 300, 0),
+    (20000, 6, 257, 256)])
 def test_joint_kernels_match_plain(dev, r, j, v, blank):
     """K10, K11, K12 vs their plain twins on the card: the forward within
     1e-4; dh, dW and db within 1e-3 of each tensor's max (a last-bit
@@ -398,24 +401,31 @@ def test_joint_kernels_match_plain(dev, r, j, v, blank):
     assert dh.shape == (r, j) and dw.shape == (j, v) and db.shape == (v,)
 
 
+def _shard(args, rank, d=4):
+    """Rank `rank`'s (h, w, b, y, blank) of d vocabulary shards."""
+    h, w, b, y, blank = args
+    vl = w.shape[1] // d
+    lo = rank * vl
+    yr = torch.where((y >= lo) & (y < lo + vl), y - lo, -1).int()
+    return (h, w[:, lo:lo + vl].contiguous(), b[lo:lo + vl].contiguous(),
+            yr.contiguous(), blank - lo if lo <= blank < lo + vl else -1)
+
+
 @pytest.mark.parametrize("r,j,v,blank", [(56, 8, 16, 9),
-                                          (1000, 16, 1100, 600)])
+                                          (1000, 16, 1100, 600),
+                                          (20000, 16, 512, 300)])
 def test_joint_tp_kernels_match_plain(dev, r, j, v, blank):
     """K10tp, K11tp, K12tp vs their TP twins on the card, shard by shard
     (D=4; the blank on a middle shard, -1 on the others), to the tolerances
     of test_joint_kernels_match_plain; the shards combined equal K10-K12
     unsharded (planes, m and log s within 1e-5; the summed partial dh and
-    the concatenated dW, db within 1e-3 of each tensor's max)."""
+    the concatenated dW, db within 1e-3 of each tensor's max).  At V=512
+    each shard is one 128-column tile, and K12tp splits R = 20,000 over
+    many blocks."""
     args, stats = _joint_case(4, r, j, v, blank, dev)
-    h, w, b, y, _ = args
-    vl = v // 4
     fwd, dh, dw, db = [], 0.0, [], []
     for rank in range(4):
-        lo = rank * vl
-        yr = torch.where((y >= lo) & (y < lo + vl), y - lo, -1).int()
-        shard = (h, w[:, lo:lo + vl].contiguous(),
-                 b[lo:lo + vl].contiguous(), yr.contiguous(),
-                 blank - lo if lo <= blank < lo + vl else -1)
+        shard = _shard(args, rank)
         before = dict(rnnt_joint_cuda.launches)
         got = rnnt_joint_cuda.joint_fwd_tp(*shard)
         for g, p in zip(got, rnnt_joint_plain.joint_fwd_tp(*shard)):
@@ -441,6 +451,34 @@ def test_joint_tp_kernels_match_plain(dev, r, j, v, blank):
     u_dw, u_db = rnnt_joint_cuda.joint_dw(*args, *stats)
     assert _rel_err(torch.cat(dw, 1), u_dw) < 1e-3
     assert _rel_err(torch.cat(db), u_db) < 1e-3
+
+
+@pytest.mark.parametrize("r,j,v,blank", [(20000, 128, 300, 0),
+                                          (1000, 256, 1100, 600),
+                                          (20000, 16, 512, 300)])
+def test_joint_dw_is_deterministic(dev, r, j, v, blank):
+    """K12 and K12tp (on each of 4 shards) twice on the same inputs: dW
+    and db bit-equal (the row splits are summed in a fixed order)."""
+    args, stats = _joint_case(6, r, j, v, blank, dev)
+    for fn, inputs in [(rnnt_joint_cuda.joint_dw, args)] + [
+            (rnnt_joint_cuda.joint_dw_tp, _shard(args, k)) for k in range(4)]:
+        first, second = fn(*inputs, *stats), fn(*inputs, *stats)
+        assert torch.equal(first[0], second[0])
+        assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("r,j,v", [(20000, 128, 300), (20000, 6, 257),
+                                   (20000, 16, 128), (1000, 256, 1100),
+                                   (259200, 128, 32768), (259200, 128, 8192)])
+def test_joint_dw_plan_fills_the_card(dev, r, j, v):
+    """K12's planner on this card: at least one block per SM resident and a
+    grid of at least one full wave (S > 1 wherever the V tiles alone
+    leave SMs idle)."""
+    plan = rnnt_joint_cuda.dw_plan(r, j, v, dev)
+    assert plan["blocks_per_sm"] >= 1
+    assert plan["blocks"] >= plan["sms"] * plan["blocks_per_sm"]
+    tiles = plan["blocks"] // plan["splits"]
+    assert plan["splits"] > 1 or tiles >= plan["sms"] * plan["blocks_per_sm"]
 
 
 @pytest.mark.parametrize("j", [16, 256])

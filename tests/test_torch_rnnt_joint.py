@@ -296,3 +296,65 @@ def test_tp_twins_combine_to_unsharded(name):
     u_dw, u_db = rnnt_joint_plain.joint_dw(*args, *stats, rows=64)
     assert_rel(torch.cat(dw, 1).numpy(), u_dw.numpy(), GRAD_RTOL, "dW")
     assert_rel(torch.cat(db).numpy(), u_db.numpy(), GRAD_RTOL, "db")
+
+
+# (R, tiles, SMs, blocks per SM): R < 64, R not a multiple of 64, one
+# tile, S capped by the row blocks, a grid past one wave, the bench row
+# unsharded and per shard on an H100 (132 SMs, 2 blocks each)
+PLANS = [(0, 1, 132, 2), (1, 3, 132, 2), (63, 1, 4, 1), (65, 1, 4, 1),
+         (1000, 9, 132, 2), (20000, 1, 132, 2), (20000, 3, 132, 2),
+         (20000, 300, 132, 2), (259200, 256, 132, 2), (259200, 64, 132, 2),
+         (259200, 512, 132, 1), (777, 2, 3, 2)]
+
+
+@pytest.mark.parametrize("rows,tiles,sms,per_sm", PLANS)
+def test_dw_planner_covers_every_row_once(rows, tiles, sms, per_sm):
+    """K12's planner: 1 <= S <= the 64-row blocks; the grid fills a wave
+    where the row blocks allow; each split a contiguous run of whole
+    64-row blocks, the splits in order covering [0, R) once."""
+    s = rnnt_joint_cuda.plan_splits(rows, tiles, sms, per_sm)
+    blocks = rnnt_joint_cuda.row_blocks(rows)
+    assert 1 <= s <= blocks
+    assert tiles * s >= sms * per_sm or s == blocks
+    ranges = rnnt_joint_cuda.split_rows(rows, s)
+    assert len(ranges) == s and ranges[0][0] == 0 and ranges[-1][1] == rows
+    for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+        assert a1 == b0
+    for r0, r1 in ranges:
+        assert r0 % 64 == 0 and (r1 % 64 == 0 or r1 == rows)
+        assert r1 > r0 or rows == 0
+    sizes = [-(-(r1 - r0) // 64) for r0, r1 in ranges]
+    assert max(sizes) - min(sizes) <= 1
+
+
+def test_dw_planner_at_the_bench_row():
+    """The split counts the kernel's design is sized for on an H100 (one
+    block per SM): two at V=32768 (128 tiles of 256 columns), eight on a
+    V/D=8192 shard (32 tiles), one wave of 132 at one tile."""
+    assert rnnt_joint_cuda.plan_splits(259200, 128, 132, 1) == 2
+    assert rnnt_joint_cuda.plan_splits(259200, 32, 132, 1) == 8
+    assert rnnt_joint_cuda.plan_splits(20000, 1, 132, 1) == 132
+
+
+@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("sms,per_sm", [(132, 2), (2, 1)])
+def test_dw_split_partials_match_jax(name, sms, per_sm):
+    """K12's two passes on the CPU: the plain twin on each of the planner's
+    row ranges, the partials summed in split order, against JAX's
+    `_dw_kernel` (a small `sms` makes more than one split)."""
+    args, (gb, gl) = torch_rows(name)
+    (_, _, m, logs), (_, dw, db) = jax_rows(name)
+    h, w, b, y, blank = args
+    rows = h.shape[0]
+    tiles = (-(-w.shape[1] // rnnt_joint_cuda.DW_TILE)
+             * max(1, -(-h.shape[1] // 128)))
+    splits = rnnt_joint_cuda.plan_splits(rows, tiles, sms, per_sm)
+    stats = (torch.tensor(m), torch.tensor(logs), gb, gl)
+    got_dw, got_db = 0.0, 0.0
+    for r0, r1 in rnnt_joint_cuda.split_rows(rows, splits):
+        part = rnnt_joint_plain.joint_dw(
+            h[r0:r1], w, b, y[r0:r1], blank, *(s[r0:r1] for s in stats),
+            rows=64, tile=128)
+        got_dw, got_db = got_dw + part[0], got_db + part[1]
+    assert_rel(got_dw.numpy(), dw, GRAD_RTOL, "dW")
+    assert_rel(got_db.numpy(), db, GRAD_RTOL, "db")
