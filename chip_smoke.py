@@ -83,8 +83,11 @@ Phases (every failure raises, so the exit code is nonzero):
  17. timings: K8, K9 and their twins at the training and bench shapes,
      the loss+gradient at the bench shape (also as lattice cells/s), the
      transducer train step with its parts, and the greedy decode;
- 18. the online-softmax fused joint's kernels K10 (forward), K11 (dh) and
-     K12 (dW, db) vs their plain twins on the card at JAX's test problem
+ 18. the online-softmax fused joint's kernels K10 (forward; wmma), K11
+     (dh; wgmma, 128 rows a block sharing each 128-column W tile from a
+     TMA bulk-copy ring, the logits and d in registers) and K12 (dW, db;
+     wgmma, rows split over blocks) vs their plain twins on the card at JAX's
+     test problem
      (R=56, J=8, V=11), V=13 with blank 5, V=1100 with J=16, blank 600
      and R=1000, and the JAX bench row (B=8, T=400, U=80, V=32768, J=128:
      R=259,200), with the DP's real cotangents: planes, m and log s
@@ -100,20 +103,22 @@ Phases (every failure raises, so the exit code is nonzero):
  20. timings at the bench row: K10, K11, K12 and their twins, the bf16
      torch.matmul products of each (row-blocked, the library yardstick),
      the fused loss+gradient, its torch work outside the kernels (the
-     activation forward and backward, the bf16 casts) and the float32
+     activation forward and backward, the bf16 casts, K11's W tiles and
+     log2 bias) and the float32
      chunked loss+gradient (the two losses also as lattice cells/s), and
-     K12's launch (row splits, blocks, registers, blocks per SM, shared
-     memory) and the card's SM clock, power and temperature while it runs
-     K12;
+     K11's launch (blocks, registers, spilled bytes, blocks per SM,
+     shared memory, stages) and K12's (row splits too), and the card's SM
+     clock, power and temperature while it runs K11, and K12, back to
+     back;
  21. J > 128 (the kernels walk J in 128-row slabs): K10-K12 vs their
      twins at J = 200, 256 and 320 (R=1000, V=1100, blank 600) and at the
      bench row with J=256, to phase 18's tolerances; K10-K12 and their
      twins timed at that bench row;
  22. the CTC gradient's combine kernel at the metric shape: two gradient
      runs through K1, K2 and the combine bit-equal, and the combine within
-     1e-5 of the plain `scatter_add_` combine on the same gamma; K12 and
-     K12tp (each of the D=4 shards) at the bench row, two runs each, dW
-     and db bit-equal;
+     1e-5 of the plain `scatter_add_` combine on the same gamma; K11, K12
+     and K11tp, K12tp (each of the D=4 shards) at the bench row, two runs
+     each, dh, dW and db bit-equal;
  23. the vocabulary-sharded kernels K10tp, K11tp, K12tp, D=4 shards run
      one after another on the card, vs their TP twins (phase 18's
      tolerances), and the shards combined (MAX and SUM in torch) vs
@@ -132,14 +137,15 @@ Phases (every failure raises, so the exit code is nonzero):
      phase 19's bf16 budget; a rank that fails fails the run;
  25. timings at the bench row: K10tp-K12tp on each shard, their twins
      (shard 0), the bf16 torch.matmul yardsticks at the shard's shape,
-     K12tp's launch, the card's clock while it runs K12tp, and the shards'
-     K12tp time against K12's; and the combine against the `scatter_add_`
-     combine.
+     K11tp's and K12tp's launches, the card's clock while it runs each,
+     and the shards' K11tp and K12tp times against K11's and K12's; and
+     the combine against the `scatter_add_` combine.
 The line before the last is the card's name and power limit; the line
 before it the per-kernel JSON (with each kernel's bound: the largest of
 its bytes over 3.35 TB/s, its float32 operations over 67 TFLOP/s, its bf16
-tensor-core operations over 989 TFLOP/s and its exps over 16 per SM clock
-on 132 SMs at the max SM clock; `bound_by` says "bytes" or "operations",
+tensor-core operations over 4096 and its exps over 16 per SM clock, both
+on 132 SMs at the card's max SM clock (1,070 TFLOP/s and 4.2e12 exps a
+second at 1,980 MHz); `bound_by` says "bytes" or "operations",
 the log line which operations); the last line is the JSON result.  It
 imports nothing of JAX.
 """
@@ -148,7 +154,6 @@ from __future__ import annotations
 
 import copy
 import datetime
-import functools
 import json
 import statistics
 import subprocess
@@ -178,7 +183,8 @@ from end2end_tpu_torch.ops.rnnt_loss import (fused_additive_joint, rnnt_nll,
                                              rnnt_nll_fused)
 from end2end_tpu_torch.ops.lm import (NGramLM, QuantizedBigramGuide,
                                       WordNGramLM, bigram_from_counts)
-from end2end_tpu_torch.tools.joint_dw_breakdown import under_load
+from end2end_tpu_torch.tools.joint_dw_breakdown import (
+    N_SMS, max_sm_mhz, tensor_ops_per_s, under_load)
 from end2end_tpu_torch.utils import cuda_build
 
 SEED = 0
@@ -252,14 +258,15 @@ TP_SHAPES = {  # the bench row is phase 20's problem
 # the bench row), so one flip moves it by more of its own max
 TP_NLL_RTOL = 1e-5
 TP_TIMEOUT = datetime.timedelta(seconds=300)  # a stuck collective raises
-# H100 SXM data sheet: HBM bandwidth, the float32 rate outside the tensor
-# cores and the dense bf16 tensor-core rate, the yardsticks of each
-# kernel's bound; the exp rate is 16 a clock on each of 132 SMs at the
-# card's max SM clock (exp_per_s)
+# H100 SXM data sheet: HBM bandwidth and the float32 rate outside the
+# tensor cores, yardsticks of each kernel's bound; the dense bf16
+# tensor-core rate (4096 a clock per SM, tensor_ops_per_s) and the exp
+# rate (16 a clock per SM, exp_per_s) are taken on 132 SMs at the card's
+# max SM clock, as the float32 rate is (the data sheet's 989 TFLOP/s in
+# bf16 is the tensor rate at 1,830 MHz, below the card's 1,980)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-BF16_TC_OPS_PER_S = 989e12
-N_SMS, EXP_PER_SM_CLOCK = 132, 16
+EXP_PER_SM_CLOCK = 16
 BEAM_COUNTERS = ("launches", "launches_lm", "launches_cls",
                  "launches_resume")
 
@@ -317,15 +324,9 @@ def peaked_lattice(rng, t, b, v):
     return x.astype(np.float32)
 
 
-@functools.cache
 def exp_per_s() -> float:
     """The card's exp rate: 16 a clock per SM at the max SM clock."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True, timeout=60)
-    mhz = float(out.stdout.strip().splitlines()[0])
-    return N_SMS * EXP_PER_SM_CLOCK * mhz * 1e6
+    return N_SMS * EXP_PER_SM_CLOCK * max_sm_mhz() * 1e6
 
 
 def bound(nbytes: float, nops: float = 0.0, tensor_ops: float = 0.0,
@@ -335,7 +336,7 @@ def bound(nbytes: float, nops: float = 0.0, tensor_ops: float = 0.0,
     operations and `exps` exponentials."""
     times = {"bytes": nbytes / HBM_BYTES_PER_S,
              "operations": nops / FP32_OPS_PER_S,
-             "bf16 tensor ops": tensor_ops / BF16_TC_OPS_PER_S,
+             "bf16 tensor ops": tensor_ops / tensor_ops_per_s(),
              "exp": exps / exp_per_s() if exps else 0.0}
     what = max(times, key=times.get)
     return times[what] * 1e3, what
@@ -1186,32 +1187,40 @@ def ctc_grad_bound(lp, tgt, il, tl):
     return bound(nbytes, frames * v, exps=frames * v)
 
 
-def check_dw_determinism(args, stats, what):
-    """K12, and K12tp on each of the D shards, twice on the same inputs:
-    dW and db bit-equal."""
-    runs = [(rnnt_joint_cuda.joint_dw, args)] + [
-        (rnnt_joint_cuda.joint_dw_tp, tp_shard(args, rank))
-        for rank in range(TP_RANKS)]
+def check_bwd_determinism(args, stats, what):
+    """K11 and K12, and K11tp and K12tp on each of the D shards, twice on
+    the same inputs: dh, dW and db bit-equal."""
+    shards = [tp_shard(args, rank) for rank in range(TP_RANKS)]
+    runs = [(rnnt_joint_cuda.joint_dh, args), (rnnt_joint_cuda.joint_dw,
+                                               args)] + [
+        (fn, shard) for shard in shards
+        for fn in (rnnt_joint_cuda.joint_dh_tp, rnnt_joint_cuda.joint_dw_tp)]
     for fn, inputs in runs:
         first, second = fn(*inputs, *stats), fn(*inputs, *stats)
         torch.cuda.synchronize()
+        if isinstance(first, torch.Tensor):
+            first, second = (first,), (second,)
         if not all(torch.equal(a, c) for a, c in zip(first, second)):
             raise AssertionError(f"{what}: {fn.__name__} is not "
                                  "deterministic")
-    log(f"{what}: K12 and K12tp on each of the {TP_RANKS} shards, two runs "
-        "each, dW and db bit-equal")
+    log(f"{what}: K11, K12 and K11tp, K12tp on each of the {TP_RANKS} "
+        "shards, two runs each, dh, dW and db bit-equal")
 
 
-def dw_plan_line(args):
-    """K12's launch for these inputs, as a log line."""
+def plan_line(args, kernel):
+    """K11's ("dh") or K12's ("dw") launch for these inputs, as a log
+    line."""
     h, w = args[0], args[1]
-    plan = rnnt_joint_cuda.dw_plan(h.shape[0], h.shape[1], w.shape[1],
-                                   h.device)
-    return (f"S={plan['splits']} row splits, {plan['blocks']} blocks on "
-            f"{plan['sms']} SMs, {plan['blocks_per_sm']} blocks per SM, "
-            f"{plan['regs']} registers per thread, {plan['spill_bytes']} B "
-            f"spilled, {plan['smem']} B shared memory, {plan['stages']} "
-            "stages")
+    r, j = h.shape
+    plan = (rnnt_joint_cuda.dh_plan(r, j, h.device) if kernel == "dh" else
+            rnnt_joint_cuda.dw_plan(r, j, w.shape[1], h.device))
+    splits = (f"S={plan['splits']} row splits, " if kernel == "dw" else "")
+    return (f"{splits}{plan['blocks']} blocks on {plan['sms']} SMs, "
+            f"{plan['blocks_per_sm']} blocks per SM, {plan['regs']} "
+            f"registers per thread, {plan['spill_bytes']} B spilled, "
+            f"{plan['smem']} B shared memory, {plan['stages']} stages"
+            + (f", h {'streams' if plan['h_streams'] else 'resident'}"
+               if kernel == "dh" else ""))
 
 
 def check_ctc_determinism(lp, tgt, il, tl, what):
@@ -1920,14 +1929,16 @@ def main() -> None:
     def joint_glue():
         """The torch work of one fused loss+gradient outside the kernels
         (bar the label rows, 1 MB): the activation forward and backward,
-        and the bf16 casts of h and W made by each of the three kernel
-        calls."""
+        the bf16 casts of h and W made by each of the three kernel calls,
+        and K11's W tiles and log2 bias."""
         e, p = (x.detach().requires_grad_(True) for x in params[:2])
         h = torch.tanh(e[:, :, None] + p[:, None])
         h.backward(gh)
         for _ in range(3):
             h.detach().to(torch.bfloat16)
-            rnnt_joint_cuda._bf16_w(params[2].detach(), v)
+            wb, vp = rnnt_joint_cuda._bf16_w(params[2].detach(), v)
+        rnnt_joint_cuda.w_tiles(wb, j)
+        rnnt_joint_cuda.dh_bias(params[3].detach(), vp)
 
     ms["fused_glue_bench"] = time_ms(joint_glue)
     cells = n * t * (u + 1)
@@ -1941,7 +1952,10 @@ def main() -> None:
     for k in ("fwd", "dh", "dw"):
         log(f"phase 20 bound joint_{k}: {joint_b[k][0]:.3f} ms "
             f"({joint_b[k][1]})")
-    log(f"phase 20 K12's plan at the bench row: {dw_plan_line(args)}")
+    log(f"phase 20 K11's plan at the bench row: {plan_line(args, 'dh')}")
+    log("phase 20 the card running K11 back to back: " + card_under_load(
+        lambda: rnnt_joint_cuda.joint_dh(*args, *stats)))
+    log(f"phase 20 K12's plan at the bench row: {plan_line(args, 'dw')}")
     log("phase 20 the card running K12 back to back: " + card_under_load(
         lambda: rnnt_joint_cuda.joint_dw(*args, *stats)))
     for k in ("fused_pallas_loss_grad_bench",
@@ -1978,8 +1992,8 @@ def main() -> None:
     combine_err = check_ctc_determinism(
         *ctc_inputs["metric"], "phase 22 CTC gradient at the metric shape "
         "(B=32, T=1000, S=100, V=1024)")
-    check_dw_determinism(args, stats, f"phase 22 K12 at the bench row (R="
-                         f"{args[0].shape[0]}, J={j}, V={v})")
+    check_bwd_determinism(args, stats, f"phase 22 K11 and K12 at the bench "
+                          f"row (R={args[0].shape[0]}, J={j}, V={v})")
 
     # 23. K10tp-K12tp, D shards one after another, vs their TP twins and,
     # combined, vs K10-K12 unsharded
@@ -2040,9 +2054,14 @@ def main() -> None:
             f" ms; plain {ms[f'joint_{kernel}_tp_plain_bench']:.3f} ms; bf16 "
             f"matmul yardstick {ms[f'joint_{kernel}_tp_library_bench']:.3f} "
             f"ms; bound {tp_b[kernel][0]:.3f} ms by {tp_b[kernel][1]}")
+    log("phase 25 the card running K11tp back to back: " + card_under_load(
+        lambda: rnnt_joint_cuda.joint_dh_tp(*shard0, *stats)))
+    log(f"phase 25 K11tp's plan per shard: {plan_line(shard0, 'dh')}; the "
+        f"{TP_RANKS} shards' K11tp {ms['joint_dh_tp_sum_bench']:.3f} ms = "
+        f"{ms['joint_dh_tp_sum_bench'] / ms['joint_dh_bench']:.3f} x K11")
     log("phase 25 the card running K12tp back to back: " + card_under_load(
         lambda: rnnt_joint_cuda.joint_dw_tp(*shard0, *stats)))
-    log(f"phase 25 K12tp's plan per shard: {dw_plan_line(shard0)}; the "
+    log(f"phase 25 K12tp's plan per shard: {plan_line(shard0, 'dw')}; the "
         f"{TP_RANKS} shards' K12tp {ms['joint_dw_tp_sum_bench']:.3f} ms = "
         f"{ms['joint_dw_tp_sum_bench'] / ms['joint_dw_bench']:.3f} x K12")
     for name in ("metric", "main"):

@@ -40,28 +40,47 @@
 // tensor cores (2.2 ms for K10, 4.4 ms for K11 and K12 at 989 TFLOP/s) and
 // the exp unit (~2 ms at 16 exps per SM per clock), not by bytes.
 //
-// Design of K10 and K11: 256 threads (8 warps), 64 rows x 128 columns per
-// step.  The products run on the tensor cores through nvcuda::wmma (bf16
-// 16x16x16 fragments, float32 accumulators): a warp owns a 16-row slab and
-// four of the eight 16-column slabs of the logits tile.  The accumulators
-// go to a float32 tile in shared memory, where the epilogue reads them
-// with the layout thread -> (row tid/4, columns tid%4 + 4i), conflict-free.
-// K10 keeps each thread's own online (max, sum-exp) over its 32 columns of
-// every tile, so a tile needs no cross-thread reduction; the four threads
-// of a row combine once at the end.  K11 writes d as a bf16 tile and
-// multiplies it by the W tile read back col_major (W^T for free).  J is
-// padded with zeros to 16, 32, 64 or 128 in shared memory only (a
-// template on the number of 16-wide slabs).  J > 128 walks J in slabs of
-// 128 rows through the same shared tiles (WIDE): K10 streams h and W slab
-// by slab into one set of logits fragments; K11,
-// whose (64, J) float32 accumulator would not fit in registers, gets a
-// second grid dimension over the slabs, each block recomputing the logits
-// over the whole J and accumulating only its own slab (J/128 times the
-// logits work).  W streams tile by tile from L2 (8 MB of bf16 at the bench
-// row).  Shared memory: h tile 17 KB, W tile 34 KB, logits 33 KB, d tile
-// 17 KB, two blocks per SM.  __expf (ex2.approx) for the exps: its ~1e-6
-// relative error is noise against the bf16 rounding of h and W.  No
-// cp.async/TMA pipelining and no wgmma.
+// Design of K10 (forward): 256 threads (8 warps), 64 rows x 128 columns
+// per step.  The products run on the tensor cores through nvcuda::wmma
+// (bf16 16x16x16 fragments, float32 accumulators): a warp owns a 16-row
+// slab and four of the eight 16-column slabs of the logits tile.  The
+// accumulators go to a float32 tile in shared memory, where the epilogue
+// reads them with the layout thread -> (row tid/4, columns tid%4 + 4i),
+// conflict-free.  Each thread keeps its own online (max, sum-exp) over its
+// 32 columns of every tile, so a tile needs no cross-thread reduction; the
+// four threads of a row combine once at the end.  J is padded with zeros
+// to 16, 32, 64 or 128 in shared memory only (a template on the number of
+// 16-wide slabs).  J > 128 walks J in slabs of 128 rows through the same
+// shared tiles (WIDE), streaming h and W slab by slab into one set of
+// logits fragments.  W streams tile by tile from L2 (8 MB of bf16 at the
+// bench row).  Shared memory: h tile 17 KB, W tile 34 KB, logits 33 KB,
+// two blocks per SM.  __expf (ex2.approx) for the exps: its ~1e-6
+// relative error is noise against the bf16 rounding of h and W.
+//
+// Design of K11 (dh).  The TPU kernel keeps all of W in VMEM and walks
+// 512-row blocks; 8 MB of W does not fit in 227 KB of shared memory, so
+// on the card W streams from L2 and each W tile is shared by as many rows
+// as the registers allow: 128 rows a block, two warpgroups of 64, which
+// halves the W traffic from L2 against 64 rows (16.6 GB at the bench row).
+// The block's h tile (128 x J, 32 KB at J = 128) is loaded once; W tiles
+// of 128 columns, with their bias in log2 units, stream through a ring of
+// up to 4 stages, each filled by TMA bulk copies (one thread, an mbarrier
+// a stage) three tiles ahead of the products.  The wrapper lays W out
+// tile by tile in the stage's core-matrix order, so a stage is one
+// contiguous copy (W rows read at their 64 KB stride cost 40% of the
+// kernel).  Per tile a warpgroup computes its 64 x 128 logits with wgmma
+// (m64n128k16, both operands from shared memory) into registers, forms d
+// there (an FMA and an exp2 per element, the rows' statistics held in
+// registers for the whole kernel), and multiplies bf16(d), repacked as
+// the register A operand, by the same W tile read K-major (m64nJk16): the
+// logits and d never reach shared memory, and a tile costs one barrier.
+// 154 registers a thread, one block per SM.  J > 128: a second grid
+// dimension over 128-column slabs of dh (the (64, J) accumulator would
+// not fit in registers); each slab block recomputes the logits over every
+// J slab (one ring item per slab, its own last) and accumulates its own
+// slab: J/128 times the logits work.  Up to J = 640 the whole h tile
+// stays in shared memory; above, h streams slab by slab with W, laid out
+// by the wrapper as the stages hold it.
 //
 // Design of K12 (dW, db).  The TPU's sequential grid (V tile outer, row
 // block inner, sums carried in scratch) becomes a grid of 256-column V
@@ -103,7 +122,7 @@ constexpr int kRows = 64;             // rows of h per step
 constexpr int kTile = 128;            // vocabulary columns per tile
 constexpr int kThreads = 256;         // 8 warps
 constexpr int kPad = 8;               // bf16 row pad: 16 bytes
-constexpr int kWld = kTile + kPad;    // W tile / d tile row stride (bf16)
+constexpr int kWld = kTile + kPad;    // W tile row stride (bf16)
 constexpr int kXld = kTile + 4;       // logits tile row stride (float)
 constexpr int kPerThread = kTile / 4; // columns of a tile per thread
 constexpr int kSlab = 128;            // J rows per slab when J > 128
@@ -118,11 +137,9 @@ struct Layout {
   static constexpr size_t h_bytes = (size_t)kRows * HLD * 2;
   static constexpr size_t w_bytes = (size_t)JP * kWld * 2;
   static constexpr size_t x_bytes = (size_t)kRows * kXld * 4;
-  static constexpr size_t d_bytes = (size_t)kRows * kWld * 2;
   static constexpr size_t b_bytes = (size_t)kTile * 4;
   // every region starts 32-byte aligned, as wmma needs
   static constexpr size_t fwd = h_bytes + w_bytes + x_bytes + b_bytes;
-  static constexpr size_t bwd = fwd + d_bytes;
 };
 
 struct Smem {
@@ -130,7 +147,6 @@ struct Smem {
   bf16* w;
   float* x;
   float* bias;
-  bf16* d;
 };
 
 template <int NJ>
@@ -142,7 +158,6 @@ __device__ __forceinline__ Smem carve(unsigned char* base) {
   s.x = reinterpret_cast<float*>(base + L::h_bytes + L::w_bytes);
   s.bias = reinterpret_cast<float*>(base + L::h_bytes + L::w_bytes +
                                     L::x_bytes);
-  s.d = reinterpret_cast<bf16*>(base + L::fwd);
   return s;
 }
 
@@ -273,44 +288,6 @@ __device__ void logits_tile_wide(const bf16* __restrict__ h,
   store_logits(s, acc);
 }
 
-// The per-row inputs of the backward kernels.
-struct RowStats {
-  bool live;
-  int y;
-  float m, logs, gb, gl;
-};
-
-__device__ __forceinline__ RowStats row_stats(long row, long R,
-                                              const int* __restrict__ y,
-                                              const float* __restrict__ m,
-                                              const float* __restrict__ logs,
-                                              const float* __restrict__ gb,
-                                              const float* __restrict__ gl) {
-  RowStats st{row < R, -1, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (st.live) {
-    st.y = y[row];
-    st.m = m[row];
-    st.logs = logs[row];
-    st.gb = gb[row];
-    st.gl = gl[row];
-  }
-  return st;
-}
-
-// d of this thread's row at tile column c (0 for dead rows and columns past
-// V), in rnnt_joint_plain's order: -p (gb + gl), + gb at blank, + gl at y.
-__device__ __forceinline__ float d_value(const Smem& s, const RowStats& st,
-                                         int row, int c, int c0, int V,
-                                         int blank) {
-  const int col = c0 + c;
-  if (!st.live || col >= V) return 0.0f;
-  const float x = s.x[row * kXld + c] + s.bias[c];
-  float d = -__expf((x - st.m) - st.logs) * (st.gb + st.gl);
-  if (col == blank) d += st.gb;
-  if (col == st.y) d += st.gl;
-  return d;
-}
-
 // K10 (K10tp with `raw`).  Grid: one block per 64 rows.  Outputs b_pl,
 // l_pl, m, logs (R,); with `raw`, the raw blank and label logits in place
 // of the planes and the shard's local m, logs.
@@ -384,83 +361,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// K11.  Grid: one block per 64 rows (x) and, when WIDE, per 128-row J slab
-// (y).  Output dh (Rp, ldo) float32, Rp the row count rounded up to 64, ldo
-// the padded J (the wrapper slices [:R, :J]).
-template <int NJ, bool WIDE>
-__global__ void __launch_bounds__(kThreads, 2)
-    rnnt_joint_dh_kernel(const bf16* __restrict__ h,
-                         const bf16* __restrict__ w,
-                         const float* __restrict__ b,
-                         const int* __restrict__ y,
-                         const float* __restrict__ m,
-                         const float* __restrict__ logs,
-                         const float* __restrict__ gb,
-                         const float* __restrict__ gl, float* __restrict__ dh,
-                         long R, int J, int V, int Vp, int blank) {
-  using L = Layout<NJ>;
-  constexpr int kFrags = (4 * NJ + 7) / 8;  // dh slabs per warp
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem s = carve<NJ>(smem);
-  const long r0 = (long)blockIdx.x * kRows;
-  const int row = threadIdx.x / 4, seg = threadIdx.x % 4;
-  const int warp = threadIdx.x / 32, rm = warp % 4;
-  const int js = WIDE ? blockIdx.y : 0, last = (J - 1) / kSlab;
-  const int ldo = WIDE ? (last + 1) * kSlab : L::JP;
-  const RowStats st = row_stats(r0 + row, R, y, m, logs, gb, gl);
-  if constexpr (!WIDE) {
-    zero_pads<NJ>(s, J);
-    load_h<NJ>(h, s, r0, R, J, 0, J);
-  }
-  Acc acc[kFrags];
-#pragma unroll
-  for (int i = 0; i < kFrags; ++i) wmma::fill_fragment(acc[i], 0.0f);
-  for (int c0 = 0; c0 < Vp; c0 += kTile) {
-    if constexpr (WIDE) {
-      logits_tile_wide(h, w, b, s, r0, R, J, c0, V, Vp);
-      __syncthreads();
-      // the W tile holds the last slab; this block's product needs its own
-      if (js != last) load_w(w, s, c0, js * kSlab, kSlab, Vp);
-    } else {
-      __syncthreads();
-      load_w(w, s, c0, 0, J, Vp);
-      load_bias(b, s, c0, V);
-      __syncthreads();
-      logits_tile<NJ>(s);
-      __syncthreads();
-    }
-#pragma unroll 8
-    for (int i = 0; i < kPerThread; ++i) {
-      const int c = seg + 4 * i;
-      s.d[row * kWld + c] =
-          __float2bfloat16(d_value(s, st, row, c, c0, V, blank));
-    }
-    __syncthreads();
-    // dh[rm slab, slab nj] += d (64 x 128) W_tile^T (128 x JP)
-#pragma unroll
-    for (int k = 0; k < kTile / 16; ++k) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, s.d + rm * 16 * kWld + k * 16, kWld);
-#pragma unroll
-      for (int i = 0; i < kFrags; ++i) {
-        const int nj = warp / 4 + 2 * i;
-        if (nj < NJ) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> wt;
-          wmma::load_matrix_sync(wt, s.w + nj * 16 * kWld + k * 16, kWld);
-          wmma::mma_sync(acc[i], a, wt, acc[i]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kFrags; ++i) {
-    const int nj = warp / 4 + 2 * i;
-    if (nj < NJ)
-      wmma::store_matrix_sync(dh + (r0 + rm * 16) * ldo + js * kSlab + nj * 16,
-                              acc[i], ldo, wmma::mem_row_major);
-  }
-}
-
 // A wgmma shared-memory descriptor without swizzle: the operand is made of
 // 8 x 8 core matrices of 128 contiguous bytes (8 rows of 16 bytes), `sbo`
 // bytes apart along M or N and `lbo` bytes apart along K.
@@ -500,122 +400,157 @@ __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// D (64 x 64) (+)= A (64 x 16, M-major) B (16 x 64, K-major), both from
-// shared memory descriptors; scale_d = 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+// Operand majors of wgmma's immediate transpose flags: a shared-memory
+// operand is K-major (0) or M-/N-major (1).
+constexpr int kKMajor = 0, kMNMajor = 1;
+
+// D (64 x N) (+)= A (64 x 16) B (16 x N), both from shared memory
+// descriptors, each K-major or M-/N-major as TA and TB say; scale_d = 0
+// overwrites D.  N is 64 or 128.
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+          "%0, %1, %2, %3, %4, %5, %6, %7, "
+          "%8, %9, %10, %11, %12, %13, %14, %15, "
+          "%16, %17, %18, %19, %20, %21, %22, %23, "
+          "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+          "%0, %1, %2, %3, %4, %5, %6, %7, "
+          "%8, %9, %10, %11, %12, %13, %14, %15, "
+          "%16, %17, %18, %19, %20, %21, %22, %23, "
+          "%24, %25, %26, %27, %28, %29, %30, %31, "
+          "%32, %33, %34, %35, %36, %37, %38, %39, "
+          "%40, %41, %42, %43, %44, %45, %46, %47, "
+          "%48, %49, %50, %51, %52, %53, %54, %55, "
+          "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
 }
 
-// D (64 x N) += A (64 x 16, registers) B (16 x N, N-major, a shared
-// memory descriptor).
-template <int N>
-__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
-                         uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+// D (64 x N) += A (64 x 16, registers) B (16 x N, a shared memory
+// descriptor, N-major by default, K-major with TB = kKMajor).  N is 16,
+// 32, 64 or 128.
+template <int N, int TB = kMNMajor>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128,
+                "wgmma_rs: N is 16, 32, 64 or 128");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{"
+          "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+          "n"(TB));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+          "%0, %1, %2, %3, %4, %5, %6, %7, "
+          "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+          "n"(TB));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+          "%0, %1, %2, %3, %4, %5, %6, %7, "
+          "%8, %9, %10, %11, %12, %13, %14, %15, "
+          "%16, %17, %18, %19, %20, %21, %22, %23, "
+          "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+          "n"(TB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+          "%0, %1, %2, %3, %4, %5, %6, %7, "
+          "%8, %9, %10, %11, %12, %13, %14, %15, "
+          "%16, %17, %18, %19, %20, %21, %22, %23, "
+          "%24, %25, %26, %27, %28, %29, %30, %31, "
+          "%32, %33, %34, %35, %36, %37, %38, %39, "
+          "%40, %41, %42, %43, %44, %45, %46, %47, "
+          "%48, %49, %50, %51, %52, %53, %54, %55, "
+          "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+          "n"(TB));
+  }
 }
 
 // 16 bytes (8 bf16) from global memory, or zeros when `live` is false.
@@ -818,9 +753,9 @@ __global__ void __launch_bounds__(kDwThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int k = 0; k < NJ; ++k)
-      wgmma_ss_n64(sacc, smem_desc(ws + 2 * k * kWRows8, kWRows8, kWCols8),
-                   smem_desc(hs + 2 * k * kHCols8, kHCols8, kHRows8),
-                   k > 0 || q > 0);
+      wgmma_ss<64, kMNMajor, kKMajor>(
+          sacc, smem_desc(ws + 2 * k * kWRows8, kWRows8, kWCols8),
+          smem_desc(hs + 2 * k * kHCols8, kHCols8, kHRows8), k > 0 || q > 0);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sacc);
@@ -918,6 +853,333 @@ __global__ void rnnt_joint_dw_sum_kernel(const float4* __restrict__ ws,
   }
 }
 
+// K11's shapes: 128 rows a block, two warpgroups of 64, sharing each W
+// tile; the block's h tile (128 x J) stays in shared memory up to
+// kDhResidentJ, where it and two W stages still fit; at most kDhStages
+// stages.
+constexpr int kDhRows = 128;
+constexpr int kDhThreads = 256;
+constexpr int kDhResidentJ = 640;
+constexpr int kDhStages = 4;
+constexpr size_t kSmemMax = 232448;  // a block's shared memory on Hopper
+constexpr uint32_t kDhSlabBytes = kDhRows * kSlab * 2;  // 128 x 128 of h
+
+// K11's shared memory: a ring of stages, each a W tile (16 NJ rows of J,
+// one 128-row slab when WIDE, x 128 vocabulary columns), when h streams
+// (J > kDhResidentJ) the block's h slab of the same J rows, and the tile's
+// bias in log2 units; then, unless h streams, the block's h tile (128 rows
+// x ldh columns: 16 NJ, or every slab when WIDE), loaded once; and one
+// mbarrier a stage.  The tiles are made of core matrices (see
+// smem_desc): W's of J rows 8a.. and columns 8b.. at (16 a + b) * 128
+// bytes, h's of rows 8a.. and J columns 8b.. at (16 b + a) * 128 bytes;
+// within one, row i at 16 i bytes.  So one W tile is the N-major B operand
+// of the logits (K = J) and the K-major B operand of the dh product (K =
+// vocabulary column), with the strides swapped.  As many stages as fit,
+// up to kDhStages (2 at J = 640).
+template <int NJ, bool WIDE>
+struct DhLayout {
+  static constexpr int JP = 16 * NJ;
+  static constexpr uint32_t w_bytes = JP * kTile * 2;
+  static bool stream(int J) { return WIDE && J > kDhResidentJ; }
+  static uint32_t stage(int J) {
+    return w_bytes + (stream(J) ? kDhSlabBytes : 0) + kTile * 4;
+  }
+  static size_t h_bytes(int J) {
+    return stream(J) ? 0
+                     : (size_t)kDhRows *
+                           (WIDE ? (J + kSlab - 1) / kSlab * kSlab : JP) * 2;
+  }
+  static int stages(int J) {
+    return (int)std::min<size_t>(kDhStages,
+                                 (kSmemMax - h_bytes(J)) / (stage(J) + 8));
+  }
+  static size_t bytes(int J) {
+    return stages(J) * (stage(J) + 8) + h_bytes(J);
+  }
+};
+
+constexpr uint32_t kDhStep8 = 128;   // h: 8 rows, W: 8 columns further
+constexpr uint32_t kDhJ8 = 16 * 128;  // h, W: 8 of J further
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+// One arrival that also expects `bytes` of asynchronous copies.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// A TMA bulk copy of `bytes` contiguous bytes (a multiple of 16), global to
+// shared, completing on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Wait for the phase of `bar` with this parity to complete; a wait that
+// never ends (a copy that never lands) traps rather than hangs the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (int tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries > (1 << 22)) asm volatile("trap;");
+  }
+}
+
+// Rows r0..r0+127 of h (R, J) into K11's h tile of ldh columns; zeros past
+// R and J.
+__device__ __forceinline__ void dh_issue_h(const bf16* __restrict__ h,
+                                           uint32_t hs, long r0, long R,
+                                           int J, int ldh) {
+  for (int i = threadIdx.x; i < kDhRows * (ldh / 8); i += kDhThreads) {
+    const int ri = i % 8, b = (i / 8) % (ldh / 8), a = i / ldh;
+    const long r = r0 + 8 * a + ri;
+    const bool live = r < R && 8 * b < J;
+    cp_async16(hs + b * kDhJ8 + a * kDhStep8 + ri * 16,
+               live ? h + r * J + 8 * b : h, live);
+  }
+}
+
+// acc[4 nf + e0 + e] += v where tile column c is 8 nf + 2 t + e, the
+// accumulator layout's column of this thread's (t) element; nothing unless
+// the thread holds c (0 <= c < 128).  e0: 0 for the thread's first row, 2
+// for its second.
+__device__ __forceinline__ void add_at_column(float (&acc)[64], int c, int t,
+                                              int e0, float v) {
+  if ((unsigned)c >= (unsigned)kTile || ((c >> 1) & 3) != t) return;
+#pragma unroll
+  for (int nf = 0; nf < kTile / 8; ++nf)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (8 * nf + 2 * t + e == c) acc[4 * nf + e0 + e] += v;
+}
+
+// K11 (K11tp on a shard).  Grid: x the 128-row blocks, y the 128-column J
+// slabs of dh (WIDE).  Takes W in its W tiles' layout (w_tiles in
+// ops/rnnt_joint_cuda.py: for each 128-column tile, JW = 16 NJ or, when
+// WIDE, every slab's rows, zeros past J, in core matrices as a W stage
+// holds them) and the bias in log2 units, b2 (Vp,), -inf past V, so a
+// stage is two contiguous copies.  Above kDhResidentJ (`stream`) h
+// streams with W: the wrapper lays it out as 128-row blocks of 128-column
+// slabs, each in the core-matrix order of a stage's h slab (h_tiles in
+// ops/rnnt_joint_cuda.py), and each stage takes the item's h slab too.
+// Writes dh (R, J) float32, rows < R only; J is a multiple of 8 (the
+// wrapper pads h).
+//
+// Warpgroup g owns rows 64g..64g+63 of the block, and each thread its two
+// rows of wgmma's accumulator layout (warp w, lane l: 16 w + l / 4 and
+// that + 8), whose statistics it keeps in registers for the whole kernel.
+// Per W tile the warpgroup computes the logits S = h W_tile (64 x 128)
+// with wgmma into registers (h K-major, W N-major, both from shared
+// memory), forms d in place, and rounds it to bf16 into the register A
+// operand of dh += d W_tile^T (64 x JP), whose B operand is the same W
+// tile read K-major: the logits and d never reach shared memory.  Items:
+// the V tiles in order and, when WIDE, one item per J slab of each, the
+// block's own slab (whose W rows the dh product needs) last; S sums over
+// the slabs.  Thread 0 copies item it + S - 1 into the ring while the
+// block works on item it.
+//
+// Per item: one barrier (every thread is done with the previous item,
+// whose stage thread 0 refills), a wait for the item's copies, the
+// logits; after a tile's last item, d and the dh product.  The two
+// warpgroups may drift apart within an item, so that one's exps overlap
+// the other's products.  The products are issued unconditionally (a wgmma
+// issued under a run-time condition makes ptxas serialize them).  The sum
+// over V stays in the block's registers, in tile order: dh is the same
+// bits run to run.
+template <int NJ, bool WIDE>
+__global__ void __launch_bounds__(kDhThreads, 1)
+    rnnt_joint_dh_kernel(const bf16* __restrict__ h,
+                         const bf16* __restrict__ w,
+                         const float* __restrict__ b2,
+                         const int* __restrict__ y,
+                         const float* __restrict__ m,
+                         const float* __restrict__ logs,
+                         const float* __restrict__ gb,
+                         const float* __restrict__ gl, float* __restrict__ dh,
+                         long R, int J, int V, int Vp, int blank,
+                         int stages, int stream) {
+  using L = DhLayout<NJ, WIDE>;
+  constexpr int JP = L::JP;
+  const int S = stages;
+  const bool hs_streams = WIDE && stream;
+  const uint32_t stage = L::w_bytes + (hs_streams ? kDhSlabBytes : 0) +
+                         kTile * 4;
+  const uint32_t bias_at = stage - kTile * 4;  // in a stage
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4, wg = warp / 4;
+  const int nslab = WIDE ? (int)gridDim.y : 1, js = WIDE ? blockIdx.y : 0;
+  const long r0 = (long)blockIdx.x * kDhRows;
+  const int n_items = Vp / kTile * nslab;
+  const uint32_t ring = smem_addr(smem);
+  const uint32_t hs = ring + S * stage;  // unless h streams
+  const uint32_t bars = hs + (hs_streams ? 0 : kDhRows * nslab * JP * 2);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (!hs_streams) dh_issue_h(h, hs, r0, R, J, nslab * JP);
+  cp_async_commit();
+  __syncthreads();  // the mbarriers are initialised
+
+  // Item `it`'s W rows (and h slab) and its tile's bias into stage it % S
+  // (thread 0)
+  auto issue = [&](int it) {
+    if (threadIdx.x != 0 || it >= n_items) return;
+    const int st = it % S, c0 = it / nslab * kTile;
+    const int jq = WIDE ? (js + 1 + it % nslab) % nslab : 0;
+    const uint32_t dst = ring + st * stage, bar = bars + 8 * st;
+    mbar_expect_tx(bar, stage);
+    bulk_copy(dst, w + ((size_t)c0 * nslab + jq * kTile) * JP, L::w_bytes,
+              bar);
+    if (hs_streams)
+      bulk_copy(dst + L::w_bytes,
+                h + ((size_t)blockIdx.x * nslab + jq) * kDhRows * kSlab,
+                kDhSlabBytes, bar);
+    bulk_copy(dst + bias_at, b2 + c0, kTile * 4, bar);
+  };
+  for (int it = 0; it < S - 1; ++it) issue(it);
+
+  // this thread's two rows: M = (m + log s) log2 e (inf past R, where p =
+  // 0), the cotangents, nc = -(gb + gl) and the label (-1 outside [0, V))
+  const long ra = r0 + wg * 64 + (warp % 4) * 16 + g, rb = ra + 8;
+  float Ma = kInf, Mb = kInf, gba = 0.0f, gbb = 0.0f, gla = 0.0f, glb = 0.0f;
+  int ya = -1, yb = -1;
+  if (ra < R) {
+    Ma = (m[ra] + logs[ra]) * kLog2e;
+    gba = gb[ra];
+    gla = gl[ra];
+    ya = (unsigned)y[ra] < (unsigned)V ? y[ra] : -1;
+  }
+  if (rb < R) {
+    Mb = (m[rb] + logs[rb]) * kLog2e;
+    gbb = gb[rb];
+    glb = gl[rb];
+    yb = (unsigned)y[rb] < (unsigned)V ? y[rb] : -1;
+  }
+  const float nca = -(gba + gla), ncb = -(gbb + glb);
+  const uint32_t h_wg = hs + wg * 8 * kDhStep8;  // this warpgroup's rows
+  cp_async_wait<0>();  // this thread's part of the h tile
+  fence_async_shared();
+
+  float sacc[64];         // S, then d: 64 rows x 128 columns
+  float dacc[JP / 2];     // dh: 64 rows x JP
+  uint32_t a[kTile / 16][4];  // bf16(d), the dh product's A operand
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sacc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < JP / 2; ++i) dacc[i] = 0.0f;
+
+  // d of item `it` (a tile's last) from its logits in sacc, in
+  // rnnt_joint_plain's order: -p (gb + gl), + gb at blank, + gl at y;
+  // p = 2^(x log2 e + b log2 e - M); rounded to bf16 into `a`: the
+  // accumulators of column fragments 2kk and 2kk + 1 are the A fragment
+  // of columns 16kk..16kk+15.
+  auto form_d = [&](int it) {
+    const int c0 = it / nslab * kTile;
+    const float2* bias = reinterpret_cast<const float2*>(
+        smem + it % S * stage + bias_at);
+#pragma unroll
+    for (int nf = 0; nf < kTile / 8; ++nf) {
+      const float2 bc = bias[4 * nf + t];  // columns 8 nf + 2 t, + 1
+      sacc[4 * nf] = ex2(fmaf(sacc[4 * nf], kLog2e, bc.x - Ma)) * nca;
+      sacc[4 * nf + 1] = ex2(fmaf(sacc[4 * nf + 1], kLog2e, bc.y - Ma)) * nca;
+      sacc[4 * nf + 2] = ex2(fmaf(sacc[4 * nf + 2], kLog2e, bc.x - Mb)) * ncb;
+      sacc[4 * nf + 3] = ex2(fmaf(sacc[4 * nf + 3], kLog2e, bc.y - Mb)) * ncb;
+    }
+    add_at_column(sacc, blank - c0, t, 0, gba);
+    add_at_column(sacc, blank - c0, t, 2, gbb);
+    add_at_column(sacc, ya - c0, t, 0, gla);
+    add_at_column(sacc, yb - c0, t, 2, glb);
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[kk][i] = pack_bf16(sacc[8 * kk + 2 * i], sacc[8 * kk + 2 * i + 1]);
+  };
+
+  // One step of the ring: every thread is done with item it - 1, whose
+  // stage takes item it + S - 1, and item `it` has landed.
+  auto step = [&](int it) {
+    __syncthreads();
+    issue(it + S - 1);
+    mbar_wait(bars + 8 * (it % S), (it / S) & 1);
+  };
+  auto group_begin = [&]() {
+    fence_regs(sacc);
+    fence_regs(dacc);
+    wgmma_fence();
+  };
+  auto group_end = [&]() {
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sacc);
+    fence_regs(dacc);
+  };
+
+  for (int c = 0; c < n_items / nslab; ++c) {
+    for (int q = 0; q < nslab; ++q) {
+      // S (+)= h[:, slab jq] (64 x JP) W_it (JP x 128), 16 of J at a time
+      const int it = c * nslab + q;
+      const int jq = WIDE ? (js + 1 + q) % nslab : 0;
+      const uint32_t ws = ring + it % S * stage;
+      // this warpgroup's rows of h's slab jq: resident, or in the stage
+      const uint32_t ha = hs_streams
+                              ? ws + L::w_bytes + wg * 8 * kDhStep8
+                              : h_wg + jq * NJ * 2 * kDhJ8;
+      step(it);
+      group_begin();
+#pragma unroll
+      for (int k = 0; k < NJ; ++k)
+        wgmma_ss<128, kKMajor, kMNMajor>(
+            sacc, smem_desc(ha + k * 2 * kDhJ8, kDhJ8, kDhStep8),
+            smem_desc(ws + 2 * k * kDhJ8, kDhJ8, kDhStep8), k > 0 || q > 0);
+      group_end();
+    }
+    // dh += bf16(d) (64 x 128) W_last^T (128 x JP), W_last the tile's last
+    // item, the block's own J slab
+    const int last = (c + 1) * nslab - 1;
+    form_d(last);
+    const uint32_t ws = ring + last % S * stage;
+    group_begin();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      wgmma_rs<JP, kKMajor>(
+          dacc, a[kk], smem_desc(ws + 2 * kk * kDhStep8, kDhStep8, kDhJ8));
+    group_end();
+  }
+
+#pragma unroll
+  for (int nf = 0; nf < JP / 8; ++nf) {
+    const int j = js * JP + 8 * nf + 2 * t;
+    if (j >= J) continue;  // J is a multiple of 8: so is j + 1 < J
+    if (ra < R)
+      *reinterpret_cast<float2*>(dh + ra * J + j) =
+          make_float2(dacc[4 * nf], dacc[4 * nf + 1]);
+    if (rb < R)
+      *reinterpret_cast<float2*>(dh + rb * J + j) =
+          make_float2(dacc[4 * nf + 2], dacc[4 * nf + 3]);
+  }
+}
+
 // The number of 16-wide J slabs the kernels are built for: 1, 2, 4 or 8
 // (J <= 128; wider J runs the WIDE kernels with 8).
 int slabs_for(int J) {
@@ -952,19 +1214,47 @@ cudaError_t fwd(const void* h, const void* w, const void* b, const void* y,
 }
 
 template <int NJ, bool WIDE>
+cudaError_t dh_smem(int J, size_t* bytes) {
+  *bytes = DhLayout<NJ, WIDE>::bytes(J);
+  return set_smem((const void*)rnnt_joint_dh_kernel<NJ, WIDE>, *bytes);
+}
+
+// K11's resources at this J: info[0..4] as dw_plan's, [5] 1 when h
+// streams with W (the wrapper then lays it out with h_tiles), else 0.
+template <int NJ, bool WIDE>
+cudaError_t dh_plan(int J, int* info) {
+  size_t smem;
+  cudaError_t err = dh_smem<NJ, WIDE>(J, &smem);
+  if (err != cudaSuccess) return err;
+  const void* kernel = (const void*)rnnt_joint_dh_kernel<NJ, WIDE>;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[0], kernel,
+                                                      kDhThreads, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  info[1] = attr.numRegs;
+  info[2] = (int)smem;
+  info[3] = (int)attr.localSizeBytes;
+  info[4] = DhLayout<NJ, WIDE>::stages(J);
+  info[5] = (int)DhLayout<NJ, WIDE>::stream(J);
+  return err;
+}
+
+template <int NJ, bool WIDE>
 cudaError_t dh(const void* h, const void* w, const void* b, const void* y,
                const void* m, const void* logs, const void* gb,
                const void* gl, void* out, long R, int J, int V, int Vp,
                int blank, cudaStream_t stream) {
-  const size_t smem = Layout<NJ>::bwd;
-  cudaError_t err = set_smem((const void*)rnnt_joint_dh_kernel<NJ, WIDE>, smem);
+  size_t smem;
+  cudaError_t err = dh_smem<NJ, WIDE>(J, &smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((R + kRows - 1) / kRows),
+  const dim3 grid((unsigned)((R + kDhRows - 1) / kDhRows),
                   WIDE ? wide_slabs(J) : 1u);
-  rnnt_joint_dh_kernel<NJ, WIDE><<<grid, kThreads, smem, stream>>>(
+  rnnt_joint_dh_kernel<NJ, WIDE><<<grid, kDhThreads, smem, stream>>>(
       (const bf16*)h, (const bf16*)w, (const float*)b, (const int*)y,
       (const float*)m, (const float*)logs, (const float*)gb,
-      (const float*)gl, (float*)out, R, J, V, Vp, blank);
+      (const float*)gl, (float*)out, R, J, V, Vp, blank,
+      DhLayout<NJ, WIDE>::stages(J), (int)DhLayout<NJ, WIDE>::stream(J));
   return cudaGetLastError();
 }
 
@@ -1044,13 +1334,17 @@ extern "C" int e2e_rnnt_joint_fwd(const void* h, const void* w, const void* b,
   return (int)cudaErrorInvalidValue;
 }
 
-// As e2e_rnnt_joint_fwd, plus m, logs, gb, gl (R,) f32; dh (Rp, JPad) f32,
-// JPad = 16, 32, 64, 128 or J rounded up to a multiple of 128.
+// As e2e_rnnt_joint_fwd, plus m, logs, gb, gl (R,) f32, with J a multiple
+// of 8, w in K11's W tiles' layout, b the (Vp,) bias in log2 units, -inf
+// past V, and, where e2e_rnnt_joint_dh_plan reports that h streams (above
+// kDhResidentJ), h in K11's h tiles' layout (see rnnt_joint_dh_kernel);
+// dh (R, J) f32.
 extern "C" int e2e_rnnt_joint_dh(const void* h, const void* w, const void* b,
                                  const void* y, const void* m,
                                  const void* logs, const void* gb,
                                  const void* gl, void* out, long long R, int J,
                                  int V, int Vp, int blank, void* stream) {
+  if (J % 8 != 0) return (int)cudaErrorInvalidValue;
   if (R <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   if (J > kSlab)
@@ -1064,8 +1358,23 @@ extern "C" int e2e_rnnt_joint_dh(const void* h, const void* w, const void* b,
   return (int)cudaErrorInvalidValue;
 }
 
-// As e2e_rnnt_joint_dh, with J a multiple of 8; out holds dW (JPad, Vp)
-// and then db (Vp,), f32, every element written.  With splits > 1 the rows
+// K11's resources at this J (a multiple of 8) on the current device
+// (info[0..4] as dw_plan, info[5] whether h streams: see dh_plan).
+extern "C" int e2e_rnnt_joint_dh_plan(int J, int* info) {
+  if (J % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (J > kSlab) return (int)dh_plan<8, true>(J, info);
+  switch (slabs_for(J)) {
+    case 1: return (int)dh_plan<1, false>(J, info);
+    case 2: return (int)dh_plan<2, false>(J, info);
+    case 4: return (int)dh_plan<4, false>(J, info);
+    case 8: return (int)dh_plan<8, false>(J, info);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// As e2e_rnnt_joint_dh, with any J a multiple of 8; out holds dW (JPad,
+// Vp), JPad = 16, 32, 64, 128 or J rounded up to a multiple of 128, and
+// then db (Vp,), f32, every element written.  With splits > 1 the rows
 // are split over that many blocks per V tile (1 <= splits <= the 64-row
 // blocks, or 1 when R = 0) whose partial sums go to ws, splits x the size
 // of out, and a second kernel adds them up in split order.

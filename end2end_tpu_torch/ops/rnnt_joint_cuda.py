@@ -7,26 +7,35 @@ Port of the kernels of `end2end_tpu/ops/rnnt_joint_pallas.py`.
 signatures of their plain versions in ops/rnnt_joint_plain.py and take
 CUDA float32 h (R, J), w (J, V), b (V,), int32 labels y (R,) and, for the
 backward, float32 (R,) m, logs, gb, gl, all contiguous; any J >= 1 (above
-128 the kernels walk J in 128-row slabs).  The `_tp` functions run one
-shard's (J, V/D) slice, with shard-relative blank and label ids, -1 where
-another shard owns the column.  Each call rounds h and W to bf16 once (W
-zero-padded to a whole number of 128-column tiles) for the kernels' tensor
-cores.  Nothing here falls back to the plain version: anything the kernels
-do not take raises.
+128 the kernels walk J in 128-row slabs).  The `_tp`
+functions run one shard's (J, V/D) slice, with shard-relative blank and
+label ids, -1 where another shard owns the column.  Each call rounds h
+and W to bf16 once (W zero-padded to a whole number of 128-column tiles)
+for the kernels' tensor cores; the backward kernels' 16-byte copies also
+want J padded with zeros to a multiple of 8 (`_bf16_padded`, shared by
+K11 and K12).  Nothing here falls back to the plain version: anything
+the kernels do not take raises.
 
-K12 (`joint_dw`, `joint_dw_tp`) is bound by its bf16 tensor-core work,
-4 R J V operations (4.4 ms on an H100 at the JAX bench row: R = 259,200,
-J = 128, V = 32768; 1.1 ms on one of 4 vocabulary shards).  Its grid is
-256-column V tiles times S row splits; `plan_splits` picks S from the
+K11 (`joint_dh`, `joint_dh_tp`) and K12 are each bound by their bf16
+tensor-core work, 4 R J V operations (4.1 ms on an H100 at its max SM
+clock of 1,980 MHz at the JAX bench row: R = 259,200, J = 128, V =
+32768; 1.0 ms on one of 4 vocabulary shards).  Both keep the logits and
+d in wgmma's accumulator registers.
+K11 gives each 128-column W tile to 128 rows (two warpgroups) and streams
+W through a ring of TMA bulk copies; `w_tiles` lays W out tile by tile in
+the order of the kernel's shared-memory stages, so each stage is one
+contiguous copy, and `dh_bias` gives it the bias in log2 units; above
+J = 640 its h tile no longer fits beside the ring, and `h_tiles` lays h
+out for it to stream slab by slab with W.  Its sum over V stays in one
+block's registers: dh is the same bits run to run.  `dh_plan` reports
+its resources and, from the kernel's own layout, whether h streams.  K12's grid
+is 256-column V tiles times S row splits; `plan_splits` picks S from the
 card's SM count and the kernel's resident blocks per SM (`dw_plan`) so
 that the grid fills at least one wave with the last one near full (S = 2
 unsharded, 8 per shard at the bench row), and a second kernel adds the S
-partial sums in split order, so dW and db are the same bits run to run.
-The logits and d stay in wgmma's accumulator registers and h streams
-through a cp.async ring (csrc/rnnt_joint.cu).  At the bench row the dW
-product and the h loads from L2 are its largest parts, and some cards
-hold it at their 700 W limit (~1,860 of 1,980 MHz; PERF.md).  The
-wrapper pads J to a multiple of 8 for the kernel's 16-byte copies and
+partial sums in split order, so dW and db are the same bits run to run;
+h streams through a cp.async ring.  On an H100 both kernels draw the
+card to its 700 W limit at the bench row (PERF.md).  The K12 wrapper
 allocates the workspace, S x (J + 1) x V float32, with `torch.empty`.
 
 `launches` counts kernel launches by name (it is the only module state;
@@ -47,8 +56,10 @@ launches = {"joint_fwd": 0, "joint_dh": 0, "joint_dw": 0,
 
 TILE_V = 128  # vocabulary columns per tile
 DW_TILE = 256  # K12's vocabulary columns per block
-ROWS = 64     # rows of h per block
+ROWS = 64     # K12's rows of h per block
+DH_ROWS = 128  # K11's rows of h per block
 SLAB_J = 128  # J rows per slab above J = 128
+LOG2E = 1.4426950408889634
 
 
 def _check(h, w, b, y, blank, stats=(), tp=False):
@@ -144,31 +155,76 @@ def joint_fwd_tp(h, w, b, y, blank):
     return _fwd(h, w, b, y, blank, tp=True)
 
 
-def _bwd_args(h, w, b, y, blank, m, logs, gb, gl, tp):
-    """The backward kernels' pointer arguments, and the bf16 copies they
-    point into (to be kept alive until the launch)."""
-    stats = (("m", m), ("logs", logs), ("gb", gb), ("gl", gl))
-    r, j, v = _check(h, w, b, y, blank, stats, tp)
+def _bf16_padded(h, w, v):
+    """h and W as the backward kernels take them: bf16, J padded with zeros
+    to a multiple of 8 (their 16-byte copies) and W's columns to Vp, a
+    whole number of 128-column tiles.  Returns (hb (R, J8), wb (J8, Vp),
+    J8, Vp)."""
+    j = h.shape[1]
+    j8 = -(-j // 8) * 8
     hb = h.to(torch.bfloat16)
     wb, vp = _bf16_w(w, v)
-    ptrs = (hb.data_ptr(), wb.data_ptr(), b.data_ptr(), y.data_ptr(),
-            m.data_ptr(), logs.data_ptr(), gb.data_ptr(), gl.data_ptr())
-    return ptrs, (hb, wb), r, j, v, vp
+    if j8 != j:
+        hb = torch.nn.functional.pad(hb, (0, j8 - j))
+        wb = torch.nn.functional.pad(wb, (0, 0, 0, j8 - j))
+    return hb, wb, j8, vp
+
+
+def w_tiles(wb, jw):
+    """K11's W: the bf16 (J8, Vp) W in the order of its shared-memory W
+    stages, so that each stage is one contiguous copy.  Rows are padded with
+    zeros to jw; then, tile by tile (128 columns), the 8 x 8 core matrices
+    of rows 8a.. and columns 8b.. at (16 a + b) * 64 elements, row i of one
+    at 8 i.  Returns a contiguous (Vp / 128, jw / 8, 16, 8, 8) tensor."""
+    j8, vp = wb.shape
+    if jw != j8:
+        wb = torch.nn.functional.pad(wb, (0, 0, 0, jw - j8))
+    return wb.view(jw // 8, 8, vp // TILE_V, TILE_V // 8, 8).permute(
+        2, 0, 3, 1, 4).contiguous()
+
+
+def h_tiles(hb, jw):
+    """K11's h where it streams with W (`dh_plan`'s h_streams): the bf16
+    (R, J8) h padded with zeros to whole 128-row blocks and jw columns,
+    then, block by block and 128-column slab by slab, the 8 x 8 core
+    matrices of rows 8a.. and columns 8b.. at (16 b + a) * 64 elements, row
+    i of one at 8 i.  Returns a contiguous (R / 128, jw / 128, 16, 16, 8,
+    8) tensor."""
+    r, j8 = hb.shape
+    rp = -(-r // DH_ROWS) * DH_ROWS
+    hb = torch.nn.functional.pad(hb, (0, jw - j8, 0, rp - r))
+    return hb.view(rp // DH_ROWS, DH_ROWS // 8, 8, jw // SLAB_J, SLAB_J // 8,
+                   8).permute(0, 3, 4, 1, 2, 5).contiguous()
+
+
+def dh_bias(b, vp):
+    """K11's bias: b (V,) times log2 e, -inf past V, (Vp,) float32 (its
+    d is exp2 of one FMA per element, and p = 0 past V)."""
+    b2 = torch.full((vp,), -torch.inf, dtype=torch.float32, device=b.device)
+    b2[:b.shape[0]] = b * LOG2E
+    return b2
 
 
 def _dh(h, w, b, y, blank, m, logs, gb, gl, tp):
-    ptrs, _alive, r, j, v, vp = _bwd_args(h, w, b, y, blank, m, logs, gb,
-                                          gl, tp)
+    stats = (("m", m), ("logs", logs), ("gb", gb), ("gl", gl))
+    r, j, v = _check(h, w, b, y, blank, stats, tp)
     dev = h.device
-    rp = -(-r // ROWS) * ROWS
-    dh = torch.empty((rp, _slab_width(j)), dtype=torch.float32, device=dev)
+    hb, wb, j8, vp = _bf16_padded(h, w, v)
+    jw = _slab_width(j8)
+    wt = w_tiles(wb, jw)
+    if dh_plan(r, j, dev)["h_streams"]:
+        hb = h_tiles(hb, jw)
+    b2 = dh_bias(b, vp)
+    dh = torch.empty((r, j8), dtype=torch.float32, device=dev)
     lib, _ = cuda_build.library()
     with torch.cuda.device(dev):
-        status = lib.e2e_rnnt_joint_dh(*ptrs, dh.data_ptr(), r, j, v, vp,
-                                       blank, _stream(dev))
+        status = lib.e2e_rnnt_joint_dh(
+            hb.data_ptr(), wt.data_ptr(), b2.data_ptr(), y.data_ptr(),
+            m.data_ptr(), logs.data_ptr(), gb.data_ptr(), gl.data_ptr(),
+            dh.data_ptr(), r, j8, v, vp, blank, _stream(dev))
     cuda_build.check(status, "e2e_rnnt_joint_dh")
     launches["joint_dh_tp" if tp else "joint_dh"] += 1
-    return dh[:r, :j]
+    return dh[:, :j]
 
 
 def joint_dh(h, w, b, y, blank, m, logs, gb, gl):
@@ -216,18 +272,34 @@ def split_rows(rows, splits):
              min(rows, (i + 1) * n // splits * ROWS)) for i in range(splits)]
 
 
-_PLAN_KEYS = ("blocks_per_sm", "regs", "smem", "spill_bytes", "stages")
+DW_PLAN_KEYS = ("blocks_per_sm", "regs", "smem", "spill_bytes", "stages")
+DH_PLAN_KEYS = DW_PLAN_KEYS + ("h_streams",)
 
 
 @functools.cache
-def _dw_resources(j, device_index):
+def _resources(kernel, j8, device_index):
+    """K11's ("dh") or K12's ("dw") resources at J8 on the device, from
+    the library's plan entry, and the card's SM count."""
     lib, _ = cuda_build.library()
-    info = (ctypes.c_int * len(_PLAN_KEYS))()
+    keys = DH_PLAN_KEYS if kernel == "dh" else DW_PLAN_KEYS
+    info = (ctypes.c_int * len(keys))()
+    entry = f"e2e_rnnt_joint_{kernel}_plan"
     with torch.cuda.device(device_index):
-        cuda_build.check(lib.e2e_rnnt_joint_dw_plan(j, info),
-                         "e2e_rnnt_joint_dw_plan")
+        cuda_build.check(getattr(lib, entry)(j8, info), entry)
         sms = torch.cuda.get_device_properties(device_index)
-    return {"sms": sms.multi_processor_count, **dict(zip(_PLAN_KEYS, info))}
+    return {"sms": sms.multi_processor_count, **dict(zip(keys, info))}
+
+
+def dh_plan(r, j, device):
+    """K11's launch on `device` for R rows and J: its resources (blocks per
+    SM, registers per thread, shared memory, spilled bytes, stages), whether
+    h streams with W (the kernel decides; `_dh` lays h out to match), the
+    SM count and the grid's blocks (128-row blocks x 128-column J slabs
+    above J = 128)."""
+    j8 = -(-j // 8) * 8
+    res = _resources("dh", j8, torch.device(device).index or 0)
+    slabs = -(-j8 // SLAB_J) if j8 > SLAB_J else 1
+    return {**res, "blocks": max(1, -(-r // DH_ROWS)) * slabs}
 
 
 def dw_plan(r, j, v, device):
@@ -235,7 +307,7 @@ def dw_plan(r, j, v, device):
     SM, registers per thread, shared memory, spilled bytes, stages), the
     SM count, the split count S and the grid's blocks."""
     j8 = -(-j // 8) * 8
-    res = _dw_resources(j8, torch.device(device).index or 0)
+    res = _resources("dw", j8, torch.device(device).index or 0)
     tiles = -(-v // DW_TILE) * (-(-j8 // SLAB_J) if j8 > SLAB_J else 1)
     splits = plan_splits(r, tiles, res["sms"], res["blocks_per_sm"])
     return {**res, "splits": splits, "blocks": tiles * splits}
@@ -245,12 +317,7 @@ def _dw(h, w, b, y, blank, m, logs, gb, gl, tp):
     stats = (("m", m), ("logs", logs), ("gb", gb), ("gl", gl))
     r, j, v = _check(h, w, b, y, blank, stats, tp)
     dev = h.device
-    j8 = -(-j // 8) * 8  # K12's 16-byte copies: h and W padded to J8
-    hb = h.to(torch.bfloat16)
-    wb, vp = _bf16_w(w, v)
-    if j8 != j:
-        hb = torch.nn.functional.pad(hb, (0, j8 - j))
-        wb = torch.nn.functional.pad(wb, (0, 0, 0, j8 - j))
+    hb, wb, j8, vp = _bf16_padded(h, w, v)
     jp = _slab_width(j8)
     splits = dw_plan(r, j, v, dev)["splits"]
     out = torch.empty((jp + 1) * vp, dtype=torch.float32, device=dev)

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import re
 import statistics
@@ -40,6 +41,9 @@ from ..utils import cuda_build
 
 R, J = 8 * 400 * 81, 128
 SHAPES = {"K12 (V=32768)": 32768, "K12tp (V/D=8192)": 8192}
+# an H100 SXM's SMs, and the dense bf16 operations a clock on one SM's
+# tensor cores (the data sheet's 989 TFLOP/s is 132 x 4096 x 1,830 MHz)
+N_SMS, BF16_TC_OPS_PER_SM_CLOCK = 132, 4096
 
 # name: [(text, replacement)]; every text must occur exactly once
 OLD = {
@@ -85,9 +89,11 @@ def patched(src: str, patches) -> str:
     return src
 
 
-def build(variants: dict, out_dir: Path) -> dict:
+def build(variants: dict, out_dir: Path,
+          kernel: str = "rnnt_joint_dw_kernelILi8ELb0E") -> dict:
     """nvcc each source (one process each, all at once) into a shared
-    library; returns {name: (ctypes lib, ptxas lines of K12 at NJ=8)}."""
+    library; returns {name: (ctypes lib, ptxas lines of `kernel`, K12 at
+    NJ=8 by default)}."""
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = cuda_build._nvcc()
     procs = {}
@@ -106,9 +112,11 @@ def build(variants: dict, out_dir: Path) -> dict:
         lines = log.splitlines()
         ptxas = []
         for k, line in enumerate(lines):
-            if "rnnt_joint_dw_kernelILi8ELb0E" in line and "entry" in line:
+            if kernel in line and "entry" in line:
                 ptxas = [x.strip() for x in lines[k:k + 4]
-                         if "Used" in x or "spill" in x]
+                         if "Used" in x or "spill" in x] + ptxas
+            elif kernel in line and "wgmma" in line:  # ptxas's advisories
+                ptxas.append(line.strip())
         libs[name] = (ctypes.CDLL(str(so)), ptxas)
     return libs
 
@@ -149,6 +157,22 @@ def under_load(fn, seconds=2.0):
             if line.count(",") == 2]
     rows = rows[len(rows) // 4:]
     return tuple(statistics.median(c) for c in zip(*rows))
+
+
+@functools.cache
+def max_sm_mhz() -> float:
+    """The card's max SM clock in MHz (nvidia-smi's clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def tensor_ops_per_s() -> float:
+    """The card's dense bf16 tensor-core rate at its max SM clock, the
+    clock at which a bound is the least time the card could take."""
+    return N_SMS * BF16_TC_OPS_PER_SM_CLOCK * max_sm_mhz() * 1e6
 
 
 def inputs(v, dev, seed=0):

@@ -66,6 +66,7 @@ _SIGNATURES = {
     "e2e_rnnt_joint_dw": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                           _LL, _I, _I, _I, _I, _I, _VP),
     # J, info (int[5])
+    "e2e_rnnt_joint_dh_plan": (_I, _VP),
     "e2e_rnnt_joint_dw_plan": (_I, _VP),
 }
 

@@ -350,14 +350,15 @@ def test_transducer_defaults_to_the_card(dev):
     assert tokens.shape == (2, 8) and torch.isfinite(scores).all()
 
 
-def _joint_case(seed, r, j, v, blank, dev):
-    """An activation h (R, J), the joint's W, b, labels y (R,), the forward's
-    statistics and random plane cotangents, on the card."""
+def _joint_case(seed, r, j, v, blank, dev, y_hi=None):
+    """An activation h (R, J), the joint's W, b, labels y (R,) in [0, y_hi)
+    (y_hi = V by default; above it some labels are no column), the
+    forward's statistics and random plane cotangents, on the card."""
     rng = np.random.default_rng(seed)
     h = np.tanh(rng.standard_normal((r, j)))
     w = rng.standard_normal((j, v)) / np.sqrt(j)
     b = 0.1 * rng.standard_normal(v)
-    y = rng.integers(0, v, r).astype(np.int32)
+    y = rng.integers(0, y_hi or v, r).astype(np.int32)
     g = rng.random((2, r))
     h, w, b, y, gb, gl = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                           for a in (h, w, b, y, g[0], g[1]))
@@ -370,22 +371,32 @@ def _rel_err(got, want):
     return float((got - want).abs().max() / want.abs().max().clamp(min=1e-6))
 
 
-# (R, J, V, blank): JAX's test problem (n=2, t=7, u=3), V=13 with blank=5,
-# V=1100 with blank in the fifth tile and R not a multiple of 64, J not a
-# multiple of 8 (the kernels' scalar h loads), J = 128, and J in 128-row
-# slabs: two whole (256), two and a half (320), and a ragged 200; then
-# R = 20,000 (K12 splits the rows over many blocks, the last row block
-# ragged) at J = 128 and at J = 6 with the blank in the last column
-@pytest.mark.parametrize("r,j,v,blank", [
-    (56, 8, 11, 0), (56, 8, 13, 5), (1000, 16, 1100, 600), (300, 6, 257, 256),
-    (130, 100, 40, 3), (200, 128, 300, 0), (300, 200, 300, 7),
-    (1000, 256, 1100, 600), (130, 320, 257, 256), (20000, 128, 300, 0),
-    (20000, 6, 257, 256)])
-def test_joint_kernels_match_plain(dev, r, j, v, blank):
+# (R, J, V, blank, y_hi): JAX's test problem (n=2, t=7, u=3), V=13 with
+# blank=5, V=1100 with blank in the fifth tile and R not a multiple of 64,
+# J not a multiple of 8 (the kernels' scalar h loads), J = 128, and J in
+# 128-row slabs: two whole (256), two and a half (320), and a ragged 200;
+# then R = 20,000 (K12 splits the rows over many blocks, the last row
+# block ragged) at J = 128 and at J = 6 with the blank in the last column.
+# K11's edges: R = 20,037 (not a multiple of its 128 rows) with V = 300
+# (not a multiple of 128) and the blank in the last column at J = 8 and
+# 128; labels past V (y_hi > V: no column) at J = 128 and 256; J = 640,
+# the widest with K11's h tile resident (five slabs), and J = 776, where
+# h streams with W (seven slabs, the last ragged).  y_hi None: labels in
+# [0, V).
+@pytest.mark.parametrize("r,j,v,blank,y_hi", [
+    (56, 8, 11, 0, None), (56, 8, 13, 5, None), (1000, 16, 1100, 600, None),
+    (300, 6, 257, 256, None), (130, 100, 40, 3, None),
+    (200, 128, 300, 0, None), (300, 200, 300, 7, None),
+    (1000, 256, 1100, 600, None), (130, 320, 257, 256, None),
+    (20000, 128, 300, 0, None), (20000, 6, 257, 256, None),
+    (20037, 128, 300, 299, None), (20037, 8, 300, 299, None),
+    (20037, 128, 1100, 600, 1400), (1000, 256, 1100, 600, 1400),
+    (130, 640, 257, 256, None), (300, 776, 257, 256, None)])
+def test_joint_kernels_match_plain(dev, r, j, v, blank, y_hi):
     """K10, K11, K12 vs their plain twins on the card: the forward within
     1e-4; dh, dW and db within 1e-3 of each tensor's max (a last-bit
     difference of the float32 d can round it to a neighbouring bf16)."""
-    args, stats = _joint_case(0, r, j, v, blank, dev)
+    args, stats = _joint_case(0, r, j, v, blank, dev, y_hi)
     before = dict(rnnt_joint_cuda.launches)
     got = rnnt_joint_cuda.joint_fwd(*args)
     want = rnnt_joint_plain.joint_fwd(*args)
@@ -413,7 +424,8 @@ def _shard(args, rank, d=4):
 
 @pytest.mark.parametrize("r,j,v,blank", [(56, 8, 16, 9),
                                           (1000, 16, 1100, 600),
-                                          (20000, 16, 512, 300)])
+                                          (20000, 16, 512, 300),
+                                          (20037, 128, 1200, 1199)])
 def test_joint_tp_kernels_match_plain(dev, r, j, v, blank):
     """K10tp, K11tp, K12tp vs their TP twins on the card, shard by shard
     (D=4; the blank on a middle shard, -1 on the others), to the tolerances
@@ -421,7 +433,9 @@ def test_joint_tp_kernels_match_plain(dev, r, j, v, blank):
     unsharded (planes, m and log s within 1e-5; the summed partial dh and
     the concatenated dW, db within 1e-3 of each tensor's max).  At V=512
     each shard is one 128-column tile, and K12tp splits R = 20,000 over
-    many blocks."""
+    many blocks.  At V=1200, J=128, the blank in the last column: three
+    shards own no blank, each shard's 300 columns end in a ragged tile,
+    and R = 20,037 ends in a ragged 128-row block of K11tp."""
     args, stats = _joint_case(4, r, j, v, blank, dev)
     fwd, dh, dw, db = [], 0.0, [], []
     for rank in range(4):
@@ -465,6 +479,33 @@ def test_joint_dw_is_deterministic(dev, r, j, v, blank):
         first, second = fn(*inputs, *stats), fn(*inputs, *stats)
         assert torch.equal(first[0], second[0])
         assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("r,j,v,blank", [(20037, 128, 1100, 600),
+                                          (1000, 256, 1100, 600),
+                                          (20037, 8, 512, 511)])
+def test_joint_dh_is_deterministic(dev, r, j, v, blank):
+    """K11 and K11tp (on each of 4 shards) twice on the same inputs: dh
+    bit-equal (the sum over V stays in one block's registers, in tile
+    order)."""
+    args, stats = _joint_case(8, r, j, v, blank, dev)
+    for fn, inputs in [(rnnt_joint_cuda.joint_dh, args)] + [
+            (rnnt_joint_cuda.joint_dh_tp, _shard(args, k)) for k in range(4)]:
+        assert torch.equal(fn(*inputs, *stats), fn(*inputs, *stats))
+
+
+@pytest.mark.parametrize("j", [6, 8, 16, 32, 64, 128, 200, 256, 320, 640,
+                               776, 1024])
+def test_joint_dh_plan(dev, j):
+    """K11's resources on this card: no spilled bytes, at least one block
+    per SM, at least two stages, h resident up to J = 640 and streamed
+    with W above, and a grid of 128-row blocks (x 128-column J slabs above
+    J = 128)."""
+    plan = rnnt_joint_cuda.dh_plan(259200, j, dev)
+    assert plan["spill_bytes"] == 0
+    assert plan["blocks_per_sm"] >= 1 and plan["stages"] >= 2
+    assert plan["h_streams"] == (j > 640)
+    assert plan["blocks"] == 2025 * (-(-j // 128) if j > 128 else 1)
 
 
 @pytest.mark.parametrize("r,j,v", [(20000, 128, 300), (20000, 6, 257),

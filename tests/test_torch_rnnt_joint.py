@@ -78,9 +78,19 @@ def rows_problem(name):
 
 
 @functools.cache
-def jax_rows(name):
-    """JAX's forward (planes, m, log s) and backward (dh, dW, db)."""
+def cut_rows(name, cut):
+    """rows_problem(name) with the last `cut` of J's columns of h and rows
+    of W taken away (J not a multiple of 8 when cut = 3)."""
     h, w, b, y, blank, gb, gl = rows_problem(name)
+    j = h.shape[1] - cut
+    return (np.ascontiguousarray(h[:, :j]), np.ascontiguousarray(w[:j]), b,
+            y, blank, gb, gl)
+
+
+@functools.cache
+def jax_rows(name, cut=0):
+    """JAX's forward (planes, m, log s) and backward (dh, dW, db)."""
+    h, w, b, y, blank, gb, gl = cut_rows(name, cut)
     v = w.shape[1]
     (b_pl, l_pl), res = jjoint._joint_planes_fwd_impl(
         jnp.asarray(h), jnp.asarray(w), jnp.asarray(b), jnp.asarray(y),
@@ -144,6 +154,89 @@ def test_twins_tile_and_row_widths_agree():
         for x, z in zip(a if isinstance(a, tuple) else (a,),
                         c if isinstance(c, tuple) else (c,)):
             assert_rel(x.numpy(), z.numpy(), GRAD_RTOL)
+
+
+@pytest.mark.parametrize("cut", [0, 3])
+@pytest.mark.parametrize("name", list(CASES))
+def test_bf16_padding_keeps_dh_dw(name, cut):
+    """The backward kernels' inputs (rnnt_joint_cuda._bf16_padded: h and W
+    in bf16, J padded with zeros to a multiple of 8, W's columns to whole
+    128-column tiles): the plain twins fed them (W's first V columns) give
+    the unpadded inputs' dh and dW in the first J columns and rows, zeros
+    past them and the same db, to the float32 sum order; and match JAX's
+    `_joint_planes_bwd` to GRAD_RTOL.  cut = 3 makes J not a multiple of 8
+    (5, 5, 13, 5 and 253: the padding adds 3)."""
+    h, w, b, y, blank, gb, gl = (torch.tensor(a) if isinstance(a, np.ndarray)
+                                 else a for a in cut_rows(name, cut))
+    (_, _, m, logs), (dh, dw, db) = jax_rows(name, cut)
+    stats = (torch.tensor(m), torch.tensor(logs), gb, gl)
+    r, j = h.shape
+    v = w.shape[1]
+    hb, wb, j8, vp = rnnt_joint_cuda._bf16_padded(h, w, v)
+    assert (j8, vp) == (-(-j // 8) * 8, -(-v // 128) * 128)
+    assert hb.dtype == wb.dtype == torch.bfloat16
+    assert hb.shape == (r, j8) and wb.shape == (j8, vp)
+    assert torch.equal(hb[:, :j], h.to(torch.bfloat16))
+    assert torch.equal(wb[:j, :v], w.to(torch.bfloat16))
+    assert not hb[:, j:].any() and not wb[j:].any() and not wb[:, v:].any()
+    kw = {"rows": 512, "tile": 512}
+    p_dh = rnnt_joint_plain.joint_dh(hb, wb[:, :v], b, y, blank, *stats, **kw)
+    p_dw, p_db = rnnt_joint_plain.joint_dw(hb, wb[:, :v], b, y, blank,
+                                           *stats, **kw)
+    u_dh = rnnt_joint_plain.joint_dh(h, w, b, y, blank, *stats, **kw)
+    u_dw, u_db = rnnt_joint_plain.joint_dw(h, w, b, y, blank, *stats, **kw)
+    assert p_dh.shape == (r, j8) and p_dw.shape == (j8, v)
+    assert not p_dh[:, j:].any() and not p_dw[j:].any()
+    for g, u in ((p_dh[:, :j], u_dh), (p_dw[:j], u_dw), (p_db, u_db)):
+        torch.testing.assert_close(g, u, rtol=1e-6, atol=1e-7)
+    for g, want, what in ((p_dh[:, :j], dh, "dh"), (p_dw[:j], dw, "dW"),
+                          (p_db, db, "db")):
+        assert g.shape == want.shape
+        assert_rel(g.numpy(), want, GRAD_RTOL, what)
+
+
+@pytest.mark.parametrize("j,v", [(5, 11), (16, 300), (200, 130)])
+def test_dh_w_tiles_hold_w_in_stage_order(j, v):
+    """K11's W (rnnt_joint_cuda.w_tiles of the padded bf16 W): for each
+    128-column tile, the rows padded with zeros to the kernel's J width (16,
+    32, 64, 128 or whole 128-row slabs), in 8 x 8 core matrices of rows
+    8a.. and columns 8b.. at (16 a + b) * 64 elements, row i of one at 8 i:
+    every element of W once, zeros elsewhere."""
+    w = torch.tensor(np.random.default_rng(j).standard_normal((j, v)),
+                     dtype=torch.float32)
+    _, wb, j8, vp = rnnt_joint_cuda._bf16_padded(torch.zeros((3, j)), w, v)
+    jw = rnnt_joint_cuda._slab_width(j8)
+    wt = rnnt_joint_cuda.w_tiles(wb, jw).reshape(-1)
+    assert wt.numel() == jw * vp
+    jj, cc = np.meshgrid(np.arange(jw), np.arange(vp), indexing="ij")
+    tile, c = np.divmod(cc, 128)
+    at = (tile * jw * 128 + (16 * (jj // 8) + c // 8) * 64 + 8 * (jj % 8)
+          + c % 8)
+    want = torch.zeros((jw, vp), dtype=torch.bfloat16)
+    want[:j, :v] = w.to(torch.bfloat16)
+    assert torch.equal(wt[torch.from_numpy(at)], want)
+
+
+@pytest.mark.parametrize("r,j", [(5, 8), (300, 776)])
+def test_dh_h_tiles_hold_h_in_stage_order(r, j):
+    """K11's streamed h (rnnt_joint_cuda.h_tiles, above 640 columns):
+    zeros past R and J up to whole 128-row blocks and 128-column slabs,
+    then per block and slab the 8 x 8 core matrices of rows 8a.. and
+    columns 8b.. at (16 b + a) * 64 elements, row i of one at 8 i: every
+    element of h once, zeros elsewhere."""
+    hb = torch.tensor(np.random.default_rng(r).standard_normal((r, j)),
+                      dtype=torch.bfloat16)
+    jw = -(-j // 128) * 128
+    ht = rnnt_joint_cuda.h_tiles(hb, jw).reshape(-1)
+    rp = -(-r // 128) * 128
+    assert ht.numel() == rp * jw
+    rr, jj = np.meshgrid(np.arange(rp), np.arange(jw), indexing="ij")
+    (blk, rb), (slab, jb) = np.divmod(rr, 128), np.divmod(jj, 128)
+    at = ((blk * (jw // 128) + slab) * 128 * 128
+          + (16 * (jb // 8) + rb // 8) * 64 + 8 * (rb % 8) + jb % 8)
+    want = torch.zeros((rp, jw), dtype=torch.bfloat16)
+    want[:r, :j] = hb
+    assert torch.equal(ht[torch.from_numpy(at)], want)
 
 
 def jax_fused(name):
