@@ -7,7 +7,9 @@ them.
 Phases (every failure raises, so the exit code is nonzero):
   1. a CUDA device must be present;
   2. print the card's name and power limit (nvidia-smi);
-  3. build the CUDA kernels from end2end_tpu_torch/csrc (nvcc, sm_90a);
+  3. build the CUDA kernels from end2end_tpu_torch/csrc (nvcc, sm_90a),
+     and beside them the two-barrier K1 that K1 replaced
+     (tools/ctc_alpha_reference.cu), the baseline of phases 8-10;
   4. top-k kernel vs its plain version: values bit-equal, indices equal;
   5. beam-step kernel vs its plain version on peaked lattices at the beam
      decoder's reference shape (B=32, T=1000, V=1024, beam 8, prune 16):
@@ -20,7 +22,8 @@ Phases (every failure raises, so the exit code is nonzero):
      ran; one batch's log-probs must match the same model on the CPU within
      1e-3, and on them the kernels' best hypotheses must equal the plain
      path's;
-  7. timings with CUDA events (median of 5 after warm-up);
+  7. timings with CUDA events (median of 5 after warm-up), and K3 against
+     torch.topk in device time, in turns (A B B A);
   8. CTC alpha (K1) and beta (K2) kernels vs their plain versions at the
      loss's reference shapes (metric B=32 T=1000 S=100 V=1024,
      librispeech-char B=32 T=1000 S=200 V=29, bpe-asr B=16 T=1500 S=150
@@ -28,7 +31,9 @@ Phases (every failure raises, so the exit code is nonzero):
      max(1e-4, 20 ulp) abs and 2e-6 rel of the plain float32 scan,
      gradients within 1e-5; the float32 gradient within 1e-4 of the
      plain float64 scan or at least as accurate as torch's own CTC loss;
-     checkpoint_every 0 and 64 give bit-identical losses and gamma;
+     checkpoint_every 0 and 64 give bit-identical losses and gamma; K1's
+     outputs (tape and checkpoint rows, norms, z_hat, norm_end2) bit-equal
+     to the two-barrier K1's;
   9. the training slice: the full-width pipeline takes 3 AdamW steps on
      batches of 8 requests (30/22/15 s, padded to 30 s) with random
      targets; the launch counters must show K1 and K2 once per step and
@@ -39,7 +44,9 @@ Phases (every failure raises, so the exit code is nonzero):
  10. timings: K1, K2 and the plain scans at the metric shape (also as
      lattice cells/s) and at the training slice's shape, the loss+gradient
      both ways, torch's own CTC loss forward and forward+backward, and the
-     whole train step;
+     whole train step, and K2 in checkpoint mode (64 frames); K1, the
+     two-barrier K1 and F.ctc_loss forward in device time, in turns; the
+     card's SM clock and power under K1;
  11. the beam kernel's in-kernel bigram mode (K5) vs its plain twin at
      B=32, T=1000, V=29, beam 8, prune 16 (seeded bigram LM, alpha 0.6,
      beta 0.3): backpointer codes and the 10-field state identical, same
@@ -140,6 +147,12 @@ Phases (every failure raises, so the exit code is nonzero):
      K11tp's and K12tp's launches, the card's clock while it runs each,
      and the shards' K11tp and K12tp times against K11's and K12's; and
      the combine against the `scatter_add_` combine.
+Every kernel row and library yardstick is also timed on the device alone
+(`device_ms`: calls captured in a CUDA graph and replayed between one
+pair of events; torch.profiler's kernel time where a call cannot be
+captured); the kernels line gives that as `ms` (and `ms_method`), the
+cost of one call with the host's work as `call_ms`, and the library's as
+`library_ms` and `library_call_ms`.
 The line before the last is the card's name and power limit; the line
 before it the per-kernel JSON (with each kernel's bound: the largest of
 its bytes over 3.35 TB/s, its float32 operations over 67 TFLOP/s, its bf16
@@ -152,6 +165,7 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import datetime
 import json
@@ -183,8 +197,9 @@ from end2end_tpu_torch.ops.rnnt_loss import (fused_additive_joint, rnnt_nll,
                                              rnnt_nll_fused)
 from end2end_tpu_torch.ops.lm import (NGramLM, QuantizedBigramGuide,
                                       WordNGramLM, bigram_from_counts)
+from end2end_tpu_torch.tools import ctc_alpha_breakdown
 from end2end_tpu_torch.tools.joint_dw_breakdown import (
-    N_SMS, max_sm_mhz, tensor_ops_per_s, under_load)
+    N_SMS, device_ms, max_sm_mhz, tensor_ops_per_s, under_load)
 from end2end_tpu_torch.utils import cuda_build
 
 SEED = 0
@@ -271,8 +286,12 @@ BEAM_COUNTERS = ("launches", "launches_lm", "launches_cls",
                  "launches_resume")
 
 
+START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print msg after the seconds since the script started."""
+    print(f"[{time.perf_counter() - START:6.1f} s] {msg}", flush=True)
 
 
 def nvidia_smi() -> str:
@@ -298,6 +317,32 @@ def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# key: (device ms, method) of every kernel row and library yardstick
+DEVICE_MS = {}
+
+
+def time_both(key, fn) -> float:
+    """time_ms(fn), the cost of one call with the host's work, returned;
+    and fn's device time (device_ms, ~20 ms of calls) into DEVICE_MS."""
+    call = time_ms(fn)
+    DEVICE_MS[key] = device_ms(fn, max(5, min(400, int(20 / max(call,
+                                                                0.05)))))
+    return call
+
+
+def in_turns(what, fns: dict, calls: int) -> dict:
+    """device_ms of each fn once in order, then again in the reverse
+    order (A B B A): {name: [first, second]}, logged."""
+    out, how = {name: [] for name in fns}, {}
+    for name in [*fns, *reversed(fns)]:
+        t, how[name] = device_ms(fns[name], calls)
+        out[name].append(t)
+    log(f"{what}, device ms in turns (A B B A, {calls} calls each): "
+        + "; ".join(f"{k} {v[0]:.4f}, {v[1]:.4f} ({how[k]})"
+                    for k, v in out.items()))
+    return out
 
 
 def card_under_load(fn) -> str:
@@ -628,11 +673,28 @@ def kernel_outputs(lp, tgt, il, tl, every):
     return ctc_loss_plain.nll_from(z, ne), gamma
 
 
-def check_ctc(lp, tgt, il, tl, what):
+def check_alpha_ab(lp, tgt, il, tl, ref_lib, what):
+    """K1 vs the two-barrier K1 it replaced (tools/ctc_alpha_reference.cu)
+    on the same inputs: the tape and checkpoint rows (every 64), the norms,
+    z_hat and norm_end2 bit-equal."""
+    for every in (0, 64):
+        got = ctc_loss_cuda.alpha_cuda(lp, tgt, il, tl, 0, every)
+        want = ctc_alpha_breakdown.runner(ref_lib, False, (lp, tgt, il, tl),
+                                          every)()
+        torch.cuda.synchronize()
+        if not ctc_alpha_breakdown.equal_outputs(got, want):
+            raise AssertionError(f"{what}: K1 (every={every}) differs from "
+                                 "the two-barrier K1")
+    log(f"{what}: K1 == the two-barrier K1 bit for bit (tape, checkpoint "
+        "rows, norms, z_hat, norm_end2)")
+
+
+def check_ctc(lp, tgt, il, tl, what, ref_lib):
     """K1/K2 (through ctc_nll) vs the plain float32 and float64 scans on
     the card, and the kernels' tape and checkpoint modes against each other
-    (bit-identical outputs and gradients).  Returns (loss err, grad
-    err)."""
+    (bit-identical outputs and gradients); K1 vs the two-barrier K1 (bit
+    for bit).  Returns (loss err, grad err)."""
+    check_alpha_ab(lp, tgt, il, tl, ref_lib, what)
     k_loss, k_grad = nll_and_grad(lp, tgt, il, tl, "pallas")
     c_loss, c_grad = nll_and_grad(lp, tgt, il, tl, "pallas", every=64)
     p_loss, p_grad = nll_and_grad(lp, tgt, il, tl, "xla")
@@ -712,7 +774,7 @@ def train_shape_inputs(pipe, batch):
                   for a in (batch[2], out_len, batch[3])))
 
 
-def check_training_batch(pipe, batch):
+def check_training_batch(pipe, batch, ref_lib):
     """First batch: CUDA vs CPU loss, kernel vs plain encoder gradients,
     and K1/K2 vs plain at this shape.  Returns (loss err, grad err)."""
     k_loss, k_grads = encoder_grads(pipe, batch, "auto")
@@ -736,7 +798,7 @@ def check_training_batch(pipe, batch):
         raise AssertionError(f"encoder grads differ: {worst}")
     lp, tgt, il, tl = train_shape_inputs(pipe, batch)
     return check_ctc(lp, tgt, il, tl, f"phase 9 K1/K2 at T'={lp.shape[0]}, "
-                     f"B=8, S={tgt.shape[1]}")
+                     f"B=8, S={tgt.shape[1]}", ref_lib)
 
 
 def time_ctc(name, lp, tgt, il, tl):
@@ -745,6 +807,9 @@ def time_ctc(name, lp, tgt, il, tl):
     whole loss+gradient."""
     tables = ctc_common.build_ctc_tables(tgt, tl, 0, lp.shape[-1])
     il64, tl64 = il.long(), tl.long()
+    # F.ctc_loss takes host lengths: given CUDA ones it copies them back
+    # inside the timed window
+    lib_args = (tgt.long(), il64.cpu(), tl64.cpu())
     fwd = ctc_loss_cuda.alpha_cuda(lp, tgt, il, tl)
     gamma = ctc_loss_cuda.beta_cuda(lp, tgt, il, tl, fwd[2], fwd[3], fwd[0],
                                     fwd[1])
@@ -752,20 +817,22 @@ def time_ctc(name, lp, tgt, il, tl):
     lp_ext = ctc_common.gather_lp_ext(lp, tables)
     pfwd = ctc_loss_plain.forward_scan(lp_ext, tables.skip2, il64, tl64)
     ms = {
-        f"ctc_alpha_{name}": time_ms(
+        f"ctc_alpha_{name}": time_both(
+            f"ctc_alpha_{name}",
             lambda: ctc_loss_cuda.alpha_cuda(lp, tgt, il, tl)),
         f"ctc_alpha_plain_{name}": time_plain(
             lambda: ctc_loss_plain.forward_scan(
                 ctc_common.gather_lp_ext(lp, tables), tables.skip2, il64,
                 tl64)),
-        f"ctc_beta_{name}": time_ms(
-            lambda: ctc_loss_cuda.beta_cuda(lp, tgt, il, tl, fwd[2], fwd[3],
-                                            fwd[0], fwd[1])),
+        f"ctc_beta_{name}": time_both(
+            f"ctc_beta_{name}", lambda: ctc_loss_cuda.beta_cuda(
+                lp, tgt, il, tl, fwd[2], fwd[3], fwd[0], fwd[1])),
         f"ctc_beta_plain_{name}": time_plain(
             lambda: ctc_loss_plain.backward_scan(
                 lp_ext, pfwd[2], pfwd[3], pfwd[4], pfwd[1], tables, il64,
                 tl64)),
-        f"ctc_grad_{name}": time_ms(
+        f"ctc_grad_{name}": time_both(
+            f"ctc_grad_{name}",
             lambda: ctc_loss_cuda.grad_cuda(lp, tgt, il, tl, gamma, g)),
         f"ctc_grad_plain_{name}": time_plain(
             lambda: ctc_loss_plain.nll_grad(lp, gamma, tables.ext_labels,
@@ -774,18 +841,27 @@ def time_ctc(name, lp, tgt, il, tl):
             lambda: nll_and_grad(lp, tgt, il, tl, "pallas")),
         f"ctc_loss_grad_plain_{name}": time_plain(
             lambda: nll_and_grad(lp, tgt, il, tl, "xla")),
-        f"ctc_library_fwd_{name}": time_ms(
-            lambda: library_ctc(lp, tgt, il64, tl64, grad=False)),
-        f"ctc_library_fwd_bwd_{name}": time_ms(
-            lambda: library_ctc(lp, tgt, il64, tl64, grad=True)),
+        f"ctc_library_fwd_{name}": time_both(
+            f"ctc_library_fwd_{name}",
+            lambda: library_ctc(lp, *lib_args, grad=False)),
+        f"ctc_library_fwd_bwd_{name}": time_both(
+            f"ctc_library_fwd_bwd_{name}",
+            lambda: library_ctc(lp, *lib_args, grad=True)),
     }
+    # K2 in checkpoint mode: each 64-frame chunk's alpha rows recomputed
+    # by K1's step
+    ck = ctc_loss_cuda.alpha_cuda(lp, tgt, il, tl, 0, 64)
+    ms[f"ctc_beta_ckpt64_{name}"] = time_both(
+        f"ctc_beta_ckpt64_{name}", lambda: ctc_loss_cuda.beta_cuda(
+            lp, tgt, il, tl, ck[2], ck[3], ck[0], ck[1], 0, 64))
     return ms
 
 
 def library_ctc(lp, tgt, il, tl, grad):
-    """torch's own CTC loss on the same inputs (the yardstick only)."""
+    """torch's own CTC loss on the same inputs (the yardstick only): int64
+    targets on the card, lengths on the host."""
     x = lp.detach().requires_grad_(grad)
-    loss = torch.nn.functional.ctc_loss(x, tgt.long(), il, tl,
+    loss = torch.nn.functional.ctc_loss(x, tgt, il, tl,
                                         reduction="sum", zero_infinity=True)
     if grad:
         loss.backward()
@@ -1424,13 +1500,20 @@ def main() -> None:
     card = nvidia_smi()
     log(f"phase 2 card: {card}")
     # 3. the build
+    # and, beside it, the two-barrier K1 that K1 replaced (the A/B baseline)
     t0 = time.perf_counter()
-    _, info = cuda_build.library()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ref_build = pool.submit(ctc_alpha_breakdown.build_reference,
+                                cuda_build.BUILD_DIR / "reference")
+        _, info = cuda_build.library()
+        ref_lib, ref_ptxas = ref_build.result()
     log(f"phase 3 build: {info['build_s']:.1f} s nvcc, "
         f"{time.perf_counter() - t0:.1f} s to load ({info['path']})")
     for line in info["log"].splitlines():
         if "registers" in line or "Compiling" in line or "spill" in line:
             log(f"  ptxas {line.strip()}")
+    for line in ref_ptxas:
+        log(f"  ptxas (the two-barrier K1) {line}")
     rng = np.random.default_rng(SEED)
 
     # 4. top-k kernel vs plain
@@ -1506,9 +1589,14 @@ def main() -> None:
         x = torch.from_numpy(
             rng.standard_normal((t, b, v)).astype(np.float32)).to(dev)
         ks = min(24, v)
-        ms[f"topk_{name}"] = time_ms(lambda: topk_cuda.topk_cuda(x, ks))
+        ms[f"topk_{name}"] = time_both(f"topk_{name}",
+                                       lambda: topk_cuda.topk_cuda(x, ks))
         ms[f"topk_plain_{name}"] = time_ms(lambda: topk_cuda.topk_plain(x, ks))
-        ms[f"topk_library_{name}"] = time_ms(lambda: torch.topk(x, ks))
+        ms[f"topk_library_{name}"] = time_both(f"topk_library_{name}",
+                                               lambda: torch.topk(x, ks))
+        in_turns(f"phase 7 K3 vs torch.topk ({name}: T={t}, B={b}, V={v}, "
+                 f"k={ks})", {"K3": lambda: topk_cuda.topk_cuda(x, ks),
+                              "torch.topk": lambda: torch.topk(x, ks)}, 200)
         if name == "main":
             topk_b = topk_bound(x, ks)
     lpk, ck, lpb, il_ref, s_cap_ref = beam_inputs
@@ -1523,8 +1611,9 @@ def main() -> None:
         bp, ck, score, 8, 16, s_cap_ref))
     mlpk, mck = topk_cuda.topk_cuda(lp_gpu, 24)
     mlpb = lp_gpu[:, :, 0].contiguous()
-    ms["beam_main"] = time_ms(lambda: beam_search_cuda.beam_step_cuda(
-        mlpk, mck, mlpb, il, 8, 16, s_cap, 0))
+    ms["beam_main"] = time_both(
+        "beam_main", lambda: beam_search_cuda.beam_step_cuda(
+            mlpk, mck, mlpb, il, 8, 16, s_cap, 0))
     ms["beam_plain_main"] = time_plain(
         lambda: beam_search_cuda.beam_step_plain(mlpk, mck, mlpb, il, 8, 16,
                                                  s_cap, 0))
@@ -1555,14 +1644,14 @@ def main() -> None:
                                                         tl_np)))
         ctc_inputs[name] = args
         errs = check_ctc(*args, f"phase 8 {name} (B={b}, T={t}, S={s}, "
-                                f"V={v})")
+                                f"V={v})", ref_lib)
         ctc_err = [max(a, e) for a, e in zip(ctc_err, errs)]
 
     # 9. the training slice
     tpipe = ConformerCTCPipeline(
         cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
     tbatches = training_batches(rng, cfg)
-    errs = check_training_batch(tpipe, tbatches[0])
+    errs = check_training_batch(tpipe, tbatches[0], ref_lib)
     ctc_err = [max(a, e) for a, e in zip(ctc_err, errs)]
     opt = torch.optim.AdamW(tpipe.parameters(), lr=1e-3, weight_decay=1e-4)
     torch.cuda.synchronize()
@@ -1591,9 +1680,22 @@ def main() -> None:
         lp, tgt, il, tl = args
         ms.update(time_ctc(name, lp, tgt, il, tl))
         b, t = lp.shape[1], lp.shape[0]
+        lib_args = (tgt.long(), il.long().cpu(), tl.long().cpu())
+        in_turns(f"phase 10 K1 vs the two-barrier K1 and F.ctc_loss forward "
+                 f"({name}: B={b}, T={t}, S={tgt.shape[1]})", {
+                     "K1": lambda: ctc_loss_cuda.alpha_cuda(lp, tgt, il, tl),
+                     "two-barrier K1": ctc_alpha_breakdown.runner(
+                         ref_lib, False, args),
+                     "F.ctc_loss fwd": lambda: library_ctc(
+                         lp, *lib_args, grad=False)}, 20)
+        if name == "main":
+            log("phase 10 the card running K1 back to back (main): "
+                + card_under_load(
+                    lambda: ctc_loss_cuda.alpha_cuda(lp, tgt, il, tl)))
         cells = b * t * (2 * tgt.shape[1] + 1)
         for k in ("ctc_alpha", "ctc_alpha_plain", "ctc_beta",
-                  "ctc_beta_plain", "ctc_grad", "ctc_grad_plain",
+                  "ctc_beta_ckpt64", "ctc_beta_plain", "ctc_grad",
+                  "ctc_grad_plain",
                   "ctc_loss_grad", "ctc_loss_grad_plain",
                   "ctc_library_fwd", "ctc_library_fwd_bwd"):
             log(f"phase 10 {k}_{name} (B={b}, T={t}, S={tgt.shape[1]}): "
@@ -1689,7 +1791,8 @@ def main() -> None:
     # 14. LM timings
     inc32 = LM_ALPHA * lm32._table + LM_BETA
     margs = (mlpk, mck, mlpb, serve_il, W, K, s_cap, 0)
-    ms["beam_lm_main"] = time_ms(
+    ms["beam_lm_main"] = time_both(
+        "beam_lm_main",
         lambda: beam_search_cuda.beam_step_cuda(*margs, inc=inc32))
     ms["beam_lm_plain_main"] = time_plain(
         lambda: beam_search_cuda.beam_step_plain(*margs, inc=inc32))
@@ -1705,7 +1808,8 @@ def main() -> None:
     for key, name in (("resume", "word LM, V=29"),
                       ("cls", "bigram LM + 63-class guide, V=1024")):
         args, kw = first[name]
-        ms[f"beam_{key}_chunk"] = time_ms(
+        ms[f"beam_{key}_chunk"] = time_both(
+            f"beam_{key}_chunk",
             lambda: beam_search_cuda.beam_step_cuda(*args, **kw))
         ms[f"beam_{key}_plain_chunk"] = time_plain(
             lambda: beam_search_cuda.beam_step_plain(*args, **kw))
@@ -1722,7 +1826,8 @@ def main() -> None:
         lp128, il128, beam_width=W, prune_k=K, lm=lm29, lm_alpha=LM_ALPHA,
         lm_beta=LM_BETA))
     # its stages: the top-k, K5 and the backtrace
-    ms["topk_b128"] = time_ms(lambda: topk_cuda.topk_cuda(lp128, K + 8))
+    ms["topk_b128"] = time_both("topk_b128",
+                                lambda: topk_cuda.topk_cuda(lp128, K + 8))
     lpk, ck = topk_cuda.topk_cuda(lp128, K + 8)
     bargs = (lpk, ck, lp128[:, :, 0].contiguous(), il128, W, K, 512, 0)
     inc29 = LM_ALPHA * lm29._table + LM_BETA
@@ -1816,11 +1921,13 @@ def main() -> None:
     for name, dp in (("main", main_dp),
                      ("bench", rnnt_dp_inputs(*rnnt_inputs["bench"]))):
         b_pl, l_pl, tape, rcum, *rest = dp
-        ms[f"rnnt_alpha_{name}"] = time_ms(
+        ms[f"rnnt_alpha_{name}"] = time_both(
+            f"rnnt_alpha_{name}",
             lambda: rnnt_loss_cuda.alpha(b_pl, l_pl))
         ms[f"rnnt_alpha_plain_{name}"] = time_plain(
             lambda: rnnt_loss_plain.alpha(b_pl, l_pl))
-        ms[f"rnnt_posteriors_{name}"] = time_ms(
+        ms[f"rnnt_posteriors_{name}"] = time_both(
+            f"rnnt_posteriors_{name}",
             lambda: rnnt_loss_cuda.posteriors(b_pl, l_pl, tape, rcum, *rest))
         ms[f"rnnt_posteriors_plain_{name}"] = time_plain(
             lambda: rnnt_loss_plain.posteriors(b_pl, l_pl, tape, rcum,
@@ -1906,12 +2013,14 @@ def main() -> None:
     for kernel, fn in (("fwd", "joint_fwd"), ("dh", "joint_dh"),
                        ("dw", "joint_dw")):
         extra = () if kernel == "fwd" else stats
-        ms[f"joint_{kernel}_bench"] = time_ms(
+        ms[f"joint_{kernel}_bench"] = time_both(
+            f"joint_{kernel}_bench",
             lambda: getattr(rnnt_joint_cuda, fn)(*args, *extra))
         ms[f"joint_{kernel}_plain_bench"] = time_plain(
             lambda: getattr(rnnt_joint_plain, fn)(*args, *extra,
                                                   rows=JOINT_PLAIN_ROWS))
-        ms[f"joint_{kernel}_library_bench"] = time_ms(
+        ms[f"joint_{kernel}_library_bench"] = time_both(
+            f"joint_{kernel}_library_bench",
             lambda: library_joint(args, kernel))
     joint_b = {k: joint_bound(args, k) for k in ("fwd", "dh", "dw")}
 
@@ -2032,7 +2141,8 @@ def main() -> None:
         for kernel in ("fwd", "dh", "dw"):
             extra = () if kernel == "fwd" else stats
             fn = getattr(rnnt_joint_cuda, f"joint_{kernel}_tp")
-            ms[f"joint_{kernel}_tp{rank}_bench"] = time_ms(
+            ms[f"joint_{kernel}_tp{rank}_bench"] = time_both(
+                f"joint_{kernel}_tp{rank}_bench",
                 lambda: fn(*shard, *extra))
         if rank == 0:
             shard0 = shard
@@ -2041,12 +2151,15 @@ def main() -> None:
                 fn = getattr(rnnt_joint_plain, f"joint_{kernel}_tp")
                 ms[f"joint_{kernel}_tp_plain_bench"] = time_plain(
                     lambda: fn(*shard, *extra, rows=JOINT_PLAIN_ROWS))
-                ms[f"joint_{kernel}_tp_library_bench"] = time_ms(
+                ms[f"joint_{kernel}_tp_library_bench"] = time_both(
+                    f"joint_{kernel}_tp_library_bench",
                     lambda: library_joint(shard, kernel))
     tp_b = {k: joint_bound(shard0, k) for k in ("fwd", "dh", "dw")}
     for kernel in ("fwd", "dh", "dw"):
         per = [ms[f"joint_{kernel}_tp{r}_bench"] for r in range(TP_RANKS)]
         ms[f"joint_{kernel}_tp_bench"] = per[0]
+        DEVICE_MS[f"joint_{kernel}_tp_bench"] = DEVICE_MS[
+            f"joint_{kernel}_tp0_bench"]
         ms[f"joint_{kernel}_tp_sum_bench"] = sum(per)
         log(f"phase 25 time joint_{kernel}_tp per shard (V/D="
             f"{shard0[1].shape[1]}): {[round(x, 3) for x in per]} ms, sum "
@@ -2070,7 +2183,7 @@ def main() -> None:
             f"{ms[f'ctc_grad_plain_{name}']:.3f} ms")
     log(f"phase 25 bound ctc_grad (main): {ctc_grad_b[0]:.4f} ms "
         f"({ctc_grad_b[1]})")
-    log(json.dumps({"card": card, "ms": ms}))
+    log(json.dumps({"card": card, "ms": ms, "device_ms": DEVICE_MS}))
 
     beam_src = "end2end_tpu_torch/csrc/beam_step.cu"
     beam_tpu = "end2end_tpu/ops/beam_search_pallas.py"
@@ -2079,18 +2192,19 @@ def main() -> None:
     rnnt_tpu = "end2end_tpu/ops/rnnt_loss_pallas.py"
     joint_src = "end2end_tpu_torch/csrc/rnnt_joint.cu"
     joint_tpu = "end2end_tpu/ops/rnnt_joint_pallas.py"
-    rows = [  # name, source, replaces, launches, err, ms key, bound, library
+    rows = [  # name, source, replaces, launches, err, ms key, bound,
+        # library key
         ("topk", "end2end_tpu_torch/csrc/topk.cu",
          "end2end_tpu/ops/topk_pallas.py:64", launches["topk"], topk_err,
-         "topk_main", topk_b, ms["topk_library_main"]),
+         "topk_main", topk_b, "topk_library_main"),
         ("beam_step", beam_src, f"{beam_tpu}:94", launches["beam_step"],
          beam_err, "beam_main", beam_b, None),
         ("ctc_alpha", ctc_src, "end2end_tpu/ops/ctc_loss_pallas.py:115",
          train_launches["ctc_alpha"], ctc_err[0], "ctc_alpha_main", ctc_b[0],
-         ms["ctc_library_fwd_main"]),
+         "ctc_library_fwd_main"),
         ("ctc_beta", ctc_src, "end2end_tpu/ops/ctc_loss_pallas.py:174",
          train_launches["ctc_beta"], ctc_err[1], "ctc_beta_main", ctc_b[1],
-         ms["ctc_library_fwd_bwd_main"]),
+         "ctc_library_fwd_bwd_main"),
         ("beam_step_lm", beam_src, f"{beam_tpu}:202",
          lm_launches["launches_lm"], k5_err, "beam_lm_main", lm_b, None),
         ("beam_step_cls", beam_src, f"{beam_tpu}:101",
@@ -2108,38 +2222,46 @@ def main() -> None:
          "rnnt_posteriors_main", rnnt_b[1], None),
         ("rnnt_joint_fwd", joint_src, f"{joint_tpu}:78",
          joint_launches["joint_fwd"], joint_err[0], "joint_fwd_bench",
-         joint_b["fwd"], ms["joint_fwd_library_bench"]),
+         joint_b["fwd"], "joint_fwd_library_bench"),
         ("rnnt_joint_dh", joint_src, f"{joint_tpu}:114",
          joint_launches["joint_dh"], joint_err[1], "joint_dh_bench",
-         joint_b["dh"], ms["joint_dh_library_bench"]),
+         joint_b["dh"], "joint_dh_library_bench"),
         ("rnnt_joint_dw", joint_src, f"{joint_tpu}:152",
          joint_launches["joint_dw"], joint_err[2], "joint_dw_bench",
-         joint_b["dw"], ms["joint_dw_library_bench"]),
+         joint_b["dw"], "joint_dw_library_bench"),
         # launches: all ranks of phase 24; times: shard 0 of the bench row
         ("rnnt_joint_fwd_tp", joint_src, f"{joint_tpu}:376",
          tp_launches["joint_fwd_tp"], tp_err[0], "joint_fwd_tp_bench",
-         tp_b["fwd"], ms["joint_fwd_tp_library_bench"]),
+         tp_b["fwd"], "joint_fwd_tp_library_bench"),
         ("rnnt_joint_dh_tp", joint_src, f"{joint_tpu}:411",
          tp_launches["joint_dh_tp"], tp_err[1], "joint_dh_tp_bench",
-         tp_b["dh"], ms["joint_dh_tp_library_bench"]),
+         tp_b["dh"], "joint_dh_tp_library_bench"),
         ("rnnt_joint_dw_tp", joint_src, f"{joint_tpu}:445",
          tp_launches["joint_dw_tp"], tp_err[2], "joint_dw_tp_bench",
-         tp_b["dw"], ms["joint_dw_tp_library_bench"]),
+         tp_b["dw"], "joint_dw_tp_library_bench"),
         ("ctc_grad", ctc_src, "end2end_tpu/ops/ctc_loss_xla.py:196",
          train_launches["ctc_grad"], combine_err, "ctc_grad_main",
          ctc_grad_b, None),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": n, "max_abs_err": err, "ms": ms[key],
+         "launches": n, "max_abs_err": err, "ms": DEVICE_MS[key][0],
+         "ms_method": DEVICE_MS[key][1], "call_ms": ms[key],
          "plain_ms": ms[key.replace("_main", "_plain_main").replace(
              "_chunk", "_plain_chunk").replace("_bench", "_plain_bench")],
          "bound_ms": b[0],
          "bound_by": "bytes" if b[1] == "bytes" else "operations",
-         "library_ms": lib}
+         "library_ms": DEVICE_MS[lib][0] if lib else None,
+         "library_call_ms": ms[lib] if lib else None}
         for name, src, rep, n, err, key, b, lib in rows]
+    for k in kernels:
+        log(f"device time {k['name']}: {k['ms']:.4f} ms ({k['ms_method']}; "
+            f"one call {k['call_ms']:.4f}), bound {k['bound_ms']:.4f}, "
+            f"library {k['library_ms']} ms (one call "
+            f"{k['library_call_ms']})")
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel never ran on its path: {kernels}")
+    log("chip_smoke: done")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,9 @@ every sum in a fixed order, so the gradient is bit-identical run to run).
 It never falls back to the plain version: anything the kernels do not take
 raises.
 
+K1's launch plan (`alpha_plan`: states per thread, threads, ring depth,
+shared bytes) is computed here and checked by the C entry point.
+
 `launches` counts kernel launches by name (it is the only module state).
 """
 
@@ -26,13 +29,64 @@ launches = {"ctc_alpha": 0, "ctc_beta": 0, "ctc_grad": 0}
 
 # A block may use 227 KB of shared memory on the H100.
 _SMEM_LIMIT = 232448
+_MAX_THREADS = 1024
+# K1's states per thread: the fewest, at least ALPHA_STATES, that fit 1024
+# threads (tools/ctc_alpha_breakdown.py times 1, 2, 3, 4 and 6 at both
+# timed shapes: 2 is the fastest at each); its (ring, staged tape) frames:
+# the first pair whose shared memory fits
+ALPHA_STATES = 2
+STATES = (1, 2, 3, 4, 6, 8, 16)
+RINGS = (2, 4, 8)
+_RING_TAPE = ((8, 64), (8, 32), (8, 16), (4, 8), (2, 4), (2, 2), (2, 1))
 
 
-def _smem_bytes(s_max: int, beta: bool) -> int:
-    """Dynamic shared memory of K1/K2 (the sums in csrc/ctc_loss.cu)."""
+def beta_smem_bytes(s_max: int) -> int:
+    """K2's dynamic shared memory (the sum in csrc/ctc_loss.cu): the
+    recompute's slots and buf (2L + 2 floats), beta~ (L + 2), red (32) and
+    the lattice (L + L + 2 ints).  It sets the largest S the kernels
+    take."""
     L = 2 * s_max + 1
-    floats = (3 * L + 4 if beta else 2 * L + 2) + 32
-    return 4 * (floats + 2 * L + 2)
+    return 4 * (3 * L + 36 + 2 * L + 2)
+
+
+def alpha_plan(s_max: int, states: int | None = None,
+               ring: int | None = None, tape: int | None = None) -> dict:
+    """K1's launch at L = 2 s_max + 1 states: `states` a thread (R, by
+    default the fewest >= ALPHA_STATES that fit), `threads` (whole warps
+    over ceil(L/R), at most 1024), `ring` (frames
+    of emissions copied ahead: 2, 4 or 8), `tape` (frames of tape rows
+    staged between stores) and `smem`, the bytes of the step's slots (6
+    floats a warp), the ring, the staged rows and their norms.  By default
+    the first (ring, tape) of (8, 64), (8, 32), (8, 16), (4, 8), (2, 4),
+    (2, 2), (2, 1) that fits.  Raises where K2's lattice does not fit
+    shared memory (the same limit for the pair), and on a plan that does
+    not hold."""
+    if beta_smem_bytes(s_max) > _SMEM_LIMIT:
+        raise ValueError(f"S={s_max} labels: the lattice does not fit the "
+                         "kernels' shared memory")
+    L = 2 * s_max + 1
+
+    def computing(r):
+        return -(-(-(-L // r)) // 32) * 32
+
+    if states is None:
+        states = next(r for r in STATES if r >= ALPHA_STATES
+                      and computing(r) <= _MAX_THREADS)
+    threads = computing(states)
+    if states not in STATES or threads > _MAX_THREADS:
+        raise ValueError(f"K1 takes {STATES} states a thread within "
+                         f"{_MAX_THREADS} threads, got {states} at L={L}")
+
+    def nbytes(r, f):
+        return 4 * (6 * (threads // 32) + (r + f) * states * threads + f)
+
+    fits = next((p for p in _RING_TAPE if nbytes(*p) <= _SMEM_LIMIT), (2, 1))
+    ring, tape = ring or fits[0], tape or fits[1]
+    if ring not in RINGS or tape < 1 or nbytes(ring, tape) > _SMEM_LIMIT:
+        raise ValueError(f"K1's ring of {ring} and {tape} staged frames do "
+                         "not fit")
+    return {"states": states, "threads": threads, "ring": ring,
+            "tape": tape, "smem": nbytes(ring, tape)}
 
 
 def _check(log_probs, targets, every):
@@ -49,9 +103,7 @@ def _check(log_probs, targets, every):
         raise ValueError("targets and log_probs disagree on the batch size")
     if every < 0:
         raise ValueError(f"checkpoint_every must be >= 0, got {every}")
-    if _smem_bytes(targets.shape[1], True) > _SMEM_LIMIT:
-        raise ValueError(f"S={targets.shape[1]} labels: the lattice does not "
-                         "fit the kernels' shared memory")
+    return alpha_plan(targets.shape[1])
 
 
 def _i32(x, dev):
@@ -63,11 +115,14 @@ def _stream(dev):
 
 
 def alpha_cuda(log_probs, targets, input_lengths, target_lengths, blank=0,
-               every=0):
+               every=0, **plan):
     """Launch K1.  Returns (z_hat (N,), norm_end2 (N,) int32, alpha, anorm2)
     with alpha/anorm2 the tape (T, N, L)/(T, N) or, with every = K > 0,
-    the chunk-start carries (ceil(T/K), N, L)/(ceil(T/K), N)."""
+    the chunk-start carries (ceil(T/K), N, L)/(ceil(T/K), N).  `plan`
+    (states, ring, tape) overrides alpha_plan's choices; the outputs do
+    not change."""
     _check(log_probs, targets, every)
+    plan = alpha_plan(targets.shape[1], **plan)
     dev = log_probs.device
     t_max, n, v = log_probs.shape
     s_max = targets.shape[1]
@@ -86,7 +141,8 @@ def alpha_cuda(log_probs, targets, input_lengths, target_lengths, blank=0,
             lp.data_ptr(), tgt.data_ptr(), il.data_ptr(), tl.data_ptr(),
             alpha.data_ptr(), anorm2.data_ptr(), z_hat.data_ptr(),
             norm_end2.data_ptr(), t_max, n, v, s_max, blank, every,
-            _stream(dev))
+            plan["states"], plan["threads"], plan["ring"], plan["tape"],
+            plan["smem"], _stream(dev))
     cuda_build.check(status, "e2e_ctc_alpha_f32")
     launches["ctc_alpha"] += 1
     return z_hat, norm_end2, alpha, anorm2
@@ -97,7 +153,7 @@ def beta_cuda(log_probs, targets, input_lengths, target_lengths, alpha,
     """Launch K2 on alpha_cuda's outputs (same `every`).  Returns gamma
     (T, N, L): the state occupations, 0 on invalid states, at t >= il and
     where z is not finite."""
-    _check(log_probs, targets, every)
+    plan = _check(log_probs, targets, every)
     dev = log_probs.device
     t_max, n, v = log_probs.shape
     s_max = targets.shape[1]
@@ -114,7 +170,8 @@ def beta_cuda(log_probs, targets, input_lengths, target_lengths, alpha,
             lp.data_ptr(), tgt.data_ptr(), il.data_ptr(), tl.data_ptr(),
             alpha.data_ptr(), anorm2.data_ptr(), z_hat.data_ptr(),
             norm_end2.data_ptr(), gamma.data_ptr(), abuf.data_ptr(),
-            nbuf.data_ptr(), t_max, n, v, s_max, blank, every, _stream(dev))
+            nbuf.data_ptr(), t_max, n, v, s_max, blank, every,
+            plan["states"], _stream(dev))
     cuda_build.check(status, "e2e_ctc_beta_f32")
     launches["ctc_beta"] += 1
     return gamma

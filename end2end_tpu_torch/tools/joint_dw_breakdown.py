@@ -136,6 +136,50 @@ def time_ms(fn, reps=5):
     return statistics.median(times)
 
 
+def device_ms(fn, calls: int) -> tuple[float, str]:
+    """Device time of one fn() call in ms, and how it was taken: `calls`
+    calls captured in a CUDA graph and replayed between one pair of events
+    ("graph"), so the card never waits for the host's work around the
+    launches.  Where fn cannot be captured (it synchronises, or copies
+    from pageable host memory), the device time of the kernels and copies
+    of `calls` calls summed by torch.profiler ("profiler"), or, if the
+    profiler records none, the calls back to back between one pair of
+    events ("stream", host gaps included).  The first call is a warm-up
+    (it builds the library)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        graph.replay()
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / calls, "graph"
+    except RuntimeError:
+        torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us > 0:
+        return us / 1e3 / calls, "profiler"
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls, "stream"
+
+
 def under_load(fn, seconds=2.0):
     """Run fn() back to back for `seconds` while nvidia-smi samples the SM
     clock, the power draw and the temperature every 100 ms; their medians

@@ -39,13 +39,13 @@ _SIGNATURES = {
     "e2e_beam_step_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP),
     # lp, targets, il, tl, a_out, n_out, z_hat, norm_end2, t_max, n, v,
-    # s_max, blank, every, stream
+    # s_max, blank, every, states, threads, ring, tape, smem, stream
     "e2e_ctc_alpha_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                          _I, _I, _I, _I, _I, _I, _VP),
+                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP),
     # lp, targets, il, tl, a_in, n_in, z_hat, norm_end2, gamma, abuf, nbuf,
-    # t_max, n, v, s_max, blank, every, stream
+    # t_max, n, v, s_max, blank, every, states, stream
     "e2e_ctc_beta_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                         _VP, _I, _I, _I, _I, _I, _I, _VP),
+                         _VP, _I, _I, _I, _I, _I, _I, _I, _VP),
     # lp, gamma, targets, il, tl, g, out, t_max, n, v, s_max, blank, stream
     "e2e_ctc_grad_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
                          _I, _VP),

@@ -29,7 +29,10 @@ from end2end_tpu.ops.ctc_loss_pallas import ctc_nll_pallas
 from end2end_tpu.ops.ctc_loss_xla import ctc_nll_xla
 from end2end_tpu.utils.reference_impl import ctc_loss_ref
 from end2end_tpu_torch import CTCLoss, ctc_loss, ctc_loss_jit, ctc_nll
-from end2end_tpu_torch.ops import ctc_common
+from end2end_tpu_torch.ops import ctc_common, ctc_loss_cuda
+from end2end_tpu_torch.tools import ctc_alpha_breakdown
+from end2end_tpu_torch.tools.joint_dw_breakdown import patched
+from end2end_tpu_torch.utils import cuda_build
 from tests.conftest import random_ctc_problem
 
 torch.set_num_threads(1)
@@ -305,3 +308,94 @@ def test_full_config_float64_truth(name):
     assert err <= max(1e-4, torch_err), (name, err, torch_err)
     if torch_err <= 5e-5:
         np.testing.assert_allclose(grad, t_grad, rtol=1e-3, atol=1e-4)
+
+
+# the largest S whose lattice fits K2's shared memory (227 KB on the H100)
+_S_LIMIT = 5806
+
+
+def _slots(plan):
+    """The shared bytes a plan must ask for: 6 floats a warp, the ring
+    and the staged rows of R floats a thread, the staged norms."""
+    r, threads, ring, tape = (plan[k] for k in ("states", "threads",
+                                                 "ring", "tape"))
+    return 4 * (6 * (threads // 32) + (ring + tape) * r * threads + tape)
+
+
+def _computing(L, r):
+    """Whole warps over ceil(L/r) threads."""
+    cells = -(-L // r)
+    return -(-cells // 32) * 32
+
+
+@pytest.mark.parametrize("s_max", [0, 1, 16, 63, 100, 187, 200, 255, 256,
+                                   511, 512, 1023, 2047, 2048, 4095,
+                                   _S_LIMIT])
+def test_alpha_plan_covers_every_lattice_that_fits(s_max):
+    """K1's launch plan for L = 2S+1 from 1 up to the shared-memory limit:
+    the fewest states a thread, at least ALPHA_STATES, that fit 1024
+    threads; whole warps over ceil(L/R); the deepest (ring, staged tape)
+    that fits and its shared bytes; and every other states choice that
+    fits."""
+    L = 2 * s_max + 1
+    plan = ctc_loss_cuda.alpha_plan(s_max)
+    r = plan["states"]
+    fit = [x for x in ctc_loss_cuda.STATES if _computing(L, x) <= 1024]
+    assert r == min(x for x in fit if x >= ctc_loss_cuda.ALPHA_STATES)
+    for x in ctc_loss_cuda.STATES:
+        if x not in fit:
+            with pytest.raises(ValueError, match="states a thread"):
+                ctc_loss_cuda.alpha_plan(s_max, x)
+            continue
+        p = ctc_loss_cuda.alpha_plan(s_max, x)
+        threads = p["threads"]
+        assert p["states"] == x
+        assert threads % 32 == 0 and threads <= 1024
+        assert x * threads >= L > x * (threads - 32)  # no idle warp
+        assert p["smem"] == _slots(p) <= 232448
+        pairs = ((8, 64), (8, 32), (8, 16), (4, 8), (2, 4), (2, 2), (2, 1))
+        assert (p["ring"], p["tape"]) in pairs
+        assert all(_slots({**p, "ring": ring, "tape": tape}) > 232448
+                   for ring, tape in pairs[:pairs.index((p["ring"],
+                                                         p["tape"]))])
+    assert ctc_loss_cuda.alpha_plan(s_max, r, 2, 1)["smem"] == _slots(
+        {**plan, "ring": 2, "tape": 1})
+
+
+def test_alpha_plan_refuses_where_the_kernels_do():
+    """The plan takes S up to the largest lattice K2's shared memory
+    holds and refuses above it, as the kernels' checks do at S=6000."""
+    assert ctc_loss_cuda.beta_smem_bytes(_S_LIMIT) <= 232448
+    assert ctc_loss_cuda.beta_smem_bytes(_S_LIMIT + 1) > 232448
+    for s_max in (_S_LIMIT + 1, 6000):
+        with pytest.raises(ValueError, match="shared memory"):
+            ctc_loss_cuda.alpha_plan(s_max)
+    with pytest.raises(ValueError, match="states a thread"):
+        ctc_loss_cuda.alpha_plan(100, 5)
+    with pytest.raises(ValueError, match="do not fit"):
+        ctc_loss_cuda.alpha_plan(100, ring=3)
+    with pytest.raises(ValueError, match="do not fit"):
+        ctc_loss_cuda.alpha_plan(_S_LIMIT, ring=8, tape=16)
+
+
+@pytest.mark.parametrize("name", list(ctc_alpha_breakdown.NEW))
+def test_alpha_breakdown_patches_apply(name):
+    """Each of the breakdown tool's text patches finds its text exactly
+    once in csrc/ctc_loss.cu, so the variants it times exist."""
+    src = (cuda_build.CSRC / "ctc_loss.cu").read_text()
+    assert patched(src, ctc_alpha_breakdown.NEW[name]) != src
+
+
+def test_alpha_breakdown_problems():
+    """The tool's two problems: the training slice's lengths (T'/4 labels
+    for 30/22/15 s) and the metric shape's draw with one infeasible
+    sample."""
+    lp, tgt, il, tl = ctc_alpha_breakdown.problem("main", "cpu")
+    assert lp.shape == (750, 8, 32) and tgt.shape == (8, 187)
+    assert il.tolist() == [750, 550, 375, 750, 550, 375, 550, 375]
+    assert tl.tolist() == [187, 137, 93, 187, 137, 93, 137, 93]
+    torch.testing.assert_close(lp.exp().sum(-1), torch.ones(750, 8))
+    lp, tgt, il, tl = ctc_alpha_breakdown.problem("metric", "cpu")
+    assert lp.shape == (1000, 32, 1024) and tgt.shape == (32, 100)
+    assert il[1] < tl[1] and (tl <= il // 3).sum() == 31
+    assert tgt.dtype == il.dtype == torch.int32

@@ -20,6 +20,7 @@ from end2end_tpu_torch.ops.beam_search import beam_search_decode
 from end2end_tpu_torch.ops.ctc_loss import ctc_nll
 from end2end_tpu_torch.ops.rnnt_joint import rnnt_nll_fused_pallas
 from end2end_tpu_torch.ops.rnnt_loss import rnnt_loss, rnnt_nll
+from end2end_tpu_torch.tools import ctc_alpha_breakdown
 
 pytestmark = pytest.mark.cuda
 
@@ -29,6 +30,43 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def two_barrier_k1(tmp_path_factory):
+    """The two-barrier K1 that K1 replaced, built from
+    tools/ctc_alpha_reference.cu: K1's bit-identity oracle."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return ctc_alpha_breakdown.build_reference(
+        tmp_path_factory.mktemp("two_barrier_k1"))[0]
+
+
+def _topk_rows(rng, v):
+    """Rows of one V: normal values, all equal, few distinct values (ties
+    across lanes), runs of -inf, -inf ties with finite values, and
+    mixed +-inf."""
+    x = rng.standard_normal((9, v)).astype(np.float32)
+    x[1] = 0.5
+    x[2] = rng.integers(0, 3, v)
+    x[3, : v // 2] = -np.inf
+    x[4, ::2] = -np.inf
+    x[5] = -np.inf
+    x[6, v // 3:] = -np.inf
+    x[7] = np.where(np.arange(v) % 33 == 7, 1.0, 0.0)  # ties 33 apart
+    x[8, -1] = np.inf
+    return x
+
+
+@pytest.mark.parametrize("v", [1, 2, 16, 31, 32, 33, 64, 1000, 1024, 4096])
+def test_topk_kernel_matches_plain_at_each_width(dev, v):
+    """K3 against the stable sort at every width the kernel can branch on,
+    k = 1, a middle k and k = V: values and indices bit-equal."""
+    x = torch.from_numpy(_topk_rows(np.random.default_rng(v), v)).to(dev)
+    for k in sorted({1, min(24, v), v}):
+        vals, idx = topk_cuda.topk_cuda(x, k)
+        pv, pi = topk_cuda.topk_plain(x, k)
+        assert torch.equal(vals, pv) and torch.equal(idx, pi), k
 
 
 @pytest.mark.parametrize("T,B,V,k", [(7, 3, 5, 5), (20, 4, 1024, 24),
@@ -243,6 +281,65 @@ def _kernel_outputs(lp, tgt, il, tl, dev, blank, every):
     args = [torch.tensor(a, device=dev) for a in (lp, tgt, il, tl)]
     z, ne, a, an = ctc_loss_cuda.alpha_cuda(*args, blank, every)
     return z, ctc_loss_cuda.beta_cuda(*args, a, an, z, ne, blank, every)
+
+
+def _k1_case(rng, t, b, s, v, dev):
+    """Lengths with il = 0, il = 1, il = T and one in between, full and
+    empty targets, repeated labels."""
+    x = rng.standard_normal((t, b, v)) * 2.0
+    lp = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+    lp[::3, 0, 1] = -np.inf
+    il = np.array([t, 0, 1, max(t // 2, 1)])[:b]
+    tl = np.array([s, s, min(s, 1), s // 2])[:b]
+    tgt = rng.integers(1, 4, (b, s))
+    return [torch.from_numpy(lp).to(dev)] + [
+        torch.from_numpy(a.astype(np.int32)).to(dev) for a in (tgt, il, tl)]
+
+
+@pytest.mark.parametrize("s", [0, 16, 511, 512])
+@pytest.mark.parametrize("t", [1, 37])
+def test_alpha_kernel_bit_equal_to_the_two_barrier_kernel(
+        dev, two_barrier_k1, s, t):
+    """K1 at L = 1, 33, 1023 and 1025 states, with il = 0, il = 1 and
+    T = 1, at every states-per-thread choice that fits (threads owning
+    several states), rings of 2, 4 and 8 frames and tapes staged 1, 3 and
+    16 frames, in the tape and checkpoint modes: every output bit-equal to
+    the two-barrier K1's; and K2's gamma in checkpoint mode equal to its
+    tape-mode value."""
+    args = _k1_case(np.random.default_rng(s + t), t, 4, s, 7, dev)
+    plans = [{}, {"ring": 2, "tape": 1}, {"ring": 4, "tape": 3},
+             {"ring": 8, "tape": 16}]
+    plans += [{"states": r} for r in ctc_loss_cuda.STATES
+              if -(-(2 * s + 1) // r) <= 1024]
+    for every in (0, 4, 64):
+        want = ctc_alpha_breakdown.runner(two_barrier_k1, False, args,
+                                          every)()
+        for plan in plans:
+            got = ctc_loss_cuda.alpha_cuda(*args, 0, every, **plan)
+            assert ctc_alpha_breakdown.equal_outputs(got, want), (
+                every, plan)
+    z, ne, a, an = ctc_loss_cuda.alpha_cuda(*args)
+    gamma = ctc_loss_cuda.beta_cuda(*args, a, an, z, ne)
+    for every in (4, 64):
+        z, ne, a, an = ctc_loss_cuda.alpha_cuda(*args, 0, every)
+        assert torch.equal(ctc_loss_cuda.beta_cuda(*args, a, an, z, ne, 0,
+                                                   every), gamma)
+
+
+def test_alpha_kernel_signed_zero_row_max(dev, two_barrier_k1):
+    """A row whose max is +0 and -0 at once (the first frame's two
+    states emit log-probs +0.0 and -0.0, in both orders): K1's exact warp
+    max and the two-barrier K1's fmaxf pick the same zero, so the shift,
+    and the sign of every zero in the tape, agree bit for bit."""
+    lp = torch.full((3, 2, 3), -1.0)
+    lp[0, 0, 0], lp[0, 0, 1] = 0.0, -0.0
+    lp[0, 1, 0], lp[0, 1, 1] = -0.0, 0.0
+    args = [lp.to(dev)] + [torch.tensor(a, dtype=torch.int32, device=dev)
+                           for a in ([[1], [1]], [3, 3], [1, 1])]
+    want = ctc_alpha_breakdown.runner(two_barrier_k1, False, args)()
+    for states in (1, 2, 3, 4):
+        got = ctc_loss_cuda.alpha_cuda(*args, states=states)
+        assert ctc_alpha_breakdown.equal_outputs(got, want), states
 
 
 def test_ctc_kernels_reject_what_they_cannot_run(dev):

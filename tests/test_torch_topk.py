@@ -60,3 +60,38 @@ def test_topk_dispatch_on_cpu_runs_plain(rng):
     assert topk_cuda.launches == before  # no kernel launched on the CPU
     with pytest.raises(ValueError, match="CUDA"):
         topk_cuda.topk_cuda(x, 7)
+
+
+def _rows(rng, v):
+    """The card tests' rows (tests/test_torch_cuda.py::_topk_rows): normal
+    values, all equal, few distinct values (ties across lanes), runs of
+    -inf, an all -inf row, and a +inf."""
+    x = rng.standard_normal((9, v)).astype(np.float32)
+    x[1] = 0.5
+    x[2] = rng.integers(0, 3, v)
+    x[3, : v // 2] = -np.inf
+    x[4, ::2] = -np.inf
+    x[5] = -np.inf
+    x[6, v // 3:] = -np.inf
+    x[7] = np.where(np.arange(v) % 33 == 7, 1.0, 0.0)  # ties 33 apart
+    x[8, -1] = np.inf
+    return x
+
+
+@pytest.mark.parametrize("v", [1, 2, 16, 31, 32, 33, 64, 1000, 1024, 4096])
+def test_topk_plain_matches_lax_top_k_at_each_width(rng, v):
+    """The oracle of the card's K3 tests, pinned to jax.lax.top_k at every
+    width those tests use, k = 1, a middle k and k = V: values bit-equal,
+    indices equal where finite, and -inf ties by distinct ascending
+    index."""
+    x = _rows(rng, v)
+    for k in sorted({1, min(24, v), v}):
+        vals, idx = (t.numpy() for t in topk_plain(torch.from_numpy(x), k))
+        ref_v, ref_i = (np.asarray(a) for a in jax.lax.top_k(x, k))
+        np.testing.assert_array_equal(vals, ref_v)
+        fin = np.isfinite(vals)
+        np.testing.assert_array_equal(idx[fin], ref_i[fin])
+        for row_v, row_i in zip(vals, idx):
+            ninf = row_i[row_v == -np.inf]
+            assert (np.diff(ninf) > 0).all()
+        assert (idx[5] == np.arange(k)).all()  # the all -inf row
