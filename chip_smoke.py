@@ -9,7 +9,9 @@ Phases (every failure raises, so the exit code is nonzero):
   2. print the card's name and power limit (nvidia-smi);
   3. build the CUDA kernels from end2end_tpu_torch/csrc (nvcc, sm_90a),
      and beside them the two-barrier K1 that K1 replaced
-     (tools/ctc_alpha_reference.cu), the baseline of phases 8-10;
+     (tools/ctc_alpha_reference.cu), the baseline of phases 8-10, and the
+     wmma K10 that K10 replaced (tools/joint_fwd_reference.cu), the
+     baseline of phases 20 and 25;
   4. top-k kernel vs its plain version: values bit-equal, indices equal;
   5. beam-step kernel vs its plain version on peaked lattices at the beam
      decoder's reference shape (B=32, T=1000, V=1024, beam 8, prune 16):
@@ -90,10 +92,12 @@ Phases (every failure raises, so the exit code is nonzero):
  17. timings: K8, K9 and their twins at the training and bench shapes,
      the loss+gradient at the bench shape (also as lattice cells/s), the
      transducer train step with its parts, and the greedy decode;
- 18. the online-softmax fused joint's kernels K10 (forward; wmma), K11
-     (dh; wgmma, 128 rows a block sharing each 128-column W tile from a
-     TMA bulk-copy ring, the logits and d in registers) and K12 (dW, db;
-     wgmma, rows split over blocks) vs their plain twins on the card at JAX's
+ 18. the online-softmax fused joint's kernels K10 (forward) and K11 (dh),
+     both wgmma with the rows of a block (K10: 256 up to J = 128, K11:
+     128) sharing each 128-column W tile from a TMA bulk-copy ring and the
+     logits in registers (K10's online softmax there, its warpgroups' exps
+     under each other's products; K11's d), and K12 (dW, db; wgmma, rows
+     split over blocks) vs their plain twins on the card at JAX's
      test problem
      (R=56, J=8, V=11), V=13 with blank 5, V=1100 with J=16, blank 600
      and R=1000, and the JAX bench row (B=8, T=400, U=80, V=32768, J=128:
@@ -110,13 +114,15 @@ Phases (every failure raises, so the exit code is nonzero):
  20. timings at the bench row: K10, K11, K12 and their twins, the bf16
      torch.matmul products of each (row-blocked, the library yardstick),
      the fused loss+gradient, its torch work outside the kernels (the
-     activation forward and backward, the bf16 casts, K11's W tiles and
-     log2 bias) and the float32
+     activation forward and backward, the bf16 casts, K10's and K11's W
+     tiles and log2 bias) and the float32
      chunked loss+gradient (the two losses also as lattice cells/s), and
-     K11's launch (blocks, registers, spilled bytes, blocks per SM,
+     K10's, K11's launch (blocks, registers, spilled bytes, blocks per SM,
      shared memory, stages) and K12's (row splits too), and the card's SM
-     clock, power and temperature while it runs K11, and K12, back to
-     back;
+     clock, power and temperature while it runs K10, K11, and K12, back to
+     back; K10 against the wmma K10 it replaced
+     (tools/joint_fwd_reference.cu, built in phase 3) in device time, in
+     turns (A B B A), their outputs compared;
  21. J > 128 (the kernels walk J in 128-row slabs): K10-K12 vs their
      twins at J = 200, 256 and 320 (R=1000, V=1100, blank 600) and at the
      bench row with J=256, to phase 18's tolerances; K10-K12 and their
@@ -144,7 +150,8 @@ Phases (every failure raises, so the exit code is nonzero):
      phase 19's bf16 budget; a rank that fails fails the run;
  25. timings at the bench row: K10tp-K12tp on each shard, their twins
      (shard 0), the bf16 torch.matmul yardsticks at the shard's shape,
-     K11tp's and K12tp's launches, the card's clock while it runs each,
+     K10tp against the wmma K10tp in turns (shard 0), K10tp's, K11tp's
+     and K12tp's launches, the card's clock while it runs each,
      and the shards' K11tp and K12tp times against K11's and K12's; and
      the combine against the `scatter_add_` combine.
 Every kernel row and library yardstick is also timed on the device alone
@@ -197,7 +204,7 @@ from end2end_tpu_torch.ops.rnnt_loss import (fused_additive_joint, rnnt_nll,
                                              rnnt_nll_fused)
 from end2end_tpu_torch.ops.lm import (NGramLM, QuantizedBigramGuide,
                                       WordNGramLM, bigram_from_counts)
-from end2end_tpu_torch.tools import ctc_alpha_breakdown
+from end2end_tpu_torch.tools import ctc_alpha_breakdown, joint_fwd_breakdown
 from end2end_tpu_torch.tools.joint_dw_breakdown import (
     N_SMS, device_ms, max_sm_mhz, tensor_ops_per_s, under_load)
 from end2end_tpu_torch.utils import cuda_build
@@ -1284,19 +1291,33 @@ def check_bwd_determinism(args, stats, what):
 
 
 def plan_line(args, kernel):
-    """K11's ("dh") or K12's ("dw") launch for these inputs, as a log
-    line."""
+    """K10's ("fwd"), K11's ("dh") or K12's ("dw") launch for these
+    inputs, as a log line."""
     h, w = args[0], args[1]
     r, j = h.shape
-    plan = (rnnt_joint_cuda.dh_plan(r, j, h.device) if kernel == "dh" else
-            rnnt_joint_cuda.dw_plan(r, j, w.shape[1], h.device))
+    plan = (rnnt_joint_cuda.dw_plan(r, j, w.shape[1], h.device)
+            if kernel == "dw" else
+            getattr(rnnt_joint_cuda, f"{kernel}_plan")(r, j, h.device))
     splits = (f"S={plan['splits']} row splits, " if kernel == "dw" else "")
     return (f"{splits}{plan['blocks']} blocks on {plan['sms']} SMs, "
             f"{plan['blocks_per_sm']} blocks per SM, {plan['regs']} "
             f"registers per thread, {plan['spill_bytes']} B spilled, "
             f"{plan['smem']} B shared memory, {plan['stages']} stages"
             + (f", h {'streams' if plan['h_streams'] else 'resident'}"
-               if kernel == "dh" else ""))
+               if kernel != "dw" else ""))
+
+
+def k10_vs_wmma(args, raw, what, ref_lib):
+    """K10 (K10tp with `raw`) against the wmma K10 it replaced, in device
+    time in turns (A B B A), their outputs compared (logged)."""
+    fn = rnnt_joint_cuda.joint_fwd_tp if raw else rnnt_joint_cuda.joint_fwd
+    wmma = joint_fwd_breakdown.runner(ref_lib, args, raw)
+    diff = float((torch.stack(fn(*args)) - wmma()).abs().max())
+    log(f"{what} vs the wmma K10: max abs diff {diff:.3g}")
+    if diff > 2 * JOINT_FWD_TOL:
+        raise AssertionError(f"{what} vs the wmma K10: {diff}")
+    in_turns(f"{what} vs the wmma K10 it replaced", {
+        "K10": lambda: fn(*args), "wmma K10": wmma}, 5)
 
 
 def check_ctc_determinism(lp, tgt, il, tl, what):
@@ -1502,11 +1523,14 @@ def main() -> None:
     # 3. the build
     # and, beside it, the two-barrier K1 that K1 replaced (the A/B baseline)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
         ref_build = pool.submit(ctc_alpha_breakdown.build_reference,
                                 cuda_build.BUILD_DIR / "reference")
+        k10_build = pool.submit(joint_fwd_breakdown.build_reference,
+                                cuda_build.BUILD_DIR / "reference_k10")
         _, info = cuda_build.library()
         ref_lib, ref_ptxas = ref_build.result()
+        k10_ref_lib, k10_ref_ptxas = k10_build.result()
     log(f"phase 3 build: {info['build_s']:.1f} s nvcc, "
         f"{time.perf_counter() - t0:.1f} s to load ({info['path']})")
     for line in info["log"].splitlines():
@@ -1514,6 +1538,8 @@ def main() -> None:
             log(f"  ptxas {line.strip()}")
     for line in ref_ptxas:
         log(f"  ptxas (the two-barrier K1) {line}")
+    for line in k10_ref_ptxas:
+        log(f"  ptxas (the wmma K10) {line}")
     rng = np.random.default_rng(SEED)
 
     # 4. top-k kernel vs plain
@@ -2039,15 +2065,16 @@ def main() -> None:
         """The torch work of one fused loss+gradient outside the kernels
         (bar the label rows, 1 MB): the activation forward and backward,
         the bf16 casts of h and W made by each of the three kernel calls,
-        and K11's W tiles and log2 bias."""
+        and the W tiles and log2 bias of K10's and of K11's."""
         e, p = (x.detach().requires_grad_(True) for x in params[:2])
         h = torch.tanh(e[:, :, None] + p[:, None])
         h.backward(gh)
         for _ in range(3):
             h.detach().to(torch.bfloat16)
             wb, vp = rnnt_joint_cuda._bf16_w(params[2].detach(), v)
-        rnnt_joint_cuda.w_tiles(wb, j)
-        rnnt_joint_cuda.dh_bias(params[3].detach(), vp)
+        for _ in range(2):
+            rnnt_joint_cuda.w_tiles(wb, j)
+            rnnt_joint_cuda.dh_bias(params[3].detach(), vp)
 
     ms["fused_glue_bench"] = time_ms(joint_glue)
     cells = n * t * (u + 1)
@@ -2061,6 +2088,10 @@ def main() -> None:
     for k in ("fwd", "dh", "dw"):
         log(f"phase 20 bound joint_{k}: {joint_b[k][0]:.3f} ms "
             f"({joint_b[k][1]})")
+    log(f"phase 20 K10's plan at the bench row: {plan_line(args, 'fwd')}")
+    log("phase 20 the card running K10 back to back: " + card_under_load(
+        lambda: rnnt_joint_cuda.joint_fwd(*args)))
+    k10_vs_wmma(args, 0, "phase 20 K10", k10_ref_lib)
     log(f"phase 20 K11's plan at the bench row: {plan_line(args, 'dh')}")
     log("phase 20 the card running K11 back to back: " + card_under_load(
         lambda: rnnt_joint_cuda.joint_dh(*args, *stats)))
@@ -2167,6 +2198,10 @@ def main() -> None:
             f" ms; plain {ms[f'joint_{kernel}_tp_plain_bench']:.3f} ms; bf16 "
             f"matmul yardstick {ms[f'joint_{kernel}_tp_library_bench']:.3f} "
             f"ms; bound {tp_b[kernel][0]:.3f} ms by {tp_b[kernel][1]}")
+    log(f"phase 25 K10tp's plan per shard: {plan_line(shard0, 'fwd')}")
+    log("phase 25 the card running K10tp back to back: " + card_under_load(
+        lambda: rnnt_joint_cuda.joint_fwd_tp(*shard0)))
+    k10_vs_wmma(shard0, 1, "phase 25 K10tp (shard 0)", k10_ref_lib)
     log("phase 25 the card running K11tp back to back: " + card_under_load(
         lambda: rnnt_joint_cuda.joint_dh_tp(*shard0, *stats)))
     log(f"phase 25 K11tp's plan per shard: {plan_line(shard0, 'dh')}; the "

@@ -37,25 +37,30 @@
 // tensor-core operations and R V = 8.5e9 exps; K11 and K12 each do 4.35e12
 // operations and 8.5e9 exps.  They move only h (66 MB bf16), W (8 MB), the
 // row statistics and their outputs, 0.1-0.3 GB.  So they are bound by the
-// tensor cores (2.2 ms for K10, 4.4 ms for K11 and K12 at 989 TFLOP/s) and
-// the exp unit (~2 ms at 16 exps per SM per clock), not by bytes.
+// tensor cores (2.03 ms for K10, 4.06 ms for K11 and K12 at 4096 operations
+// a clock per SM at the card's max SM clock, 1,980 MHz) and the exp unit
+// (2.03 ms at 16 exps a clock per SM), not by bytes.
 //
-// Design of K10 (forward): 256 threads (8 warps), 64 rows x 128 columns
-// per step.  The products run on the tensor cores through nvcuda::wmma
-// (bf16 16x16x16 fragments, float32 accumulators): a warp owns a 16-row
-// slab and four of the eight 16-column slabs of the logits tile.  The
-// accumulators go to a float32 tile in shared memory, where the epilogue
-// reads them with the layout thread -> (row tid/4, columns tid%4 + 4i),
-// conflict-free.  Each thread keeps its own online (max, sum-exp) over its
-// 32 columns of every tile, so a tile needs no cross-thread reduction; the
-// four threads of a row combine once at the end.  J is padded with zeros
-// to 16, 32, 64 or 128 in shared memory only (a template on the number of
-// 16-wide slabs).  J > 128 walks J in slabs of 128 rows through the same
-// shared tiles (WIDE), streaming h and W slab by slab into one set of
-// logits fragments.  W streams tile by tile from L2 (8 MB of bf16 at the
-// bench row).  Shared memory: h tile 17 KB, W tile 34 KB, logits 33 KB,
-// two blocks per SM.  __expf (ex2.approx) for the exps: its ~1e-6
-// relative error is noise against the bf16 rounding of h and W.
+// Design of K10 (forward).  The TPU kernels (_fwd_kernel, :78, and
+// _fwd_kernel_tp, :376) keep all of W in VMEM and walk 512-row blocks over
+// 512-lane V tiles.  On the card K10 takes K11's skeleton: W and its log2
+// bias through a ring of TMA bulk copies in the stages' order (w_tiles,
+// dh_bias), the logits S = h W_tile by wgmma into registers, h resident in
+// shared memory up to J = 640 and streamed with W above.  At J = 128 its
+// products and its exps bound it alike: 2 R J V = 2.17e12 bf16 operations
+// and R V = 8.5e9 exps take 2.03 ms each at 1,980 MHz, so a design that
+// runs a tile's products and then its exps cannot go below ~4.1 ms.  So
+// the online softmax runs on the accumulators (one FMA into log2 units,
+// an exp2 an element against the running max of the earlier tiles, so
+// that the exps need not wait for the tile's max; the running max and sum
+// of a row in registers), and the warpgroups that share a W tile never
+// wait for each other (a stage is refilled by the last warp done with it,
+// not behind a barrier): one's softmax runs under another's products.  Up
+// to J = 128 a block has four warpgroups, 256 rows a W tile (a quarter of
+// the W traffic from L2 of the 64 rows before), so each scheduler has
+// four warps to hide the softmax's latencies; one set of 64 accumulators
+// a thread, 124 registers, one block per SM.  Above J = 128 two
+// warpgroups (128 rows), as K11.  The card holds it at its 700 W limit.
 //
 // Design of K11 (dh).  The TPU kernel keeps all of W in VMEM and walks
 // 512-row blocks; 8 MB of W does not fit in 227 KB of shared memory, so
@@ -108,258 +113,20 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <algorithm>
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int kRows = 64;             // rows of h per step
+constexpr int kRows = 64;             // K12: rows of h per row block
 constexpr int kTile = 128;            // vocabulary columns per tile
-constexpr int kThreads = 256;         // 8 warps
-constexpr int kPad = 8;               // bf16 row pad: 16 bytes
-constexpr int kWld = kTile + kPad;    // W tile row stride (bf16)
-constexpr int kXld = kTile + 4;       // logits tile row stride (float)
-constexpr int kPerThread = kTile / 4; // columns of a tile per thread
 constexpr int kSlab = 128;            // J rows per slab when J > 128
 constexpr float kNeg = -3.0e38f;      // the running max's identity
 constexpr int kDwTile = 256;          // K12: vocabulary columns per block
 constexpr int kDwThreads = 512;       // K12: a warp per 16 columns
-
-template <int NJ>
-struct Layout {
-  static constexpr int JP = 16 * NJ;        // padded J
-  static constexpr int HLD = JP + kPad;     // h tile row stride (bf16)
-  static constexpr size_t h_bytes = (size_t)kRows * HLD * 2;
-  static constexpr size_t w_bytes = (size_t)JP * kWld * 2;
-  static constexpr size_t x_bytes = (size_t)kRows * kXld * 4;
-  static constexpr size_t b_bytes = (size_t)kTile * 4;
-  // every region starts 32-byte aligned, as wmma needs
-  static constexpr size_t fwd = h_bytes + w_bytes + x_bytes + b_bytes;
-};
-
-struct Smem {
-  bf16* h;
-  bf16* w;
-  float* x;
-  float* bias;
-};
-
-template <int NJ>
-__device__ __forceinline__ Smem carve(unsigned char* base) {
-  using L = Layout<NJ>;
-  Smem s;
-  s.h = reinterpret_cast<bf16*>(base);
-  s.w = reinterpret_cast<bf16*>(base + L::h_bytes);
-  s.x = reinterpret_cast<float*>(base + L::h_bytes + L::w_bytes);
-  s.bias = reinterpret_cast<float*>(base + L::h_bytes + L::w_bytes +
-                                    L::x_bytes);
-  return s;
-}
-
-// Zero the pad columns J..JP-1 of the h tile and the pad rows J..JP-1 of
-// the W tile; the loads below never write them.
-template <int NJ>
-__device__ void zero_pads(const Smem& s, int J) {
-  using L = Layout<NJ>;
-  const bf16 z = __float2bfloat16(0.0f);
-  const int hp = L::JP - J;
-  for (int i = threadIdx.x; i < kRows * hp; i += kThreads)
-    s.h[(i / hp) * L::HLD + J + i % hp] = z;
-  for (int i = threadIdx.x; i < hp * kWld; i += kThreads)
-    s.w[J * kWld + i] = z;
-}
-
-// Columns j0..j0+jn-1 of rows r0..r0+63 of the bf16 h (R, J) into columns
-// 0..jn-1 of the h tile; rows >= R as zeros.
-template <int NJ>
-__device__ void load_h(const bf16* __restrict__ h, const Smem& s, long r0,
-                       long R, int J, int j0, int jn) {
-  using L = Layout<NJ>;
-  if (J % 8 == 0) {  // 16-byte vectors (j0 and jn are multiples of 8 too)
-    const int per_row = jn / 8;
-    for (int i = threadIdx.x; i < kRows * per_row; i += kThreads) {
-      const int r = i / per_row, q = i % per_row;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + r < R)
-        v = *reinterpret_cast<const uint4*>(h + (r0 + r) * J + j0 + q * 8);
-      *reinterpret_cast<uint4*>(s.h + r * L::HLD + q * 8) = v;
-    }
-  } else {
-    for (int i = threadIdx.x; i < kRows * jn; i += kThreads) {
-      const int r = i / jn, j = i % jn;
-      s.h[r * L::HLD + j] =
-          r0 + r < R ? h[(r0 + r) * J + j0 + j] : __float2bfloat16(0.0f);
-    }
-  }
-}
-
-// Rows j0..j0+jn-1 of the bf16 W (J, Vp) (zero past V), columns c0..c0+127,
-// into rows 0..jn-1 of the W tile.
-__device__ void load_w(const bf16* __restrict__ w, const Smem& s, int c0,
-                       int j0, int jn, int Vp) {
-  for (int i = threadIdx.x; i < jn * (kTile / 8); i += kThreads) {
-    const int j = i / (kTile / 8), q = i % (kTile / 8);
-    *reinterpret_cast<uint4*>(s.w + j * kWld + q * 8) =
-        *reinterpret_cast<const uint4*>(w + (size_t)(j0 + j) * Vp + c0 +
-                                        q * 8);
-  }
-}
-
-// The bias of columns c0..c0+127 (0 past V).
-__device__ void load_bias(const float* __restrict__ b, const Smem& s, int c0,
-                          int V) {
-  for (int c = threadIdx.x; c < kTile; c += kThreads)
-    s.bias[c] = c0 + c < V ? b[c0 + c] : 0.0f;
-}
-
-using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// acc += the h tile's NJ 16-wide slabs times the W tile's.  Warp w owns
-// rows 16 (w % 4).. and column slabs w / 4 + 2i, i < 4, of the 64 x 128
-// logits tile.
-template <int NJ>
-__device__ __forceinline__ void logits_mma(const Smem& s, Acc (&acc)[4]) {
-  using L = Layout<NJ>;
-  const int warp = threadIdx.x / 32;
-  const int rm = warp % 4;
-#pragma unroll
-  for (int k = 0; k < NJ; ++k) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, s.h + rm * 16 * L::HLD + k * 16, L::HLD);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
-      wmma::load_matrix_sync(bw, s.w + k * 16 * kWld + (warp / 4 + 2 * i) * 16,
-                             kWld);
-      wmma::mma_sync(acc[i], a, bw, acc[i]);
-    }
-  }
-}
-
-__device__ __forceinline__ void store_logits(const Smem& s, Acc (&acc)[4]) {
-  const int warp = threadIdx.x / 32;
-  const int rm = warp % 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    wmma::store_matrix_sync(s.x + rm * 16 * kXld + (warp / 4 + 2 * i) * 16,
-                            acc[i], kXld, wmma::mem_row_major);
-}
-
-// The 64 x 128 logits tile h W (without the bias) into s.x, from the h and
-// W tiles in shared memory (J <= 128).
-template <int NJ>
-__device__ void logits_tile(const Smem& s) {
-  Acc acc[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) wmma::fill_fragment(acc[i], 0.0f);
-  logits_mma<NJ>(s, acc);
-  store_logits(s, acc);
-}
-
-// The same for J > 128, and the bias of the tile: rows r0.. of h and
-// columns c0.. of W stream through the h and W tiles one 128-row J slab at
-// a time, in slab order, the products accumulating in one set of fragments.
-// Begins with a barrier (the previous tile's reads of every shared region
-// are done); the caller's next barrier publishes s.x.  Afterwards the h
-// and W tiles hold the last slab.
-__device__ void logits_tile_wide(const bf16* __restrict__ h,
-                                 const bf16* __restrict__ w,
-                                 const float* __restrict__ b, const Smem& s,
-                                 long r0, long R, int J, int c0, int V,
-                                 int Vp) {
-  Acc acc[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) wmma::fill_fragment(acc[i], 0.0f);
-  for (int j0 = 0; j0 < J; j0 += kSlab) {
-    const int jn = min(kSlab, J - j0);
-    __syncthreads();
-    if (j0 == 0) load_bias(b, s, c0, V);
-    load_h<8>(h, s, r0, R, J, j0, jn);
-    load_w(w, s, c0, j0, jn, Vp);
-    if (jn < kSlab) zero_pads<8>(s, jn);  // the previous slab's rows
-    __syncthreads();
-    logits_mma<8>(s, acc);
-  }
-  store_logits(s, acc);
-}
-
-// K10 (K10tp with `raw`).  Grid: one block per 64 rows.  Outputs b_pl,
-// l_pl, m, logs (R,); with `raw`, the raw blank and label logits in place
-// of the planes and the shard's local m, logs.
-template <int NJ, bool WIDE>
-__global__ void __launch_bounds__(kThreads, 2)
-    rnnt_joint_fwd_kernel(const bf16* __restrict__ h,
-                          const bf16* __restrict__ w,
-                          const float* __restrict__ b,
-                          const int* __restrict__ y, float* __restrict__ b_pl,
-                          float* __restrict__ l_pl, float* __restrict__ m_out,
-                          float* __restrict__ logs_out, long R, int J, int V,
-                          int Vp, int blank, int raw) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem s = carve<NJ>(smem);
-  const long r0 = (long)blockIdx.x * kRows;
-  const int row = threadIdx.x / 4, seg = threadIdx.x % 4;
-  const long grow = r0 + row;
-  int yr = grow < R ? y[grow] : -1;
-  if (yr >= V) yr = -1;  // a label past V matches no column
-  if constexpr (!WIDE) {
-    zero_pads<NJ>(s, J);
-    load_h<NJ>(h, s, r0, R, J, 0, J);
-  }
-  float m = kNeg, sum = 0.0f, xb = 0.0f, xy = 0.0f;
-  for (int c0 = 0; c0 < Vp; c0 += kTile) {
-    if constexpr (WIDE) {
-      logits_tile_wide(h, w, b, s, r0, R, J, c0, V, Vp);
-    } else {
-      __syncthreads();  // the previous tile's reads of s.w, s.x are done
-      load_w(w, s, c0, 0, J, Vp);
-      load_bias(b, s, c0, V);
-      __syncthreads();
-      logits_tile<NJ>(s);
-    }
-    __syncthreads();
-    float vals[kPerThread];
-    float tmax = kNeg;
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const int c = seg + 4 * i;
-      const float x = c0 + c < V ? s.x[row * kXld + c] + s.bias[c] : kNeg;
-      vals[i] = x;
-      tmax = fmaxf(tmax, x);
-      if (c0 + c == blank) xb = x;
-      if (c0 + c == yr) xy = x;
-    }
-    const float m_new = fmaxf(m, tmax);
-    float part = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i)
-      if (c0 + seg + 4 * i < V) part += __expf(vals[i] - m_new);
-    sum = sum * __expf(m - m_new) + part;
-    m = m_new;
-  }
-  // the four threads of a row (neighbouring lanes) combine their stats
-  float mr = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-  mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 2));
-  float sr = sum * __expf(m - mr);
-  sr += __shfl_xor_sync(0xffffffffu, sr, 1);
-  sr += __shfl_xor_sync(0xffffffffu, sr, 2);
-  xb += __shfl_xor_sync(0xffffffffu, xb, 1);  // one owner, the others 0
-  xb += __shfl_xor_sync(0xffffffffu, xb, 2);
-  xy += __shfl_xor_sync(0xffffffffu, xy, 1);
-  xy += __shfl_xor_sync(0xffffffffu, xy, 2);
-  if (seg == 0 && grow < R) {
-    const float logs = logf(sr);
-    b_pl[grow] = raw ? xb : (xb - mr) - logs;
-    l_pl[grow] = raw ? xy : (xy - mr) - logs;
-    m_out[grow] = mr;
-    logs_out[grow] = logs;
-  }
-}
 
 // A wgmma shared-memory descriptor without swizzle: the operand is made of
 // 8 x 8 core matrices of 128 contiguous bytes (8 rows of 16 bytes), `sbo`
@@ -1180,6 +947,325 @@ __global__ void __launch_bounds__(kDhThreads, 1)
   }
 }
 
+// K10's shapes: a block of G warpgroups of 64 rows shares each W tile, G = 4
+// up to J = 128 and 2 above (where the h tile of more rows would not fit
+// beside the ring); at most kFwdStages stages in the ring.
+template <bool WIDE>
+struct FwdShape {
+  static constexpr int groups = WIDE ? 2 : 4;
+  static constexpr int rows = 64 * groups;
+  static constexpr int threads = 128 * groups;
+  static constexpr int warps = threads / 32;
+  static constexpr uint32_t j8 = rows / 8 * 128;  // h tile: 8 of J further
+};
+constexpr int kFwdStages = 4;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// K10's shared memory: K11's ring of stages (DhLayout: a W tile, when h
+// streams the block's h slab, and the tile's log2 bias), then, unless h
+// streams, the block's h tile (FwdShape rows x every slab's columns), then
+// a full mbarrier and a release counter a stage.  As many stages as fit,
+// up to kFwdStages.
+template <int NJ, bool WIDE>
+struct FwdLayout {
+  using D = DhLayout<NJ, WIDE>;
+  static size_t h_bytes(int J) {
+    return D::stream(J) ? 0
+                        : (size_t)FwdShape<WIDE>::rows *
+                              (WIDE ? (J + kSlab - 1) / kSlab * kSlab
+                                    : D::JP) * 2;
+  }
+  static int stages(int J) {
+    return (int)std::min<size_t>(
+        kFwdStages, (kSmemMax - h_bytes(J)) / (D::stage(J) + 12));
+  }
+  static size_t bytes(int J) {
+    return stages(J) * (D::stage(J) + 12) + h_bytes(J);
+  }
+};
+
+// atomicAdd on a shared counter, ordered after this thread's earlier
+// accesses and before its later ones (acquire-release); returns the old
+// value.
+__device__ __forceinline__ uint32_t atom_add_acq_rel(uint32_t addr,
+                                                     uint32_t v) {
+  uint32_t old;
+  asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "r"(addr), "r"(v)
+               : "memory");
+  return old;
+}
+
+// Rows r0.. of h (R, J) into K10's resident h tile of ldh columns, in
+// core matrices (see smem_desc) of rows 8a.. and J columns 8b.. at
+// (rows / 8 b + a) * 128 bytes; zeros past R and J.
+template <bool WIDE>
+__device__ __forceinline__ void fwd_issue_h(const bf16* __restrict__ h,
+                                            uint32_t hs, long r0, long R,
+                                            int J, int ldh) {
+  using F = FwdShape<WIDE>;
+  for (int i = threadIdx.x; i < F::rows * (ldh / 8); i += F::threads) {
+    const int ri = i % 8, b = (i / 8) % (ldh / 8), a = i / ldh;
+    const long r = r0 + 8 * a + ri;
+    const bool live = r < R && 8 * b < J;
+    cp_async16(hs + b * F::j8 + a * kDhStep8 + ri * 16,
+               live ? h + r * J + 8 * b : h, live);
+  }
+}
+
+// This lane's share (J columns t, t + 4, ...) of the logit h[row] .
+// W[:, col], bf16 products summed in float32: h (R, J) as given, or in
+// h_tiles' layout (jw columns) when `tiled`; W in w_tiles' layout (jw rows
+// a tile).  0 when col < 0 or row >= R.
+__device__ __forceinline__ float row_dot(const bf16* __restrict__ h,
+                                         const bf16* __restrict__ w,
+                                         long row, int col, long R, int J,
+                                         int jw, bool tiled, int t) {
+  if (col < 0 || row >= R) return 0.0f;
+  const bf16* wc = w + (size_t)(col / kTile) * jw * kTile +
+                   (col % kTile) / 8 * 64 + col % 8;
+  const bf16* hr =
+      tiled ? h + (row / kDhRows) * (size_t)jw * kDhRows +
+                  (row % kDhRows) / 8 * 64 + (row % 8) * 8
+            : h + row * J;
+  float s = 0.0f;
+#pragma unroll 8
+  for (int j = t; j < J; j += 4) {
+    const size_t hj = tiled ? (size_t)(j / kSlab) * kSlab * kDhRows +
+                                  (j % kSlab) / 8 * 16 * 64 + j % 8
+                            : (size_t)j;
+    s = fmaf(__bfloat162float(hr[hj]),
+             __bfloat162float(wc[(j / 8) * 16 * 64 + (j % 8) * 8]), s);
+  }
+  return s;
+}
+
+// K10 (K10tp with `raw`).  Grid: the FwdShape<WIDE>::rows-row blocks.
+// Takes W and b2 as K11 does (w_tiles, dh_bias: a stage is two contiguous
+// copies, three when h streams above kDhResidentJ in h_tiles' layout), and
+// b (V,) in natural units for the blank and label logits.  Writes b_pl,
+// l_pl, m, logs (R,), rows < R only; with `raw`, the raw blank and label
+// logits (0 where the id is no column) in place of the planes, and the
+// shard's local m and log s.  J is a multiple of 8 (the wrapper pads h and
+// W).
+//
+// Warpgroup g owns rows 64g..64g+63 of the block, each thread its two rows
+// of wgmma's accumulator layout (warp w, lane l: 16 w + l / 4 and that +
+// 8), and for each of them a running max M and sum S over its columns
+// (8 nf + 2 t + e of every tile, t = l % 4) in log2 units, in registers
+// for the whole kernel.  Per item (a W tile, or one 128-row J slab of it
+// above J = 128) the warpgroup computes the logits S (+)= h W_item (64 x
+// 128) with wgmma into registers (h K-major, W N-major, both from shared
+// memory: K11's product); after a tile's last item its softmax turns each
+// element into v = x log2 e + b2[c] by one FMA and adds exp2(v - M) to S,
+// M the running max of the earlier tiles, so that the exps need not wait
+// for the tile's max; then M takes the tile's max and S is rescaled by one
+// exp2 a row.  A row whose tile max exceeds M by more than 64 (every row
+// on its first tile) redoes the tile's exps against the new max, so no
+// term exceeds 2^64.  The logits never reach shared or device memory.  The
+// four threads of a row combine (M, S) once at the end by shuffles; m and
+// log s leave in natural units.  The blank and label logits are separate
+// dot products of the row of h with W's column (each thread a quarter of
+// J), computed while the first copies land, + b[c].
+//
+// The products and the exps take the same time at J = 128, and the exps
+// are too few a warp for two warps a scheduler to keep the exp unit busy.
+// So the warpgroups, four up to J = 128, never wait for each other: each
+// stage has a full mbarrier (the copies landed) and a counter that every
+// warp adds one to when it is done with the stage; the last of the block's
+// warps to do so refills it.  A warpgroup runs ahead of the others as far
+// as the ring allows, and the others' softmax runs under its products.
+// Every product is issued unconditionally (a wgmma under a run-time
+// condition makes ptxas serialise them).
+template <int NJ, bool WIDE>
+__global__ void __launch_bounds__(FwdShape<WIDE>::threads, 1)
+    rnnt_joint_fwd_kernel(const bf16* __restrict__ h,
+                          const bf16* __restrict__ w,
+                          const float* __restrict__ b,
+                          const float* __restrict__ b2,
+                          const int* __restrict__ y, float* __restrict__ b_pl,
+                          float* __restrict__ l_pl, float* __restrict__ m_out,
+                          float* __restrict__ logs_out, long R, int J, int V,
+                          int Vp, int blank, int raw, int stages,
+                          int stream) {
+  using L = DhLayout<NJ, WIDE>;
+  using F = FwdShape<WIDE>;
+  constexpr int JP = L::JP;
+  const int S = stages;
+  const bool hs_streams = WIDE && stream;
+  const uint32_t stage = L::w_bytes + (hs_streams ? kDhSlabBytes : 0) +
+                         kTile * 4;
+  const uint32_t bias_at = stage - kTile * 4;  // in a stage
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4, wg = warp / 4;
+  const int nslab = WIDE ? (J + kSlab - 1) / kSlab : 1;
+  const long r0 = (long)blockIdx.x * F::rows;
+  const int n_items = Vp / kTile * nslab;
+  const uint32_t ring = smem_addr(smem);
+  const uint32_t hs = ring + S * stage;  // unless h streams
+  const uint32_t bars = hs + (hs_streams ? 0 : F::rows * nslab * JP * 2);
+  const uint32_t counters = bars + 8 * S;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(counters + 4 * s),
+                   "r"(0u)
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (!hs_streams) fwd_issue_h<WIDE>(h, hs, r0, R, J, nslab * JP);
+  cp_async_commit();
+
+  // Item `it`'s W rows (and h slab) and its tile's bias into stage it % S
+  auto issue = [&](int it) {
+    if (it >= n_items) return;
+    const int st = it % S, c0 = it / nslab * kTile;
+    const int jq = WIDE ? it % nslab : 0;
+    const uint32_t dst = ring + st * stage, bar = bars + 8 * st;
+    const bf16* wsrc = w + ((size_t)c0 * nslab + jq * kTile) * JP;
+    mbar_expect_tx(bar, stage);  // W, h when it streams, the bias
+    bulk_copy(dst, wsrc, L::w_bytes, bar);
+    if (hs_streams)
+      bulk_copy(dst + L::w_bytes,
+                h + ((size_t)blockIdx.x * nslab + jq) * kDhRows * kSlab,
+                kDhSlabBytes, bar);
+    bulk_copy(dst + bias_at, b2 + c0, kTile * 4, bar);
+  };
+  // This warp is done with item `it`'s stage; the block's last warp to be
+  // done with it refills it with item it + S.
+  auto release = [&](int it) {
+    __syncwarp();
+    if (lane == 0 &&
+        atom_add_acq_rel(counters + 4 * (it % S), 1) % F::warps ==
+            F::warps - 1)
+      issue(it + S);
+  };
+  cp_async_wait<0>();  // this thread's part of the h tile
+  fence_async_shared();
+  __syncthreads();  // the h tile and the mbarriers
+  if (threadIdx.x == 0)
+    for (int it = 0; it < S; ++it) issue(it);
+
+  // this thread's two rows: the label (-1 outside [0, V)) and this lane's
+  // shares of the blank and label logits, while the first copies land
+  const long ra = r0 + wg * 64 + (warp % 4) * 16 + g, rb = ra + 8;
+  int ya = -1, yb = -1;
+  if (ra < R && (unsigned)y[ra] < (unsigned)V) ya = y[ra];
+  if (rb < R && (unsigned)y[rb] < (unsigned)V) yb = y[rb];
+  const int jw = nslab * JP;
+  const float xba = row_dot(h, w, ra, blank, R, J, jw, hs_streams, t);
+  const float xbb = row_dot(h, w, rb, blank, R, J, jw, hs_streams, t);
+  const float xya = row_dot(h, w, ra, ya, R, J, jw, hs_streams, t);
+  const float xyb = row_dot(h, w, rb, yb, R, J, jw, hs_streams, t);
+  // this warpgroup's rows of the resident h tile
+  const uint32_t h_wg = hs + wg * 8 * kDhStep8;
+  float Ma = kNeg, Mb = kNeg, Sa = 0.0f, Sb = 0.0f;  // log2 units
+  float acc[64];  // the logits: 64 rows x 128 columns
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+
+  for (int c = 0; c < n_items / nslab; ++c) {
+    for (int q = 0; q < nslab; ++q) {
+      // acc (+)= h[:, slab q] (64 x JP) W_it (JP x 128), 16 of J at a time
+      const int it = c * nslab + q;
+      const uint32_t ws = ring + it % S * stage;
+      const uint32_t ha = hs_streams ? ws + L::w_bytes + wg * 8 * kDhStep8
+                                     : h_wg + q * NJ * 2 * F::j8;
+      const uint32_t hj8 = hs_streams ? kDhJ8 : F::j8;
+      mbar_wait(bars + 8 * (it % S), (it / S) & 1);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < NJ; ++k)
+        wgmma_ss<128, kKMajor, kMNMajor>(
+            acc, smem_desc(ha + k * 2 * hj8, hj8, kDhStep8),
+            smem_desc(ws + 2 * k * kDhJ8, kDhJ8, kDhStep8), k > 0 || q > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      if (q < nslab - 1) {  // more J slabs of the tile
+        release(it);
+        continue;
+      }
+
+      // the tile's softmax; the bias is in the last item's stage
+      const float2* bias =
+          reinterpret_cast<const float2*>(smem + it % S * stage + bias_at);
+      float ta = kNeg, tb = kNeg;
+      float sa0 = 0.0f, sa1 = 0.0f, sb0 = 0.0f, sb1 = 0.0f;
+#pragma unroll
+      for (int nf = 0; nf < kTile / 8; ++nf) {
+        const float2 bc = bias[4 * nf + t];  // columns 8 nf + 2 t, + 1
+        acc[4 * nf] = fmaf(acc[4 * nf], kLog2e, bc.x);
+        acc[4 * nf + 1] = fmaf(acc[4 * nf + 1], kLog2e, bc.y);
+        acc[4 * nf + 2] = fmaf(acc[4 * nf + 2], kLog2e, bc.x);
+        acc[4 * nf + 3] = fmaf(acc[4 * nf + 3], kLog2e, bc.y);
+        ta = fmaxf(ta, fmaxf(acc[4 * nf], acc[4 * nf + 1]));
+        tb = fmaxf(tb, fmaxf(acc[4 * nf + 2], acc[4 * nf + 3]));
+        sa0 += ex2(acc[4 * nf] - Ma);
+        sa1 += ex2(acc[4 * nf + 1] - Ma);
+        sb0 += ex2(acc[4 * nf + 2] - Mb);
+        sb1 += ex2(acc[4 * nf + 3] - Mb);
+      }
+      const float na = fmaxf(Ma, ta), nb = fmaxf(Mb, tb);
+      if (ta > Ma + 64.0f) {
+        sa0 = sa1 = 0.0f;
+#pragma unroll
+        for (int nf = 0; nf < kTile / 8; ++nf) {
+          sa0 += ex2(acc[4 * nf] - na);
+          sa1 += ex2(acc[4 * nf + 1] - na);
+        }
+        Sa = fmaf(Sa, ex2(Ma - na), sa0 + sa1);
+      } else {
+        Sa = (Sa + (sa0 + sa1)) * ex2(Ma - na);
+      }
+      if (tb > Mb + 64.0f) {
+        sb0 = sb1 = 0.0f;
+#pragma unroll
+        for (int nf = 0; nf < kTile / 8; ++nf) {
+          sb0 += ex2(acc[4 * nf + 2] - nb);
+          sb1 += ex2(acc[4 * nf + 3] - nb);
+        }
+        Sb = fmaf(Sb, ex2(Mb - nb), sb0 + sb1);
+      } else {
+        Sb = (Sb + (sb0 + sb1)) * ex2(Mb - nb);
+      }
+      Ma = na;
+      Mb = nb;
+      release(it);
+    }
+  }
+
+  // the four threads of a row (neighbouring lanes) combine their (M, S)
+  // and their shares of the blank and label logits
+  auto finish = [&](float M, float s, float xb, float xy, int yr, long row) {
+    float mr = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, 1));
+    mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 2));
+    float sr = s * ex2(M - mr);
+    sr += __shfl_xor_sync(0xffffffffu, sr, 1);
+    sr += __shfl_xor_sync(0xffffffffu, sr, 2);
+    xb += __shfl_xor_sync(0xffffffffu, xb, 1);
+    xb += __shfl_xor_sync(0xffffffffu, xb, 2);
+    xy += __shfl_xor_sync(0xffffffffu, xy, 1);
+    xy += __shfl_xor_sync(0xffffffffu, xy, 2);
+    if (t == 0 && row < R) {
+      const float m = mr * kLn2, logs = logf(sr);
+      xb = blank >= 0 ? xb + b[blank] : 0.0f;
+      xy = yr >= 0 ? xy + b[yr] : 0.0f;
+      b_pl[row] = raw ? xb : (xb - m) - logs;
+      l_pl[row] = raw ? xy : (xy - m) - logs;
+      m_out[row] = m;
+      logs_out[row] = logs;
+    }
+  };
+  finish(Ma, Sa, xba, xya, ya, ra);
+  finish(Mb, Sb, xbb, xyb, yb, rb);
+}
+
 // The number of 16-wide J slabs the kernels are built for: 1, 2, 4 or 8
 // (J <= 128; wider J runs the WIDE kernels with 8).
 int slabs_for(int J) {
@@ -1198,18 +1284,46 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
 }
 
 template <int NJ, bool WIDE>
-cudaError_t fwd(const void* h, const void* w, const void* b, const void* y,
-                void* b_pl, void* l_pl, void* m, void* logs, long R, int J,
-                int V, int Vp, int blank, int raw, cudaStream_t stream) {
-  const size_t smem = Layout<NJ>::fwd;
-  cudaError_t err =
-      set_smem((const void*)rnnt_joint_fwd_kernel<NJ, WIDE>, smem);
+cudaError_t fwd_smem(int J, size_t* bytes) {
+  *bytes = FwdLayout<NJ, WIDE>::bytes(J);
+  return set_smem((const void*)rnnt_joint_fwd_kernel<NJ, WIDE>, *bytes);
+}
+
+// K10's resources at this J: info[0..5] as dh_plan's.
+template <int NJ, bool WIDE>
+cudaError_t fwd_plan(int J, int* info) {
+  size_t smem;
+  cudaError_t err = fwd_smem<NJ, WIDE>(J, &smem);
   if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)((R + kRows - 1) / kRows);
-  rnnt_joint_fwd_kernel<NJ, WIDE><<<blocks, kThreads, smem, stream>>>(
-      (const bf16*)h, (const bf16*)w, (const float*)b, (const int*)y,
-      (float*)b_pl, (float*)l_pl, (float*)m, (float*)logs, R, J, V, Vp,
-      blank, raw);
+  const void* kernel = (const void*)rnnt_joint_fwd_kernel<NJ, WIDE>;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &info[0], kernel, FwdShape<WIDE>::threads, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  info[1] = attr.numRegs;
+  info[2] = (int)smem;
+  info[3] = (int)attr.localSizeBytes;
+  info[4] = FwdLayout<NJ, WIDE>::stages(J);
+  info[5] = (int)DhLayout<NJ, WIDE>::stream(J);
+  return err;
+}
+
+template <int NJ, bool WIDE>
+cudaError_t fwd(const void* h, const void* w, const void* b, const void* b2,
+                const void* y, void* b_pl, void* l_pl, void* m, void* logs,
+                long R, int J, int V, int Vp, int blank, int raw,
+                cudaStream_t stream) {
+  size_t smem;
+  cudaError_t err = fwd_smem<NJ, WIDE>(J, &smem);
+  if (err != cudaSuccess) return err;
+  using F = FwdShape<WIDE>;
+  const unsigned blocks = (unsigned)((R + F::rows - 1) / F::rows);
+  rnnt_joint_fwd_kernel<NJ, WIDE><<<blocks, F::threads, smem, stream>>>(
+      (const bf16*)h, (const bf16*)w, (const float*)b, (const float*)b2,
+      (const int*)y, (float*)b_pl, (float*)l_pl, (float*)m, (float*)logs, R,
+      J, V, Vp, blank, raw, FwdLayout<NJ, WIDE>::stages(J),
+      (int)DhLayout<NJ, WIDE>::stream(J));
   return cudaGetLastError();
 }
 
@@ -1312,24 +1426,42 @@ cudaError_t dw(const void* h, const void* w, const void* b, const void* y,
 
 }  // namespace
 
-// h (R, J) bf16, w (J, Vp) bf16 zero past V, b (V,) f32, y (R,) i32;
-// Vp a multiple of 128, J >= 1, -1 <= blank < V (-1, and labels outside
-// [0, V), match no column).  raw = 0: b_pl, l_pl are the planes; raw = 1
-// (K10tp): the raw blank and label logits.
+// h (R, J) bf16, J a multiple of 8, w in K11's W tiles' layout (see
+// rnnt_joint_dh_kernel), b (V,) f32, b2 the (Vp,) bias in log2 units, -inf
+// past V, y (R,) i32, and, where e2e_rnnt_joint_fwd_plan reports that h
+// streams (above kDhResidentJ), h in K11's h tiles' layout; Vp a multiple
+// of 128, -1 <= blank < V (-1, and labels outside [0, V), match no
+// column).  raw = 0: b_pl, l_pl are the planes; raw = 1 (K10tp): the raw
+// blank and label logits.
 extern "C" int e2e_rnnt_joint_fwd(const void* h, const void* w, const void* b,
-                                  const void* y, void* b_pl, void* l_pl,
-                                  void* m, void* logs, long long R, int J,
-                                  int V, int Vp, int blank, int raw,
-                                  void* stream) {
+                                  const void* b2, const void* y, void* b_pl,
+                                  void* l_pl, void* m, void* logs,
+                                  long long R, int J, int V, int Vp,
+                                  int blank, int raw, void* stream) {
+  if (J % 8 != 0) return (int)cudaErrorInvalidValue;
   if (R <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   if (J > kSlab)
-    return (int)fwd<8, true>(h, w, b, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, raw, st);
+    return (int)fwd<8, true>(h, w, b, b2, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, raw, st);
   switch (slabs_for(J)) {
-    case 1: return (int)fwd<1, false>(h, w, b, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, raw, st);
-    case 2: return (int)fwd<2, false>(h, w, b, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, raw, st);
-    case 4: return (int)fwd<4, false>(h, w, b, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, raw, st);
-    case 8: return (int)fwd<8, false>(h, w, b, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, raw, st);
+    case 1: return (int)fwd<1, false>(h, w, b, b2, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, raw, st);
+    case 2: return (int)fwd<2, false>(h, w, b, b2, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, raw, st);
+    case 4: return (int)fwd<4, false>(h, w, b, b2, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, raw, st);
+    case 8: return (int)fwd<8, false>(h, w, b, b2, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, raw, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K10's resources at this J (a multiple of 8) on the current device
+// (info as e2e_rnnt_joint_dh_plan's).
+extern "C" int e2e_rnnt_joint_fwd_plan(int J, int* info) {
+  if (J % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (J > kSlab) return (int)fwd_plan<8, true>(J, info);
+  switch (slabs_for(J)) {
+    case 1: return (int)fwd_plan<1, false>(J, info);
+    case 2: return (int)fwd_plan<2, false>(J, info);
+    case 4: return (int)fwd_plan<4, false>(J, info);
+    case 8: return (int)fwd_plan<8, false>(J, info);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -11,30 +11,33 @@ backward, float32 (R,) m, logs, gb, gl, all contiguous; any J >= 1 (above
 functions run one shard's (J, V/D) slice, with shard-relative blank and
 label ids, -1 where another shard owns the column.  Each call rounds h
 and W to bf16 once (W zero-padded to a whole number of 128-column tiles)
-for the kernels' tensor cores; the backward kernels' 16-byte copies also
-want J padded with zeros to a multiple of 8 (`_bf16_padded`, shared by
-K11 and K12).  Nothing here falls back to the plain version: anything
-the kernels do not take raises.
+for the kernels' tensor cores, J padded with zeros to a multiple of 8 for
+their 16-byte copies (`_bf16_padded`).  Nothing here falls back to the
+plain version: anything the kernels do not take raises.
 
-K11 (`joint_dh`, `joint_dh_tp`) and K12 are each bound by their bf16
-tensor-core work, 4 R J V operations (4.1 ms on an H100 at its max SM
-clock of 1,980 MHz at the JAX bench row: R = 259,200, J = 128, V =
-32768; 1.0 ms on one of 4 vocabulary shards).  Both keep the logits and
-d in wgmma's accumulator registers.
-K11 gives each 128-column W tile to 128 rows (two warpgroups) and streams
-W through a ring of TMA bulk copies; `w_tiles` lays W out tile by tile in
-the order of the kernel's shared-memory stages, so each stage is one
-contiguous copy, and `dh_bias` gives it the bias in log2 units; above
-J = 640 its h tile no longer fits beside the ring, and `h_tiles` lays h
-out for it to stream slab by slab with W.  Its sum over V stays in one
-block's registers: dh is the same bits run to run.  `dh_plan` reports
-its resources and, from the kernel's own layout, whether h streams.  K12's grid
+K10 is bound alike by its bf16 tensor-core work, 2 R J V operations, and
+its R V exps (2.03 ms each on an H100 at its max SM clock of 1,980 MHz at
+the JAX bench row: R = 259,200, J = 128, V = 32768; 0.51 ms on one of 4
+vocabulary shards); K11 and K12 by their tensor-core work, 4 R J V
+operations (4.1 ms; 1.0 ms a shard).  All three keep the logits in
+wgmma's accumulator registers.  K10 and K11 give each 128-column W tile
+to the rows of a block (K11: 128, two warpgroups; K10: 256, four, up to
+J = 128, `fwd_rows`) and stream W through a ring of TMA bulk copies;
+`w_tiles` lays W out tile by tile in the order of the kernels'
+shared-memory stages, so each stage is one contiguous copy, and
+`dh_bias` gives them the bias in log2 units (`_tiled` makes all three);
+above J = 640 their h tile no longer fits beside the ring, and `h_tiles`
+lays h out for it to stream slab by slab with W.  K10's warpgroups run
+their exps under each other's products.  K11's sum over V stays in one
+block's registers: dh is the same bits run to run.  `fwd_plan` and
+`dh_plan` report their resources and, from the kernel's own layout,
+whether h streams.  K12's grid
 is 256-column V tiles times S row splits; `plan_splits` picks S from the
 card's SM count and the kernel's resident blocks per SM (`dw_plan`) so
 that the grid fills at least one wave with the last one near full (S = 2
 unsharded, 8 per shard at the bench row), and a second kernel adds the S
 partial sums in split order, so dW and db are the same bits run to run;
-h streams through a cp.async ring.  On an H100 both kernels draw the
+h streams through a cp.async ring.  On an H100 K11 and K12 draw the
 card to its 700 W limit at the bench row (PERF.md).  The K12 wrapper
 allocates the workspace, S x (J + 1) x V float32, with `torch.empty`.
 
@@ -129,15 +132,14 @@ def _fwd(h, w, b, y, blank, tp):
     """Launch K10 (K10tp with `tp`): four (R,) float32 outputs."""
     r, j, v = _check(h, w, b, y, blank, tp=tp)
     dev = h.device
-    hb = h.to(torch.bfloat16)
-    wb, vp = _bf16_w(w, v)
+    hb, wt, b2, j8, vp = _tiled(h, w, b, fwd_plan(r, j, dev)["h_streams"])
     out = torch.empty((4, r), dtype=torch.float32, device=dev)
     lib, _ = cuda_build.library()
     with torch.cuda.device(dev):
         status = lib.e2e_rnnt_joint_fwd(
-            hb.data_ptr(), wb.data_ptr(), b.data_ptr(), y.data_ptr(),
-            *(o.data_ptr() for o in out), r, j, v, vp, blank, int(tp),
-            _stream(dev))
+            hb.data_ptr(), wt.data_ptr(), b.data_ptr(), b2.data_ptr(),
+            y.data_ptr(), *(o.data_ptr() for o in out), r, j8, v, vp, blank,
+            int(tp), _stream(dev))
     cuda_build.check(status, "e2e_rnnt_joint_fwd")
     launches["joint_fwd_tp" if tp else "joint_fwd"] += 1
     return out[0], out[1], out[2], out[3]
@@ -205,16 +207,22 @@ def dh_bias(b, vp):
     return b2
 
 
+def _tiled(h, w, b, h_streams):
+    """h, W and b as K10 and K11 take them: the bf16 h, J padded to J8 (in
+    h_tiles' layout where h streams), W in w_tiles' layout and the log2
+    bias.  Returns (hb, wt, b2, J8, Vp)."""
+    hb, wb, j8, vp = _bf16_padded(h, w, w.shape[1])
+    jw = _slab_width(j8)
+    if h_streams:
+        hb = h_tiles(hb, jw)
+    return hb, w_tiles(wb, jw), dh_bias(b, vp), j8, vp
+
+
 def _dh(h, w, b, y, blank, m, logs, gb, gl, tp):
     stats = (("m", m), ("logs", logs), ("gb", gb), ("gl", gl))
     r, j, v = _check(h, w, b, y, blank, stats, tp)
     dev = h.device
-    hb, wb, j8, vp = _bf16_padded(h, w, v)
-    jw = _slab_width(j8)
-    wt = w_tiles(wb, jw)
-    if dh_plan(r, j, dev)["h_streams"]:
-        hb = h_tiles(hb, jw)
-    b2 = dh_bias(b, vp)
+    hb, wt, b2, j8, vp = _tiled(h, w, b, dh_plan(r, j, dev)["h_streams"])
     dh = torch.empty((r, j8), dtype=torch.float32, device=dev)
     lib, _ = cuda_build.library()
     with torch.cuda.device(dev):
@@ -278,16 +286,31 @@ DH_PLAN_KEYS = DW_PLAN_KEYS + ("h_streams",)
 
 @functools.cache
 def _resources(kernel, j8, device_index):
-    """K11's ("dh") or K12's ("dw") resources at J8 on the device, from
-    the library's plan entry, and the card's SM count."""
+    """K10's ("fwd"), K11's ("dh") or K12's ("dw") resources at J8 on the
+    device, from the library's plan entry, and the card's SM count."""
     lib, _ = cuda_build.library()
-    keys = DH_PLAN_KEYS if kernel == "dh" else DW_PLAN_KEYS
+    keys = DW_PLAN_KEYS if kernel == "dw" else DH_PLAN_KEYS
     info = (ctypes.c_int * len(keys))()
     entry = f"e2e_rnnt_joint_{kernel}_plan"
     with torch.cuda.device(device_index):
         cuda_build.check(getattr(lib, entry)(j8, info), entry)
         sms = torch.cuda.get_device_properties(device_index)
     return {"sms": sms.multi_processor_count, **dict(zip(keys, info))}
+
+
+def fwd_rows(j8):
+    """K10's rows of h per block at J8: 256 (four warpgroups) up to 128,
+    128 above."""
+    return 256 if j8 <= SLAB_J else 128
+
+
+def fwd_plan(r, j, device):
+    """K10's launch on `device` for R rows and J: its resources (as
+    dh_plan's), whether h streams with W (the kernel decides; `_fwd` lays
+    h out to match), the SM count and the grid's blocks of `fwd_rows`."""
+    j8 = -(-j // 8) * 8
+    res = _resources("fwd", j8, torch.device(device).index or 0)
+    return {**res, "blocks": max(1, -(-r // fwd_rows(j8)))}
 
 
 def dh_plan(r, j, device):

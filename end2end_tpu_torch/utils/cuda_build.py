@@ -55,9 +55,9 @@ _SIGNATURES = {
     # stream
     "e2e_rnnt_post_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                           _I, _I, _I, _VP),
-    # h, w, b, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, raw, stream
-    "e2e_rnnt_joint_fwd": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _I,
-                           _I, _I, _I, _I, _VP),
+    # h, w, b, b2, y, b_pl, l_pl, m, logs, R, J, V, Vp, blank, raw, stream
+    "e2e_rnnt_joint_fwd": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL,
+                           _I, _I, _I, _I, _I, _VP),
     # h, w, b, y, m, logs, gb, gl, dh, R, J, V, Vp, blank, stream
     "e2e_rnnt_joint_dh": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL,
                           _I, _I, _I, _I, _VP),
@@ -65,7 +65,8 @@ _SIGNATURES = {
     # stream
     "e2e_rnnt_joint_dw": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                           _LL, _I, _I, _I, _I, _I, _VP),
-    # J, info (int[5])
+    # J, info (int[6], int[5] for K12)
+    "e2e_rnnt_joint_fwd_plan": (_I, _VP),
     "e2e_rnnt_joint_dh_plan": (_I, _VP),
     "e2e_rnnt_joint_dw_plan": (_I, _VP),
 }

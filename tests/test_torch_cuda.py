@@ -591,6 +591,54 @@ def test_joint_dh_is_deterministic(dev, r, j, v, blank):
         assert torch.equal(fn(*inputs, *stats), fn(*inputs, *stats))
 
 
+@pytest.mark.parametrize("top", [1099, 600])
+def test_joint_fwd_late_max(dev, top):
+    """K10 vs its plain twin where the row max comes late: a bias of scale
+    30 and one column 20 above its largest (in the last, ragged tile, or in
+    a middle one), so the running max of every row jumps after many tiles
+    and the running sums are rescaled (the bench row's zero bias never
+    does).  R = 20,037 ends in a ragged 128-row block; within 1e-4."""
+    args, _ = _joint_case(10, 20037, 128, 1100, 600, dev)
+    h, w, _, y, blank = args
+    b = 30.0 * torch.from_numpy(
+        np.random.default_rng(11).standard_normal(1100)).float().to(dev)
+    second = float(b.max())
+    b[top] = second + 20.0
+    got = rnnt_joint_cuda.joint_fwd(h, w, b, y, blank)
+    want = rnnt_joint_plain.joint_fwd(h, w, b, y, blank)
+    assert bool((got[2] > second + 10.0).all())  # every row's max at `top`
+    for g, p in zip(got, want):
+        torch.testing.assert_close(g, p, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("r,j,v,blank", [(20037, 128, 1100, 600),
+                                          (1000, 256, 1100, 600),
+                                          (300, 776, 257, 256),
+                                          (20037, 8, 512, 511)])
+def test_joint_fwd_is_deterministic(dev, r, j, v, blank):
+    """K10 and K10tp (on each of 4 shards) twice on the same inputs: every
+    output bit-equal (each row's sums stay in its four threads' registers,
+    in tile order, and combine in a fixed order)."""
+    args, _ = _joint_case(12, r, j, v, blank, dev)
+    for fn, inputs in [(rnnt_joint_cuda.joint_fwd, args)] + [
+            (rnnt_joint_cuda.joint_fwd_tp, _shard(args, k)) for k in range(4)]:
+        for a, c in zip(fn(*inputs), fn(*inputs)):
+            assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("j", [8, 128, 256, 640, 776])
+def test_joint_fwd_plan(dev, j):
+    """K10's resources on this card: no spilled bytes, at least one block
+    per SM, at least two stages, h resident up to J = 640 and streamed
+    with W above, and a grid of 256-row blocks up to J = 128, 128-row
+    blocks above."""
+    plan = rnnt_joint_cuda.fwd_plan(259200, j, dev)
+    assert plan["spill_bytes"] == 0
+    assert plan["blocks_per_sm"] >= 1 and plan["stages"] >= 2
+    assert plan["h_streams"] == (j > 640)
+    assert plan["blocks"] == (1013 if j <= 128 else 2025)
+
+
 @pytest.mark.parametrize("j", [6, 8, 16, 32, 64, 128, 200, 256, 320, 640,
                                776, 1024])
 def test_joint_dh_plan(dev, j):

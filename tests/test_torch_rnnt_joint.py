@@ -29,6 +29,9 @@ from end2end_tpu.ops import rnnt_joint_pallas as jjoint
 from end2end_tpu_torch import (fused_additive_joint, rnnt_nll_fused,
                                rnnt_nll_fused_pallas)
 from end2end_tpu_torch.ops import rnnt_joint_cuda, rnnt_joint_plain
+from end2end_tpu_torch.tools import joint_fwd_breakdown
+from end2end_tpu_torch.tools.joint_dw_breakdown import patched
+from end2end_tpu_torch.utils import cuda_build
 
 torch.set_num_threads(1)
 
@@ -237,6 +240,124 @@ def test_dh_h_tiles_hold_h_in_stage_order(r, j):
     want = torch.zeros((rp, jw), dtype=torch.bfloat16)
     want[:r, :j] = hb
     assert torch.equal(ht[torch.from_numpy(at)], want)
+
+
+def k10_emulation(h, w, b, y, blank, raw=False, lanes_out=None):
+    """The arithmetic of K10 (csrc/rnnt_joint.cu) in plain torch: W as the
+    kernel reads it from `w_tiles`' layout and the bias from `dh_bias`
+    (log2 units, -inf past V), each tile's logits x = bf16(h) W_tile,
+    v = x log2 e + b2 (-inf past V); tile column 8 nf + 2 t + e belongs to
+    lane t of its row's four, and each lane keeps a running max M (from the
+    finite identity -3e38) and sum S over its columns, tile by tile: with
+    M' = max(M, the tile's max), S' = (S + sum 2^(v - M)) 2^(M - M'), or,
+    where the tile's max exceeds M by more than 64 (every lane's first tile
+    with a column), S' = S 2^(M - M') + sum 2^(v - M'); then the quad
+    combine, m = M ln 2, log s = ln S, and the blank and label logits, each
+    a dot of the row of bf16(h) with W's column, + b[c].  Returns (b_pl,
+    l_pl, m, logs), with `raw` the raw logits in place of the planes;
+    `lanes_out`, a list, receives the lanes' final (M, S), each (4, R)."""
+    r, v = h.shape[0], w.shape[1]
+    hb, wb, j8, vp = rnnt_joint_cuda._bf16_padded(h, w, v)
+    jw = rnnt_joint_cuda._slab_width(j8)
+    wt = rnnt_joint_cuda.w_tiles(wb, jw)
+    b2 = rnnt_joint_cuda.dh_bias(b, vp)
+    hf = torch.nn.functional.pad(hb.float(), (0, jw - j8))
+    lane = (torch.arange(128) >> 1) & 3
+    big_m = torch.full((4, r), -3.0e38)
+    big_s = torch.zeros((4, r))
+    w_all = torch.cat([wt[c].permute(0, 2, 1, 3).reshape(jw, 128)
+                       for c in range(vp // 128)], 1).float()
+    y = y.long()
+    own = (y >= 0) & (y < v)
+    xy = torch.where(own, (hf * w_all[:, y.clamp(0, v - 1)].T).sum(1)
+                     + b[y.clamp(0, v - 1)], 0.0)
+    xb = hf @ w_all[:, blank] + b[blank] if blank >= 0 else torch.zeros(r)
+    for c in range(vp // 128):
+        x = hf @ w_all[:, c * 128:(c + 1) * 128]
+        c0 = c * 128
+        vals = x * rnnt_joint_cuda.LOG2E + b2[c0:c0 + 128]
+        for t in range(4):
+            vt = vals[:, lane == t]
+            top = vt.amax(1)
+            new = torch.maximum(big_m[t], top)
+            lagged = ((big_s[t] + torch.exp2(vt - big_m[t][:, None]).sum(1))
+                      * torch.exp2(big_m[t] - new))
+            redo = (big_s[t] * torch.exp2(big_m[t] - new)
+                    + torch.exp2(vt - new[:, None]).sum(1))
+            big_s[t] = torch.where(top > big_m[t] + 64.0, redo, lagged)
+            big_m[t] = new
+    if lanes_out is not None:
+        lanes_out.append((big_m.clone(), big_s.clone()))
+    mr = big_m.amax(0)
+    sr = (big_s * torch.exp2(big_m - mr)).sum(0)
+    m, logs = mr * float(np.log(2.0)), torch.log(sr)
+    if raw:
+        return xb, xy, m, logs
+    return (xb - m) - logs, (xy - m) - logs, m, logs
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_k10_arithmetic_matches_jax(name):
+    """K10's formulation (k10_emulation: the W tiles and log2 bias it
+    reads, the columns split over four lanes, per-lane running max and
+    sum in tile order, the quad combine) against JAX's forward within
+    1e-5."""
+    args, _ = torch_rows(name)
+    want, _ = jax_rows(name)
+    got = k10_emulation(*args)
+    for g, w, what in zip(got, want, ("b_pl", "l_pl", "m", "logs")):
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5,
+                                   err_msg=what)
+
+
+def test_k10_arithmetic_tp_shards():
+    """K10tp's formulation on D=4 shards of V=16 (four columns each: two
+    lanes of every row own no column below V and keep the finite
+    identity, with a zero sum) against the TP twins shard by shard within
+    1e-5, and the shards combined against JAX's unsharded forward."""
+    args, _ = torch_rows("v16_blank9")
+    h, w, b, y, blank = args
+    d, v = 4, w.shape[1]
+    vl = v // d
+    fwd = []
+    for lo in range(0, v, vl):
+        own = (y >= lo) & (y < lo + vl)
+        shard = (h, w[:, lo:lo + vl].contiguous(), b[lo:lo + vl].contiguous(),
+                 torch.where(own, y - lo, -1),
+                 blank - lo if lo <= blank < lo + vl else -1)
+        lanes = []
+        got = k10_emulation(*shard, raw=True, lanes_out=lanes)
+        big_m, big_s = lanes[0]
+        assert bool((big_m[2:] == -3.0e38).all()) and not big_s[2:].any()
+        for g, p, what in zip(got, rnnt_joint_plain.joint_fwd_tp(*shard),
+                              ("xb", "xy", "m", "logs")):
+            torch.testing.assert_close(g, p, rtol=0, atol=1e-5, msg=what)
+        fwd.append(got)
+    xb, xy, m_l, logs_l = (torch.stack(c) for c in zip(*fwd))
+    m = m_l.amax(0)
+    logs = torch.log(torch.exp(logs_l + (m_l - m)).sum(0))
+    want, _ = jax_rows("v16_blank9")
+    for g, w_, what in zip(((xb.sum(0) - m) - logs, (xy.sum(0) - m) - logs,
+                            m, logs), want, ("b_pl", "l_pl", "m", "logs")):
+        np.testing.assert_allclose(g.numpy(), w_, rtol=0, atol=1e-5,
+                                   err_msg=what)
+
+
+@pytest.mark.parametrize("kernel,name", [
+    ("wgmma", n) for n in joint_fwd_breakdown.NEW] + [
+    ("wmma", n) for n in joint_fwd_breakdown.OLD])
+def test_fwd_breakdown_patches_apply(kernel, name):
+    """Each of K10's breakdown patches finds its text exactly once: the
+    wgmma kernel's in csrc/rnnt_joint.cu, the wmma kernel's in the copy
+    kept as tools/joint_fwd_reference.cu; the tool tells the two apart."""
+    if kernel == "wgmma":
+        src, patches = ((cuda_build.CSRC / "rnnt_joint.cu").read_text(),
+                        joint_fwd_breakdown.NEW)
+    else:
+        src, patches = (joint_fwd_breakdown.REFERENCE.read_text(),
+                        joint_fwd_breakdown.OLD)
+    assert joint_fwd_breakdown.is_old(src) == (kernel == "wmma")
+    assert patched(src, patches[name]) != src
 
 
 def jax_fused(name):
