@@ -9,13 +9,20 @@ Phases (every failure raises, so the exit code is nonzero):
   2. print the card's name and power limit (nvidia-smi);
   3. build the CUDA kernels from end2end_tpu_torch/csrc (nvcc, sm_90a),
      and beside them the two-barrier K1 that K1 replaced
-     (tools/ctc_alpha_reference.cu), the baseline of phases 8-10, and the
+     (tools/ctc_alpha_reference.cu), the baseline of phases 8-10, the
      wmma K10 that K10 replaced (tools/joint_fwd_reference.cu), the
-     baseline of phases 20 and 25;
+     baseline of phases 20 and 25, and the warp-per-sequence beam kernel
+     that the beam step replaced (tools/beam_step_reference.cu), the
+     baseline of phases 5, 7, 11, 12 and 14;
   4. top-k kernel vs its plain version: values bit-equal, indices equal;
-  5. beam-step kernel vs its plain version on peaked lattices at the beam
-     decoder's reference shape (B=32, T=1000, V=1024, beam 8, prune 16):
-     same best hypotheses, beam-set scores within 1e-4;
+  5. beam-step kernel vs its plain version and vs the parent kernel on
+     peaked lattices at the beam decoder's reference shape (B=32, T=1000,
+     V=1024, beam 8, prune 16) and at bench.py's beam-16 row (beam 16,
+     prune 32): backpointer codes, scores and the 10-field state
+     bit-identical, same best hypotheses, beam-set scores within 1e-4;
+     the prefix-beam scan on the card (V=1024 with the default prune_k,
+     outside the kernel's envelope): no beam kernel launched, finite
+     scores, and 'xla' gives the same;
   6. the serving slice: the full-width Conformer-CTC pipeline (vocab 32,
      d 256, 4 layers, 4 heads, 80 mels, seeded random weights, built on
      the card by default, with no device argument) answers three
@@ -24,8 +31,10 @@ Phases (every failure raises, so the exit code is nonzero):
      ran; one batch's log-probs must match the same model on the CPU within
      1e-3, and on them the kernels' best hypotheses must equal the plain
      path's;
-  7. timings with CUDA events (median of 5 after warm-up), and K3 against
-     torch.topk in device time, in turns (A B B A);
+  7. timings with CUDA events (median of 5 after warm-up), and in device
+     time, in turns (A B B A): K3 against torch.topk, the beam step (K4)
+     against the parent kernel at the serving slice's shape and at the
+     beam-16 row (also as microseconds a frame);
   8. CTC alpha (K1) and beta (K2) kernels vs their plain versions at the
      loss's reference shapes (metric B=32 T=1000 S=100 V=1024,
      librispeech-char B=32 T=1000 S=200 V=29, bpe-asr B=16 T=1500 S=150
@@ -51,22 +60,25 @@ Phases (every failure raises, so the exit code is nonzero):
      card's SM clock and power under K1;
  11. the beam kernel's in-kernel bigram mode (K5) vs its plain twin at
      B=32, T=1000, V=29, beam 8, prune 16 (seeded bigram LM, alpha 0.6,
-     beta 0.3): backpointer codes and the 10-field state identical, same
-     best hypotheses, beam-set scores within 1e-4;
+     beta 0.3): backpointer codes and the 10-field state identical to
+     the plain twin's and the parent kernel's, same best hypotheses,
+     beam-set scores within 1e-4;
  12. the chunked LM decode (chunks of 128 frames, B=32, T=1000, beam 8,
      prune 16) three ways: a 2000-word bigram LM over V=29; the same
      steered by a symbol-keyed bigram guide (K5 inside K7); a dense bigram
      LM at V=1024 steered by its 63-class QuantizedBigramGuide (K6 inside
      K7).  Driven through `beam_search_decode(implementation='chunked')`
      with the launch counters read around it, then kernels vs the plain
-     twin on the card: every chunk's codes and the final state identical,
-     same hypotheses;
+     twin and vs the parent kernel on the card: every chunk's codes and
+     the final state identical, same hypotheses;
  13. the serving slice with an LM: the pipeline of phase 6 decodes the
      same 3 batches with beam 8, prune 16 and a seeded bigram LM over its
      32 symbols; the counters must show the top-k kernel and K5 once per
      batch, and on one batch the kernels' best hypotheses must equal the
      plain path's;
- 14. timings: K5, K6, K7 alone vs their plain twins, the LM-fused and the
+ 14. timings: K5, K6, K7 alone vs their plain twins and, in device time
+     in turns, vs the parent kernel (also as microseconds a frame), the
+     LM-fused and the
      chunked word-LM decodes at B=128, T=1000, V=29 (seq/s; the chunked
      one split into kernel and chunk-boundary time), the pipeline's LM
      decode at B=8 x 30 s, and torch.topk beside K3;
@@ -204,7 +216,8 @@ from end2end_tpu_torch.ops.rnnt_loss import (fused_additive_joint, rnnt_nll,
                                              rnnt_nll_fused)
 from end2end_tpu_torch.ops.lm import (NGramLM, QuantizedBigramGuide,
                                       WordNGramLM, bigram_from_counts)
-from end2end_tpu_torch.tools import ctc_alpha_breakdown, joint_fwd_breakdown
+from end2end_tpu_torch.tools import (beam_step_breakdown, ctc_alpha_breakdown,
+                                     joint_fwd_breakdown)
 from end2end_tpu_torch.tools.joint_dw_breakdown import (
     N_SMS, device_ms, max_sm_mhz, tensor_ops_per_s, under_load)
 from end2end_tpu_torch.utils import cuda_build
@@ -536,12 +549,51 @@ def plain_beam_decode(log_probs, il, W, K, s_cap, blank=0, lm=None):
     return beam_search_cuda.backtrace(bp, ck, score, W, K, s_cap)[:3]
 
 
-def same_state(a, b):
-    return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+def parent_step(lib):
+    """`beam_step`'s contract on the warp-per-sequence beam kernel that the
+    beam step replaced (tools/beam_step_reference.cu, built in phase 3)."""
+    def step(lpk, ck, lpb, il, W, K, s_cap, blank, inc=None, cls_map=None,
+             state_in=None):
+        kw = {k: x for k, x in (("inc", inc), ("cls_map", cls_map),
+                                ("state_in", state_in)) if x is not None}
+        bp, score, packed = beam_step_breakdown.runner(
+            lib, (lpk, ck, lpb, il, W, K, s_cap, blank), kw)()
+        state = tuple(x.view(torch.float32)
+                      if i in beam_search_cuda._FLOAT_FIELDS else x
+                      for i, x in enumerate(packed.unbind(0)))
+        return bp, score, state[6], state
+    return step
 
 
-def check_beam_lm(rng, dev, t, b, v, W, K):
-    """K5 vs its plain twin on the card.  Returns (score err, inputs)."""
+def assert_same_bits(got, want, what):
+    """Backpointer codes, scores and the 10-field state bit for bit;
+    returns the number of codes compared."""
+    differing = int((got[0] != want[0]).sum())
+    same = all(x.dtype == y.dtype and torch.equal(
+        x.view(torch.int32), y.view(torch.int32))
+        for x, y in zip((got[1], *got[3]), (want[1], *want[3])))
+    if differing or not same:
+        raise AssertionError(f"{what}: {differing} codes differ, or the "
+                             "scores or the state do")
+    return got[0].numel()
+
+
+def beam_turns(what, args, kw, lib):
+    """The beam step vs the parent kernel in device time, in turns (A B B
+    A), logged with microseconds a frame (over the longest sequence)."""
+    out = in_turns(what, {
+        "beam step": lambda: beam_search_cuda.beam_step_cuda(*args, **kw),
+        "parent": beam_step_breakdown.runner(lib, args, kw)}, 20)
+    frames = max(min(int(args[3].max()), args[0].shape[0]), 1)
+    log(f"{what}: microseconds a frame ({frames} frames): " + "; ".join(
+        f"{k} {1e3 * v[0] / frames:.3f}, {1e3 * v[1] / frames:.3f}"
+        for k, v in out.items()))
+    return out
+
+
+def check_beam_lm(rng, dev, t, b, v, W, K, parent):
+    """K5 vs its plain twin and the parent kernel on the card.  Returns
+    (score err, inputs)."""
     lp = torch.from_numpy(peaked_lattice(rng, t, b, v)).to(dev)
     il = torch.from_numpy(
         rng.integers(t // 2, t + 1, b).astype(np.int32)).to(dev)
@@ -554,10 +606,8 @@ def check_beam_lm(rng, dev, t, b, v, W, K):
     kern = beam_search_cuda.beam_step_cuda(*args, inc=inc)
     plain = beam_search_cuda.beam_step_plain(*args, inc=inc)
     torch.cuda.synchronize()
-    differing = int((kern[0] != plain[0]).sum())
-    if differing or not same_state(kern[3], plain[3]):
-        raise AssertionError(f"K5 vs plain: {differing} codes differ or the "
-                             "state does")
+    assert_same_bits(kern, plain, "K5 vs plain")
+    assert_same_bits(kern, parent(*args, inc=inc), "K5 vs the parent kernel")
 
     def sets(bp, score, last):
         eos = lm._eos[last.long().clamp(0, v - 1)]
@@ -567,7 +617,8 @@ def check_beam_lm(rng, dev, t, b, v, W, K):
 
     err = compare_beams(sets(*kern[:3]), sets(*plain[:3]), "K5 vs plain")
     log(f"phase 11 K5 (B={b}, T={t}, V={v}, W={W}, K={K}): 0 of "
-        f"{kern[0].numel()} codes differ, state identical, best hypotheses "
+        f"{kern[0].numel()} codes differ from the plain twin's and the "
+        f"parent kernel's, scores and state bit-identical, best hypotheses "
         f"equal, max score err {err:.3g}")
     return err, (lpk, ck, lpb, il, inc, lm)
 
@@ -589,27 +640,34 @@ def run_chunks(inputs, lm, W, step):
                                       cls_map, step=step)
 
 
-def check_chunked(name, inputs, lm, main_out, W, K):
-    """The chunked decode with the kernels vs with the plain twin, both on
-    the card: every code and the final state identical; the hypotheses
-    equal to the main path's run.  Returns the max score error."""
+def check_chunked(name, inputs, lm, main_out, W, K, parent):
+    """The chunked decode with the kernels vs with the plain twin and with
+    the parent kernel, all on the card: every code and the final state
+    identical; the hypotheses equal to the main path's run.  Returns the
+    max score error."""
     lpk, ck = inputs[:2]
     s_cap = min(lpk.shape[0], 512)
     kern = run_chunks(inputs, lm, W, beam_search_cuda.beam_step_cuda)
     plain = run_chunks(inputs, lm, W, beam_search_cuda.beam_step_plain)
+    old = run_chunks(inputs, lm, W, parent)
     torch.cuda.synchronize()
-    differing = int((kern[0] != plain[0]).sum())
-    if differing or not same_state(kern[2], plain[2]):
-        raise AssertionError(f"{name}: {differing} codes differ, or the "
-                             "state does")
+    for what, want in (("plain", plain), ("the parent kernel", old)):
+        differing = int((kern[0] != want[0]).sum())
+        if differing or not all(
+                x.dtype == y.dtype and torch.equal(x.view(torch.int32),
+                                                   y.view(torch.int32))
+                for x, y in zip(kern[2], want[2])):
+            raise AssertionError(f"{name} vs {what}: {differing} codes "
+                                 "differ, or the state does")
     got = beam_search_cuda.backtrace(kern[0], ck, kern[1], W, K, s_cap)[:3]
     want = beam_search_cuda.backtrace(plain[0], ck, plain[1], W, K, s_cap)
     err = compare_beams(beam_sets(*got), beam_sets(*want[:3]), name)
     if not all(torch.equal(a, b) for a, b in zip(got, main_out)):
         raise AssertionError(f"{name}: beam_search_decode differs from the "
                              "chunk loop")
-    log(f"phase 12 {name}: 0 of {kern[0].numel()} codes differ, state "
-        f"identical, hypotheses equal, max score err {err:.3g}")
+    log(f"phase 12 {name}: 0 of {kern[0].numel()} codes differ from the "
+        f"plain twin's and the parent kernel's, state bit-identical, "
+        f"hypotheses equal, max score err {err:.3g}")
     return err
 
 
@@ -628,7 +686,9 @@ def check_topk(rng, dev, shapes):
     return err
 
 
-def check_beam(rng, dev, t, b, v, W, K):
+def check_beam(rng, dev, t, b, v, W, K, parent):
+    """The beam step vs its plain twin and vs the parent kernel (`parent`,
+    a parent_step): bits and beam sets.  Returns (score err, inputs)."""
     lp = torch.from_numpy(peaked_lattice(rng, t, b, v)).to(dev)
     il = torch.from_numpy(
         rng.integers(t // 2, t + 1, b).astype(np.int32)).to(dev)
@@ -636,21 +696,47 @@ def check_beam(rng, dev, t, b, v, W, K):
     s_cap = min(t, 512)
     lpk, ck = topk_cuda.topk_plain(lp, ks)
     lpb = lp[:, :, 0].contiguous()
-    bp, score, _, state = beam_search_cuda.beam_step_cuda(lpk, ck, lpb, il,
-                                                          W, K, s_cap, 0)
-    pbp, pscore, _, pstate = beam_search_cuda.beam_step_plain(
-        lpk, ck, lpb, il, W, K, s_cap, 0)
+    args = (lpk, ck, lpb, il, W, K, s_cap, 0)
+    kern = beam_search_cuda.beam_step_cuda(*args)
+    plain = beam_search_cuda.beam_step_plain(*args)
     torch.cuda.synchronize()
-    got = beam_sets(*beam_search_cuda.backtrace(bp, ck, score, W, K,
+    n_codes = assert_same_bits(kern, plain, "beam step vs plain")
+    assert_same_bits(kern, parent(*args), "beam step vs the parent kernel")
+    got = beam_sets(*beam_search_cuda.backtrace(kern[0], ck, kern[1], W, K,
                                                 s_cap)[:3])
-    want = beam_sets(*beam_search_cuda.backtrace(pbp, ck, pscore, W, K,
-                                                 s_cap)[:3])
+    want = beam_sets(*beam_search_cuda.backtrace(plain[0], ck, plain[1], W,
+                                                 K, s_cap)[:3])
     err = compare_beams(got, want, "beam kernel vs plain")
-    log(f"phase 5 beam step (B={b}, T={t}, V={v}, W={W}, K={K}): best "
-        f"hypotheses equal, max score err {err:.3g}, backpointer codes "
-        f"differing: {int((bp != pbp).sum())} of {bp.numel()}, state "
-        f"identical: {same_state(state, pstate)}")
+    log(f"phase 5 beam step (B={b}, T={t}, V={v}, W={W}, K={K}): 0 of "
+        f"{n_codes} codes differ from the plain twin's and the parent "
+        f"kernel's, scores and state bit-identical, best hypotheses equal, "
+        f"max score err {err:.3g}")
     return err, (lpk, ck, lpb, il, s_cap)
+
+
+def check_scan(rng, dev):
+    """The prefix-beam scan on the card, outside the kernel's envelope
+    (V=1024 with the default prune_k): no beam kernel, finite best
+    scores, 'auto' equal to 'xla'."""
+    lp = torch.from_numpy(peaked_lattice(rng, 100, 4, 1024)).to(dev)
+    il = torch.tensor([100, 80, 60, 40], dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    auto = beam_search_decode(lp, il, beam_width=8)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = {"topk": topk_cuda.launches, **beam_counts()}
+    if any(launched.values()):
+        raise AssertionError(f"the scan launched kernels: {launched}")
+    if not torch.isfinite(auto[2][:, 0]).all():
+        raise AssertionError("the scan's best scores are not finite")
+    xla = beam_search_decode(lp, il, beam_width=8, implementation="xla")
+    if not all(torch.equal(a, b) for a, b in zip(auto, xla)):
+        raise AssertionError("the scan differs between 'auto' and 'xla'")
+    log(f"phase 5 the prefix-beam scan on the card (B=4, T=100, V=1024, "
+        f"W=8, K=V): {seconds:.2f} s, no kernel launched, 'auto' == 'xla', "
+        f"mean best length {float(auto[1][:, 0].float().mean()):.1f}")
 
 
 def ctc_problem(rng, b, t, s, v):
@@ -1521,16 +1607,21 @@ def main() -> None:
     card = nvidia_smi()
     log(f"phase 2 card: {card}")
     # 3. the build
-    # and, beside it, the two-barrier K1 that K1 replaced (the A/B baseline)
+    # and, beside it, the kernels that K1, K10 and the beam step replaced
+    # (the A/B baselines)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         ref_build = pool.submit(ctc_alpha_breakdown.build_reference,
                                 cuda_build.BUILD_DIR / "reference")
         k10_build = pool.submit(joint_fwd_breakdown.build_reference,
                                 cuda_build.BUILD_DIR / "reference_k10")
+        beam_build = pool.submit(beam_step_breakdown.build_reference,
+                                 cuda_build.BUILD_DIR / "reference_beam")
         _, info = cuda_build.library()
         ref_lib, ref_ptxas = ref_build.result()
         k10_ref_lib, k10_ref_ptxas = k10_build.result()
+        beam_ref_lib, beam_ref_ptxas = beam_build.result()
+    parent = parent_step(beam_ref_lib)
     log(f"phase 3 build: {info['build_s']:.1f} s nvcc, "
         f"{time.perf_counter() - t0:.1f} s to load ({info['path']})")
     for line in info["log"].splitlines():
@@ -1540,12 +1631,21 @@ def main() -> None:
         log(f"  ptxas (the two-barrier K1) {line}")
     for line in k10_ref_ptxas:
         log(f"  ptxas (the wmma K10) {line}")
+    for line in beam_ref_ptxas:
+        log(f"  ptxas (the parent beam kernel) {line}")
     rng = np.random.default_rng(SEED)
 
     # 4. top-k kernel vs plain
     topk_err = check_topk(rng, dev, [(1000, 32, 1024, 24), (750, 8, 32, 24)])
-    # 5. beam kernel vs plain at the beam decoder's reference shape
-    beam_err, beam_inputs = check_beam(rng, dev, 1000, 32, 1024, 8, 16)
+    # 5. beam kernel vs plain and vs the parent at the beam decoder's
+    # reference shape and at the beam-16 row; the scan outside the envelope
+    beam_err, beam_inputs = check_beam(rng, dev, 1000, 32, 1024, 8, 16,
+                                       parent)
+    w16_rng = np.random.default_rng(SEED + 16)  # leaves rng's draws alone
+    w16_err, w16_inputs = check_beam(w16_rng, dev, 1000, 32, 1024, 16, 32,
+                                     parent)
+    beam_err = max(beam_err, w16_err)
+    check_scan(w16_rng, dev)
 
     # 6. the serving slice
     cfg = PipelineConfig()  # vocab 32, d 256, 4 layers, 4 heads, 80 mels
@@ -1648,6 +1748,17 @@ def main() -> None:
                                                       16, s_cap, 0)
     ms["backtrace_main"] = time_ms(lambda: beam_search_cuda.backtrace(
         bp, mck, score, 8, 16, s_cap))
+    beam_turns(f"phase 7 K4 vs the parent (main: T'={mlpk.shape[0]}, B=8, "
+               f"W=8, K=16)", (mlpk, mck, mlpb, il, 8, 16, s_cap, 0), {},
+               beam_ref_lib)
+    w16_args = (*w16_inputs[:4], 16, 32, w16_inputs[4], 0)
+    beam_turns("phase 7 K4 vs the parent (beam-16 row: T=1000, B=32, "
+               "V=1024, W=16, K=32)", w16_args, {}, beam_ref_lib)
+    ms["beam_plain_w16"] = time_plain(
+        lambda: beam_search_cuda.beam_step_plain(*w16_args))
+    w16_b = beam_bound(w16_inputs[0], w16_inputs[3], 16, 32)
+    log(f"phase 7 beam-16 row: plain twin {ms['beam_plain_w16']:.3f} ms, "
+        f"bound {w16_b[0]:.5f} ms ({w16_b[1]})")
     ms["encode_b8_30s"] = time_ms(lambda: pipe.encode(wav, ns))
     ms["decode_greedy_b8_30s"] = time_ms(
         lambda: pipe.decode(wav, ns, beam_width=0))
@@ -1742,7 +1853,7 @@ def main() -> None:
 
     # 11. K5 vs plain at the LM-fused decoder's reference shape
     W, K = 8, 16
-    k5_err, _ = check_beam_lm(rng, dev, 1000, 32, 29, W, K)
+    k5_err, _ = check_beam_lm(rng, dev, 1000, 32, 29, W, K, parent)
 
     # 12. the chunked LM decode: K7, with K5 or K6 inside it for a guide
     spellings = seeded_lexicon(rng, 29)
@@ -1785,7 +1896,7 @@ def main() -> None:
     for name, (lp, lm, guide) in chunked.items():
         chunk_inputs[name] = chunked_inputs(lp, il32, guide, W, K)
         chunk_err = max(chunk_err, check_chunked(
-            name, chunk_inputs[name], lm, main_outs[name], W, K))
+            name, chunk_inputs[name], lm, main_outs[name], W, K, parent))
 
     # 13. the serving slice with an LM
     lm32 = seeded_bigram(rng, cfg.vocab_size, dev)
@@ -1823,6 +1934,9 @@ def main() -> None:
     ms["beam_lm_plain_main"] = time_plain(
         lambda: beam_search_cuda.beam_step_plain(*margs, inc=inc32))
     lm_b = beam_bound(mlpk, serve_il, W, K, inc=inc32)
+    beam_turns(f"phase 14 K5 vs the parent (main: T'={mlpk.shape[0]}, B=8, "
+               f"W=8, K=16, V={inc32.shape[1]})", margs, {"inc": inc32},
+               beam_ref_lib)
     first = {}  # the first chunk's kernel inputs, resumed from the start
     for name in ("word LM, V=29", "bigram LM + 63-class guide, V=1024"):
         lpk, ck, lpb, il_c, inc, cls_map = chunk_inputs[name]
@@ -1839,6 +1953,13 @@ def main() -> None:
             lambda: beam_search_cuda.beam_step_cuda(*args, **kw))
         ms[f"beam_{key}_plain_chunk"] = time_plain(
             lambda: beam_search_cuda.beam_step_plain(*args, **kw))
+    for key, name in (("K7", "word LM, V=29"),
+                      ("K6", "bigram LM + 63-class guide, V=1024")):
+        args, kw = first[name]
+        beam_turns(f"phase 14 {key} vs the parent (the first {CHUNK_T}-frame "
+                   f"chunk of '{name}', B=32)", args,
+                   {k: x for k, x in kw.items() if x is not None},
+                   beam_ref_lib)
     args, kw = first["word LM, V=29"]
     resume_b = beam_bound(args[0], args[3], W, K, resume=True)
     args, kw = first["bigram LM + 63-class guide, V=1024"]

@@ -9,27 +9,41 @@ Extensions come from the first K = prune_k slots and the repeat term reads
 a ks = min(K + 8, V) window, so at prune_k = V (the default) this is the
 exact prefix beam search.
 
-LM routing follows the JAX package's kernel envelope:
-  * a dense `NGramLM` with V + 1 <= 64 fuses in the kernel, per frame
-    (K5), under 'auto' and 'pallas' (the JAX name of the forced-kernel
-    mode, kept so callers' code carries over), with the end-of-sequence
-    bonus added after the kernel;
+Routing follows the JAX package:
+  * the kernel path takes beam_width <= 32, prune_k <= 128, float32, and
+    as its LM a dense `NGramLM` with V + 1 <= 64, fused per frame (K5),
+    with the end-of-sequence bonus added after the kernel; 'auto' and
+    'pallas' (the JAX name of the forced-kernel mode, kept so callers'
+    code carries over) run it there, and 'pallas' raises ValueError
+    outside it;
+  * the prefix-beam scan (`_beam_search_scan`, the counterpart of JAX's
+    `_beam_search_batched`) runs under 'xla', and under 'auto' where the
+    kernel's envelope refuses the configuration (logged at info level):
+    plain torch, one step of a loop over T vectorised over the sequences,
+    with any LM of the shallow-fusion protocol (ops/lm.py) fused per
+    frame, in the lattice's float type (float64 stays float64);
   * implementation='chunked' runs any LM with `score_chunk` through the
     chunked decode (ops/beam_chunked.py), optionally steered per frame by
     `guide_lm`.
-Not ported yet, each raising NotImplementedError that names ROADMAP.md
-queue 1 item 5: the per-frame LM scan (implementation='xla', and 'auto'
-with an LM outside the kernel's envelope) and the approximate top-k.
+Not ported yet: the approximate top-k (NotImplementedError naming
+ROADMAP.md queue 1 item 5).
 """
 
 from __future__ import annotations
 
+import logging
 import warnings
 
 import torch
 
 from .beam_chunked import beam_search_chunked_lm
 from .beam_search_cuda import (
+    _DEADBASE,
+    _M1,
+    _M2,
+    _SEED1,
+    _SEED2,
+    _wrap32,
     apply_token_min_logp,
     backtrace,
     beam_step,
@@ -37,9 +51,181 @@ from .beam_search_cuda import (
     check_lm_device,
     lm_fusion_supported,
 )
+from .semiring import LOG0, LOG0_THRESHOLD, logaddexp2
 from .topk_cuda import topk
 
 _ITEM5 = "ROADMAP.md queue 1 item 5, what is left of LM fusion"
+
+
+def _top_w_iterative(scores, w: int):
+    """Exact top-w of each row of scores (N, M) by repeated argmax (the
+    first index among equal maxima, as lax.top_k), a pick leaving as -inf.
+    Returns values and indices, (N, w) each."""
+    s = scores.clone()
+    rows = torch.arange(s.shape[0], device=s.device)
+    vals, idxs = [], []
+    for _ in range(w):
+        i = s.argmax(dim=1)
+        vals.append(s[rows, i])
+        idxs.append(i)
+        s[rows, i] = float("-inf")
+    return torch.stack(vals, 1), torch.stack(idxs, 1)
+
+
+def _masked_logsumexp(x, mask, dims):
+    """logsumexp of x over dims counting only mask; none -> LOG0."""
+    m = torch.where(mask, x, LOG0).amax(dim=dims)
+    m_safe = m.clamp(min=LOG0)
+    for d in sorted(dims):
+        m_safe = m_safe.unsqueeze(d)
+    s = torch.where(mask, torch.exp(x - m_safe), 0.0).sum(dim=dims)
+    out = m_safe.reshape(m.shape) + torch.log(s.clamp(min=1e-38))
+    return torch.where(m > LOG0_THRESHOLD, out, LOG0)
+
+
+def _gather_w(x, idx):
+    """x (N, W, ...) at beams idx (N, W') -> (N, W', ...)."""
+    return x.gather(1, idx.reshape(idx.shape + (1,) * (x.dim() - 2))
+                    .expand(idx.shape + x.shape[2:]))
+
+
+def _beam_search_scan(log_probs, il, W: int, K: int, s_cap: int, blank: int,
+                      lm=None, lm_alpha: float = 0.0, lm_beta: float = 0.0,
+                      token_min_logp=None):
+    """Batched CTC prefix beam search as a loop over frames, vectorised
+    over the N sequences: JAX's `_beam_search_single` under `vmap`, with
+    `_beam_init_state` and `_beam_rank`.
+
+    log_probs (T, N, V) float32 or float64; il (N,) frame counts.  Per
+    frame: top-K candidates (a stable sort: lax.top_k's order among equal
+    values), W stay and W*K extension candidates, extensions that recreate
+    a live prefix merged into it by hash (logsumexp) and removed, top-W of
+    acoustic + LM bonus by repeated argmax.  The stay term reads the full
+    vocabulary row, or with `token_min_logp` the masked candidate set.  The
+    LM scores extensions through its `score`/`select` protocol on N*W
+    rows; `final` adds its end-of-sequence term.  Returns tokens (N, W,
+    s_cap) int32 (-1 pad, best first), lengths (N, W) int32, scores (N, W)
+    (-inf for dead beams) and times (N, W, s_cap) int32 emission frames.
+    """
+    t_max, n, v = log_probs.shape
+    dev, dt = log_probs.device, log_probs.dtype
+    lpk_all, ck_all = torch.sort(log_probs, dim=-1, descending=True,
+                                 stable=True)
+    lpk_all, ck_all = apply_token_min_logp(lpk_all[..., :K].contiguous(),
+                                           ck_all[..., :K], token_min_logp)
+    il = il.to(dev).long()
+    w_idx = torch.arange(W, device=dev)
+    rows = torch.arange(n, device=dev)[:, None]
+    log0 = torch.tensor(LOG0, dtype=dt, device=dev)
+    # the state of _beam_init_state, (N, W, ...)
+    tokens = torch.full((n, W, s_cap), -1, dtype=torch.long, device=dev)
+    times = torch.full_like(tokens, -1)
+    lens = torch.zeros((n, W), dtype=torch.long, device=dev)
+    last = torch.full_like(lens, -1)
+    live0 = (w_idx == 0).expand(n, W)
+    pb = torch.where(live0, 0.0, log0)
+    pnb = torch.full((n, W), LOG0, dtype=dt, device=dev)
+    # the kernel's rolling prefix hashes, held as the signed int32 value of
+    # their bits; dead beams get slot-unique ones
+    dead_h = _wrap32(_DEADBASE + w_idx).expand(n, W)
+    h1 = torch.where(live0, _SEED1, dead_h)
+    h2 = torch.where(live0, _SEED2, dead_h)
+    lm_state = lm.init_state(n * W) if lm is not None else None
+    lm_score = torch.zeros((n, W), dtype=dt, device=dev)
+    pos = torch.arange(s_cap, device=dev)
+    for t in range(t_max):
+        lpk, ck = lpk_all[t], ck_all[t].long()  # (N, K)
+        total = logaddexp2(pb, pnb)
+        # stay candidates: the same prefix
+        if token_min_logp is not None:  # a dropped token is no repeat
+            lp_last = torch.where(ck[:, None, :] == last[:, :, None],
+                                  lpk[:, None, :], log0).amax(-1)
+        else:
+            lp_last = log_probs[t].gather(1, last.clamp(0, v - 1))
+        pb_stay = total + log_probs[t, :, blank][:, None]
+        pnb_stay = torch.where(last >= 0, pnb + lp_last, log0)
+        # extension candidates: prefix + c
+        same = ck[:, None, :] == last[:, :, None]  # (N, W, K)
+        pnb_ext = (torch.where(same, pb[..., None], total[..., None])
+                   + lpk[:, None, :])
+        invalid = ((ck == blank) | (ck < 0))[:, None, :] | (
+            lens >= s_cap)[..., None]
+        pnb_ext = torch.where(invalid, log0, pnb_ext)
+        h1e = _wrap32(h1[..., None] * _M1 + ck[:, None, :] + 1)
+        h2e = _wrap32(h2[..., None] * _M2 + ck[:, None, :] + 1)
+        if lm is not None:
+            ck_rows = ck[:, None, :].expand(n, W, K).reshape(n * W, K)
+            lm_lp, lm_state_ext = lm.score(lm_state, ck_rows)
+            lm_delta = (lm_alpha * lm_lp + lm_beta).to(dt).reshape(n, W, K)
+        else:
+            lm_delta = torch.zeros((n, W, K), dtype=dt, device=dev)
+        lm_score_ext = lm_score[..., None] + lm_delta
+        # merge the extensions that recreate an existing beam's prefix
+        match = ((h1[:, :, None, None] == h1e[:, None])
+                 & (h2[:, :, None, None] == h2e[:, None])
+                 & ~invalid[:, None])  # (N, W_stay, W, K)
+        add = _masked_logsumexp(pnb_ext[:, None].expand_as(match), match,
+                                (2, 3))
+        pnb_stay = logaddexp2(pnb_stay, add)
+        pnb_ext = torch.where(match.any(1), log0, pnb_ext)
+        # rank all W + W*K candidates with their LM bonus, keep W
+        cand_pb = torch.cat([pb_stay, log0.expand(n, W * K)], 1)
+        cand_pnb = torch.cat([pnb_stay, pnb_ext.reshape(n, W * K)], 1)
+        cand_lm = torch.cat([lm_score, lm_score_ext.reshape(n, W * K)], 1)
+        vals, sel = _top_w_iterative(
+            logaddexp2(cand_pb, cand_pnb) + cand_lm, W)
+        # fewer live candidates than W: the argmax re-picks a removed one,
+        # whose mass must not come along (a zombie duplicate)
+        alive = vals > LOG0_THRESHOLD
+        is_stay = sel < W
+        parent = torch.where(is_stay, sel, (sel - W) // K)
+        kk = torch.where(is_stay, 0, (sel - W) % K)
+        c_sel = ck.gather(1, kk)
+        parent_len = lens.gather(1, parent)
+        emit_slot = (pos == parent_len[..., None]) & ~is_stay[..., None]
+        new_tokens = torch.where(emit_slot, c_sel[..., None],
+                                 _gather_w(tokens, parent))
+        new_times = torch.where(emit_slot, t, _gather_w(times, parent))
+        new_lens = torch.where(alive, torch.where(
+            is_stay, parent_len, parent_len + 1).clamp(max=s_cap), 0)
+        new_last = torch.where(alive & ~is_stay, c_sel, torch.where(
+            alive, last.gather(1, parent), -1))
+        ext_at = parent * K + kk
+        new_h1 = torch.where(alive, torch.where(
+            is_stay, h1.gather(1, parent),
+            h1e.reshape(n, W * K).gather(1, ext_at)), dead_h)
+        new_h2 = torch.where(alive, torch.where(
+            is_stay, h2.gather(1, parent),
+            h2e.reshape(n, W * K).gather(1, ext_at)), dead_h)
+        new_pb = torch.where(alive, cand_pb.gather(1, sel), log0)
+        new_pnb = torch.where(alive, cand_pnb.gather(1, sel), log0)
+        new_lm_score = torch.where(alive, cand_lm.gather(1, sel), 0.0)
+        upd = (t < il)[:, None]  # freeze past each sequence's length
+        if lm is not None:
+            new_state = lm.select(lm_state, lm_state_ext,
+                                  (rows * W + parent).reshape(-1),
+                                  kk.reshape(-1), is_stay.reshape(-1))
+            keep = upd.expand(n, W).reshape(-1)
+            lm_state = (tuple(torch.where(keep, a, b) for a, b in
+                              zip(new_state, lm_state))
+                        if isinstance(lm_state, tuple)
+                        else torch.where(keep, new_state, lm_state))
+        tokens = torch.where(upd[..., None], new_tokens, tokens)
+        times = torch.where(upd[..., None], new_times, times)
+        lens, last, pb, pnb, h1, h2, lm_score = (
+            torch.where(upd, new, old) for new, old in (
+                (new_lens, lens), (new_last, last), (new_pb, pb),
+                (new_pnb, pnb), (new_h1, h1), (new_h2, h2),
+                (new_lm_score, lm_score)))
+    # _beam_rank: best first, dead beams at -inf
+    scores = logaddexp2(pb, pnb) + lm_score
+    if lm is not None:
+        scores = scores + (lm_alpha * lm.final(lm_state)).to(dt).reshape(n, W)
+    scores, order = torch.sort(scores, dim=1, descending=True, stable=True)
+    scores = torch.where(scores > LOG0_THRESHOLD, scores, float("-inf"))
+    return (_gather_w(tokens, order).to(torch.int32),
+            lens.gather(1, order).to(torch.int32), scores,
+            _gather_w(times, order).to(torch.int32))
 
 
 def beam_search_decode(
@@ -67,17 +253,20 @@ def beam_search_decode(
       log_probs: (T, N, C) log-probabilities; (N, T, C) with batch_first;
         logits with from_logits (log_softmax is applied first).
       input_lengths: (N,) valid frame counts (default T).
-      beam_width: live prefixes W (<= 32).
-      prune_k: extension candidates per frame (<= 128); None = the full
-        vocabulary.
+      beam_width: live prefixes W (the kernel path takes <= 32).
+      prune_k: extension candidates per frame (the kernel path takes
+        <= 128); None = the full vocabulary.
       max_symbols: cap on the decoded length (default min(T, 512)); a
         prefix stops growing there.
       lm / lm_alpha / lm_beta: shallow-fusion LM (ops/lm.py, tables on the
         lattice's device), its weight and per-token insertion bonus.
-      implementation: 'auto' or 'pallas' (the kernel path; 'pallas' raises
-        ValueError for an LM outside the in-kernel envelope), or 'chunked'
-        (LM steering once per `lm_chunk_t` frames, exact scores; any LM
-        with score_chunk).
+      approx_topk: not ported (NotImplementedError).
+      implementation: 'auto' (the kernel path where its envelope takes
+        the configuration, else the scan), 'pallas' (the kernel path;
+        ValueError outside its envelope), 'xla' (the scan: any
+        configuration, any LM of the protocol fused per frame) or
+        'chunked' (LM steering once per `lm_chunk_t` frames, exact scores;
+        any LM with score_chunk).
       lm_chunk_t: frames per chunk of the chunked decode.
       return_timestamps: also return per-token emission frames.
       token_min_logp: drop candidates with log p below this, except each
@@ -98,10 +287,6 @@ def beam_search_decode(
         raise ValueError("guide_lm is only meaningful with "
                          "implementation='chunked' (it steers between "
                          "chunk boundaries)")
-    if implementation == "xla":
-        raise NotImplementedError(
-            f"the per-frame LM scan (implementation='xla') is not ported "
-            f"yet: {_ITEM5}")
     if approx_topk:
         raise NotImplementedError(f"approx_topk is not ported yet: {_ITEM5}")
     log_probs = torch.as_tensor(log_probs)
@@ -126,24 +311,31 @@ def beam_search_decode(
     K = min(int(prune_k or v), v)
     s_cap = int(max_symbols or min(t_max, 512))
     ok, reason = beam_supported(W, K, log_probs.dtype)
-    if not ok:
-        raise ValueError(reason)
-    if lm is not None:
+    if ok and lm is not None:
         ok, reason = lm_fusion_supported(lm, v, W)
-        if not ok and implementation == "pallas":
-            raise ValueError(f"implementation='pallas' unsupported: {reason}")
-        if not ok:
-            raise NotImplementedError(
-                f"{reason}; the per-frame LM scan that takes other LMs is "
-                f"not ported yet ({_ITEM5}); implementation='chunked' runs "
-                "any LM with score_chunk")
-        check_lm_device(lm, log_probs.device)
+    if implementation == "pallas" and not ok:
+        raise ValueError(f"implementation='pallas' unsupported: {reason}")
+    check_lm_device(lm, log_probs.device)
     if input_lengths is None:
         il = torch.full((n,), t_max, dtype=torch.int32)
     else:
         il = torch.as_tensor(input_lengths).to(torch.int32)
     il = il.to(log_probs.device)
     log_probs = log_probs.contiguous()
+    if implementation == "xla" or not ok:
+        if implementation == "auto":
+            hint = ("; implementation='chunked' runs this LM on the kernel "
+                    "(chunk-granular steering, exact scores)"
+                    if lm is not None and hasattr(lm, "score_chunk") else "")
+            logging.getLogger(__name__).info(
+                "beam_search_decode: running the prefix-beam scan (%s)%s",
+                reason, hint)
+        out = _beam_search_scan(
+            log_probs, il, W, K, s_cap, int(blank), lm=lm,
+            lm_alpha=float(lm_alpha), lm_beta=float(lm_beta),
+            token_min_logp=(None if token_min_logp is None
+                            else float(token_min_logp)))
+        return out if return_timestamps else out[:3]
     ks = min(K + 8, v)  # the stay term's window (see module docstring)
     lpk, ck = topk(log_probs, ks)
     lpk, ck = apply_token_min_logp(lpk, ck, token_min_logp)

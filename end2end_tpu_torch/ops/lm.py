@@ -7,6 +7,9 @@ utils/device.py) queried with gathers; its per-hypothesis state is a tensor
 
   init_state(M) -> state                       M rows
   score(state, ck) -> (lm_lp (W, K), state_ext)   ck (K,) candidate tokens
+      of all W rows, or (W, K) each row's own (the batched scan of
+      ops/beam_search.py flattens N sequences' beams into W = N * beam
+      rows)
   select(state, state_ext, parent, kk, is_stay) -> state
   final(state) -> (M,) end-of-sequence bonus
   score_chunk(state, toks) -> (lp_sum (M,), state)   toks (M, C), -1
@@ -169,17 +172,17 @@ class _WordBoundaryMode:
         return self._bnd[ck.long().clamp(0, n - 1)] & (ck >= 0) & (ck < n)
 
     def _advance_word_hash(self, is_b, curh, curlen, ck):
-        """Per-candidate hash and length after appending ck (W, K): a
-        separator resets to the empty word, a prefix boundary starts a new
-        word containing the token."""
+        """Per-candidate hash and length (W, K) after appending ck, (K,)
+        or (W, K): a separator resets to the empty word, a prefix boundary
+        starts a new word containing the token."""
         cku = (ck.long() + 1) & _U32
-        cont_h = (_mul32(curh[:, None], self._MULT) + cku[None, :]) & _U32
+        cont_h = (_mul32(curh[:, None], self._MULT) + cku) & _U32
         if self._bnd is None:
             new_h = torch.where(is_b, self._SEED, cont_h)
             new_len = torch.where(is_b, 0, curlen[:, None] + 1)
         else:
             restart = (self._SEED * self._MULT + cku) & _U32
-            new_h = torch.where(is_b, restart[None, :], cont_h)
+            new_h = torch.where(is_b, restart, cont_h)
             new_len = torch.where(is_b, 1, curlen[:, None] + 1)
         return new_h, new_len
 
@@ -225,8 +228,8 @@ class NGramLM:
     def score(self, state, ck):
         ctx = torch.where(state < 0, self._v, state)
         ck = ck.long()
-        lm_lp = self._table[ctx][:, ck]  # (W, K)
-        return lm_lp, ck[None, :].expand_as(lm_lp)
+        lm_lp = self._table[ctx[:, None], ck]  # (W, K)
+        return lm_lp, ck.expand_as(lm_lp)
 
     def select(self, state, state_ext, parent, kk, is_stay):
         return torch.where(is_stay, state[parent], state_ext[parent, kk])
@@ -451,7 +454,7 @@ class WordNGramLM(_WordBoundaryMode):
 
     def score(self, state, ck):
         prev, curh, curlen = state
-        is_b = self._is_boundary(ck)[None, :]  # (1, K)
+        is_b = self._is_boundary(ck)  # (K,) or (W, K)
         wid = self._wh.lookup(curh)  # the word a boundary would complete
         complete = torch.where(curlen > 0, self._word_lp(prev, wid), 0.0)
         lm_lp = torch.where(is_b, complete[:, None], 0.0)  # (W, K)

@@ -31,14 +31,14 @@ class FactoredAdditiveJoint:
     """``logits = tanh(f @ W_enc + h @ W_pred + b) @ W_out + b_out`` with
     the frame projection ``f @ W_enc`` computable once per utterance
     (`precompute_frames`) and the per-step half on projected frames
-    (`from_projected`).  Calling the instance applies the whole joint."""
+    (`from_projected`).  Calling the instance applies the whole joint.
+    The weights are held as float32 tensors (on the device they come on),
+    whatever type they are given in, as in the JAX package."""
 
     def __init__(self, w_enc, w_pred, b_joint, w_out, b_out):
-        self.w_enc = w_enc
-        self.w_pred = w_pred
-        self.b_joint = b_joint
-        self.w_out = w_out
-        self.b_out = b_out
+        self.w_enc, self.w_pred, self.b_joint, self.w_out, self.b_out = (
+            torch.as_tensor(w).float()
+            for w in (w_enc, w_pred, b_joint, w_out, b_out))
 
     def precompute_frames(self, enc):
         """(..., E) -> (..., J)."""

@@ -79,14 +79,20 @@ def parse_arpa_python(path: str, vocab: list[str]):
     return uni, bigram.astype(np.float32), start, eos
 
 
-def load_arpa(path: str, vocab: list[str]):
-    """(unigram, bigram, start, eos) natural-log tables for the vocab."""
+def load_arpa(path: str, vocab: list[str], prefer_native: bool = True):
+    """(unigram, bigram, start, eos) natural-log tables for the vocab.
+
+    `prefer_native` is accepted as the JAX package's loader takes it; the
+    port has only the Python parser, so it changes nothing."""
+    del prefer_native
     return parse_arpa_python(path, vocab)
 
 
-def ngram_lm_from_arpa(path: str, vocab: list[str], *, device=None):
-    """An `ops.lm.NGramLM` built from an ARPA file's bigrams."""
+def ngram_lm_from_arpa(path: str, vocab: list[str],
+                       prefer_native: bool = True, *, device=None):
+    """An `ops.lm.NGramLM` built from an ARPA file's bigrams
+    (`prefer_native` as in `load_arpa`)."""
     from ..ops.lm import NGramLM
 
-    _, bigram, start, eos = load_arpa(path, vocab)
+    _, bigram, start, eos = load_arpa(path, vocab, prefer_native)
     return NGramLM(bigram, start_logp=start, eos_logp=eos, device=device)

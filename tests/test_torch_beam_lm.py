@@ -274,9 +274,9 @@ def test_routing_and_validation_match_jax(rng):
         jax_beam(big, lm=jb, implementation="pallas")
     with pytest.raises(ValueError, match="vocab \\+ 1 <= 64"):
         beam_search_decode(_t(big), lm=tb, implementation="pallas")
-    # ... and under 'auto' it needs the per-frame scan, not ported yet
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        beam_search_decode(_t(big), lm=tb)
+    # ... and under 'auto' both run the per-frame scan
+    _assert_same(beam_search_decode(_t(big), lm=tb, lm_alpha=0.5),
+                 jax_beam(big, lm=jb, lm_alpha=0.5))
     # 'chunked' needs an LM with score_chunk
     for fn in (jax_beam, beam_search_decode):
         with pytest.raises(ValueError, match="score_chunk"):
@@ -297,6 +297,76 @@ def test_routing_and_validation_match_jax(rng):
     meta = tlm.NGramLM(np.zeros((5, 5), np.float32), device="meta")
     with pytest.raises(ValueError, match="device"):
         beam_search_decode(_t(lp), lm=meta)
+
+
+def _assert_scan(got, want, tol=1e-5):
+    """The scan against JAX's: the same ranked tokens, lengths and
+    frames, scores within tol."""
+    got = [np.asarray(x) for x in got]
+    want = [np.asarray(x) for x in want]
+    for b, (g, w) in enumerate(zip(_sets(*got[:3]), _sets(*want[:3]))):
+        assert set(g) == set(w), (b, set(g) ^ set(w))
+        for pref in g:
+            np.testing.assert_allclose(g[pref], w[pref], atol=tol, rtol=0)
+    for x, y in zip(got[:2] + got[3:], want[:2] + want[3:]):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla"])
+def test_bigram_scan_past_the_kernel_matches_jax(rng, impl):
+    """A dense bigram at V + 1 > 64 (outside the in-kernel envelope) runs
+    the per-frame scan under 'auto'; 'xla' runs it too; both against
+    JAX's scan, start and end-of-sequence rows included."""
+    B, T, V = 3, 18, 80
+    jl, tl = bigram_pair(rng, V)
+    lp = lsm(rng.standard_normal((T, B, V)) * 2.0).astype(np.float32)
+    il = np.array([18, 12, 6], np.int32)
+    kw = dict(beam_width=8, prune_k=12, lm_alpha=0.5, lm_beta=0.2,
+              return_timestamps=True)
+    got = beam_search_decode(_t(lp), _t(il), lm=tl, implementation=impl,
+                             **kw)
+    _assert_scan(got, jax_beam(lp, il, lm=jl, implementation="xla", **kw))
+
+
+@pytest.mark.parametrize("bpe", [False, True])
+def test_word_lm_scan_matches_jax(rng, bpe):
+    """A word bigram (separator or BPE prefix mode) fused per frame: the
+    scan under 'auto', against JAX's scan."""
+    B, T, V = 3, 22, 5
+    jl, tl = word_pair(rng, bpe=bpe)
+    lp = lsm(rng.standard_normal((T, B, V)) * 1.5).astype(np.float32)
+    il = np.array([22, 17, 9], np.int32)
+    kw = dict(beam_width=6, lm_alpha=0.7, lm_beta=0.3,
+              return_timestamps=True)
+    got = beam_search_decode(_t(lp), _t(il), lm=tl, **kw)
+    _assert_scan(got, jax_beam(lp, il, lm=jl, implementation="xla", **kw))
+
+
+def test_in_kernel_bigram_under_xla_runs_the_scan(rng):
+    """'xla' takes the scan even where the kernel would fuse the LM: JAX's
+    'xla' to 1e-5, and the kernel path's beam sets to 5e-4 (the kernel's
+    ks-slot stay window is the whole vocabulary here)."""
+    B, T, V = 3, 20, 7
+    jl, tl = bigram_pair(rng, V)
+    lp = lsm(rng.standard_normal((T, B, V)) * 1.5).astype(np.float32)
+    kw = dict(beam_width=8, lm_alpha=0.6, lm_beta=0.3)
+    got = beam_search_decode(_t(lp), lm=tl, implementation="xla", **kw)
+    _assert_scan(got, jax_beam(lp, lm=jl, implementation="xla", **kw))
+    _assert_same(got, beam_search_decode(_t(lp), lm=tl, **kw))
+
+
+def test_decoder_class_with_lm_scan_matches_jax(rng):
+    """BeamSearchCTCDecoder with a word LM goes through the scan."""
+    from end2end_tpu.ops.beam_search import BeamSearchCTCDecoder as JaxDec
+
+    B, T, V = 2, 16, 5
+    jl, tl = word_pair(rng)
+    lp = lsm(rng.standard_normal((T, B, V)) * 2.0).astype(np.float32)
+    kw = dict(beam_width=6, labels="_ab c", lm_alpha=0.5, lm_beta=0.2)
+    texts, scores = BeamSearchCTCDecoder(lm=tl, **kw).decode(_t(lp))
+    want_t, want_s = JaxDec(lm=jl, implementation="xla", **kw).decode(lp)
+    assert texts == want_t
+    np.testing.assert_allclose(scores, want_s, atol=1e-5, rtol=0)
 
 
 def test_plain_state_in_out_resumes_exactly(rng):

@@ -20,7 +20,7 @@ from end2end_tpu_torch.ops.beam_search import beam_search_decode
 from end2end_tpu_torch.ops.ctc_loss import ctc_nll
 from end2end_tpu_torch.ops.rnnt_joint import rnnt_nll_fused_pallas
 from end2end_tpu_torch.ops.rnnt_loss import rnnt_loss, rnnt_nll
-from end2end_tpu_torch.tools import ctc_alpha_breakdown
+from end2end_tpu_torch.tools import beam_step_breakdown, ctc_alpha_breakdown
 
 pytestmark = pytest.mark.cuda
 
@@ -40,6 +40,16 @@ def two_barrier_k1(tmp_path_factory):
         pytest.skip("needs an NVIDIA GPU")
     return ctc_alpha_breakdown.build_reference(
         tmp_path_factory.mktemp("two_barrier_k1"))[0]
+
+
+@pytest.fixture(scope="module")
+def parent_beam(tmp_path_factory):
+    """The warp-per-sequence beam kernel that the beam step replaced, built
+    from tools/beam_step_reference.cu: its bit-identity oracle."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return beam_step_breakdown.build_reference(
+        tmp_path_factory.mktemp("parent_beam"))[0]
 
 
 def _topk_rows(rng, v):
@@ -155,6 +165,98 @@ def test_beam_lm_modes_match_plain(dev, mode, W, K):
     for g, w in zip(got[3], want[3]):
         assert g.dtype == w.dtype and torch.equal(g, w)
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+def _beam_case(seed, W, K, mode, dev, T=12, zeros=False):
+    """Beam-step inputs built slot by slot: ks in [K, K + 8], unique tokens
+    a frame (blank among them; K5 masks the slots past its V = 63), log-probs on a coarse grid (exact ties
+    between slots and between candidates) or all +-0.0, masked tail slots
+    (log-zero, id -1), lengths T, T - 5 and 0, a length cap of 6; the mode's
+    increment table and class map, and for K7 a state carried in from 5
+    frames (with `zeros`, two live beams at pb and bonus -0.0 and +0.0
+    whose last tokens are in the frame: their extensions rank at -0.0 and
+    +0.0)."""
+    rng = np.random.default_rng(seed)
+    B, ks = 3, K + int(rng.integers(0, 9))
+    # K5: V + 1 <= 64 rows; "K5 wide": a 64-row table wider than the
+    # 4096 entries the kernel keeps in shared memory (gathered a frame)
+    V = min(ks + 4, 63) if mode.startswith("K5") else ks + 4
+    ck = np.argsort(rng.random((T, B, ks + 4)), -1)[..., :ks]
+    if zeros:
+        lpk = np.where(rng.random((T, B, ks)) < 0.5, -0.0, 0.0)
+        lpb = np.where(rng.random((T, B)) < 0.5, -0.0, 0.0)
+    else:
+        lpk = -np.sort(rng.integers(0, 6, (T, B, ks)), -1) / 2.0
+        lpb = -rng.integers(0, 6, (T, B)) / 2.0
+    masked = np.arange(ks) >= ks - rng.integers(0, 3, (T, B, 1))
+    masked[..., 0] = False
+    masked |= ck >= V  # K5's slots past its vocabulary
+    lpk, ck = np.where(masked, -1e30, lpk), np.where(masked, -1, ck)
+    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+    args = [t(lpk, np.float32), t(ck, np.int32), t(lpb, np.float32),
+            t([T, T - 5, 0], np.int32)]
+    kw = {}
+    if mode != "K4" and mode != "K7":
+        rows, cols = {"K5": (V + 1, V), "K5 wide": (64, max(ks + 4, 70)),
+                      "K6": (5, V)}[mode]
+        kw["inc"] = t(-rng.integers(0, 4, (rows, cols)) / 2.0, np.float32)
+    if mode == "K6":
+        kw["cls_map"] = t(rng.integers(0, 4, V), np.int32)
+    if mode == "K7":  # resume from the state after 5 frames
+        lead = beam_search_cuda.beam_step_plain(
+            *(a[:5] for a in args[:3]), args[3], W, K, 6, 0)
+        state = list(lead[3])
+        if zeros:  # beams 0 and 1 live at pb -0.0 and +0.0 (bonus alike)
+            state = list(beam_search_cuda.beam_state_init(W, B, dev))
+            toks = ck[5, :, 1:4]  # a non-blank token of slots 1-3 each
+            state[6][:2] = t(np.stack([toks[np.arange(B), (toks != 0).argmax(
+                1)], toks[:, 0]]), np.int32)
+            for i in (0, 8):
+                state[i][:2] = t([[-0.0] * B, [0.0] * B], np.float32)
+        kw["state_in"] = tuple(state)
+        args = [a[5:] for a in args[:3]] + [args[3] - 5]
+    return tuple(args) + (W, K, 6, 0), kw
+
+
+def _assert_beam_bits(got, want):
+    """Codes, scores and the 10-field state bit for bit."""
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    for g, w in zip(got[3], want[3]):
+        assert g.dtype == w.dtype
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("mode", ["K4", "K5", "K5 wide", "K6", "K7"])
+@pytest.mark.parametrize("K", [1, 16, 32, 128])
+@pytest.mark.parametrize("W", [1, 8, 16, 32])
+def test_beam_kernel_bit_equal_to_plain_and_parent(dev, parent_beam, W, K,
+                                                   mode):
+    """The beam step against its plain twin on the card and against the
+    warp-per-sequence kernel it replaced: ties, dead picks (fewer live
+    candidates than W), frozen and empty sequences, each mode."""
+    args, kw = _beam_case(W * 1000 + K, W, K, mode, dev)
+    before = beam_search_cuda.launches
+    got = beam_search_cuda.beam_step(*args, **kw)
+    assert beam_search_cuda.launches == before + 1
+    _assert_beam_bits(got, beam_search_cuda.beam_step_plain(*args, **kw))
+    bp, score, state = beam_step_breakdown.runner(parent_beam, args, kw)()
+    state = tuple(x.view(torch.float32) if i in (0, 1, 8) else x
+                  for i, x in enumerate(state))
+    _assert_beam_bits(got, (bp, score, None, state))
+
+
+@pytest.mark.parametrize("mode", ["K4", "K7"])
+def test_beam_kernel_signed_zero_ties(dev, parent_beam, mode):
+    """Candidates at +0.0 and -0.0 tie: the smaller code wins, as the
+    plain twin's argmax and the parent's comparison have it."""
+    args, kw = _beam_case(5, 8, 16, mode, dev, zeros=True)
+    got = beam_search_cuda.beam_step(*args, **kw)
+    _assert_beam_bits(got, beam_search_cuda.beam_step_plain(*args, **kw))
+    bp, score, state = beam_step_breakdown.runner(parent_beam, args, kw)()
+    assert torch.equal(got[0], bp)
+    assert torch.equal(torch.stack([x.view(torch.int32) for x in got[3]]),
+                       state)
 
 
 def test_lm_decodes_on_the_card_match_the_cpu(dev):

@@ -216,6 +216,27 @@ def test_arpa_matches_jax(tmp_path):
     np.testing.assert_array_equal(tl._eos.numpy(), np.asarray(jl._eos))
 
 
+@pytest.mark.parametrize("native", [True, False])
+def test_arpa_loaders_take_prefer_native(tmp_path, native):
+    """`prefer_native`, by name and by position, as JAX's loaders take it;
+    the port has only the Python parser, so the tables do not change."""
+    path = tmp_path / "lm.arpa"
+    path.write_text(_ARPA)
+    vocab = ["ab", "b", "ba", "c", "zz"]
+    want = tarpa.parse_arpa_python(str(path), vocab)
+    for got in (tarpa.load_arpa(str(path), vocab, prefer_native=native),
+                tarpa.load_arpa(str(path), vocab, native)):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    base = tarpa.ngram_lm_from_arpa(str(path), vocab, device="cpu")
+    for lm in (tarpa.ngram_lm_from_arpa(str(path), vocab, native,
+                                        device="cpu"),
+               tarpa.ngram_lm_from_arpa(str(path), vocab,
+                                        prefer_native=native, device="cpu")):
+        assert torch.equal(lm._table, base._table)
+        assert torch.equal(lm._eos, base._eos)
+
+
 def test_word_lm_from_arpa_matches_jax(tmp_path, rng):
     from end2end_tpu.utils.text import Alphabet
 

@@ -25,7 +25,8 @@ from end2end_tpu.models.transducer import TransducerConfig as JaxConfig
 from end2end_tpu.ops.neural_lm import random_gru_params as jax_gru_params
 from end2end_tpu_torch import ConformerTransducer, TransducerConfig
 from end2end_tpu_torch.ops.neural_lm import random_gru_params
-from end2end_tpu_torch.ops.rnnt_decode import (additive_joint,
+from end2end_tpu_torch.ops.rnnt_decode import (FactoredAdditiveJoint,
+                                               additive_joint,
                                                rnnt_greedy_decode)
 from end2end_tpu_torch.utils.convert import transducer_state_dict_from_jax
 
@@ -145,6 +146,34 @@ def test_additive_joint_decodes_as_the_factored_one(setup):
         got = rnnt_greedy_decode(enc, enc_len, pred, h0, plain)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     torch.testing.assert_close(got[2], want[2], atol=1e-5, rtol=0)
+
+
+def test_factored_joint_holds_float32_weights_as_jax():
+    """Float64 weights (numpy and torch) are held as float32, as JAX's
+    class holds them: the frame projection, the per-step half and the
+    whole joint on float32 frames agree with JAX's within float32 sums."""
+    from end2end_tpu.ops.rnnt_decode import FactoredAdditiveJoint as JaxJoint
+
+    rng = np.random.default_rng(5)
+    E, H, J, V = 6, 5, 7, 9
+    ws = [rng.standard_normal(s) for s in ((E, J), (H, J), (J,), (J, V),
+                                           (V,))]
+    f = rng.standard_normal((3, 4, E)).astype(np.float32)
+    h = rng.standard_normal((3, 4, H)).astype(np.float32)
+    jj = JaxJoint(*ws)
+    want = (jj.precompute_frames(f),)
+    want += (jj.from_projected(want[0], h), jj(f, h))
+    ft, ht = torch.from_numpy(f), torch.from_numpy(h)
+    for given in (ws, [torch.from_numpy(w) for w in ws]):
+        tj = FactoredAdditiveJoint(*given)
+        assert all(w.dtype == torch.float32 for w in (
+            tj.w_enc, tj.w_pred, tj.b_joint, tj.w_out, tj.b_out))
+        got = (tj.precompute_frames(ft),)
+        got += (tj.from_projected(got[0], ht), tj(ft, ht))
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                       rtol=0)
 
 
 def test_random_gru_params_match_jax():
