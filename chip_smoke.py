@@ -11,9 +11,11 @@ Phases (every failure raises, so the exit code is nonzero):
      and beside them the two-barrier K1 that K1 replaced
      (tools/ctc_alpha_reference.cu), the baseline of phases 8-10, the
      wmma K10 that K10 replaced (tools/joint_fwd_reference.cu), the
-     baseline of phases 20 and 25, and the warp-per-sequence beam kernel
+     baseline of phases 20 and 25, the warp-per-sequence beam kernel
      that the beam step replaced (tools/beam_step_reference.cu), the
-     baseline of phases 5, 7, 11, 12 and 14;
+     baseline of phases 5, 7, 11, 12 and 14, and the block-per-sequence
+     K8/K9 that K8 and K9 replaced (tools/rnnt_loss_reference.cu), the
+     baseline of phases 15-17;
   4. top-k kernel vs its plain version: values bit-equal, indices equal;
   5. beam-step kernel vs its plain version and vs the parent kernel on
      peaked lattices at the beam decoder's reference shape (B=32, T=1000,
@@ -54,7 +56,8 @@ Phases (every failure raises, so the exit code is nonzero):
      plain scan, and K1/K2 within phase 8's tolerances at this shape;
  10. timings: K1, K2 and the plain scans at the metric shape (also as
      lattice cells/s) and at the training slice's shape, the loss+gradient
-     both ways, torch's own CTC loss forward and forward+backward, and the
+     both ways, torch's own CTC loss forward, forward+backward and
+     backward alone (beside K2 + the combine in device time), and the
      whole train step, and K2 in checkpoint mode (64 frames); K1, the
      two-barrier K1 and F.ctc_loss forward in device time, in turns; the
      card's SM clock and power under K1;
@@ -88,7 +91,8 @@ Phases (every failure raises, so the exit code is nonzero):
      empty target; blank = V-1): NLL within max(1e-4, 20 ulp) abs + 2e-6
      rel, K9's posteriors on the same residuals within 1e-6, the logits
      gradient within 1e-5; against the plain float64 scan the gradient
-     within 1e-4 and the NLL within 1e-4 relative;
+     within 1e-4 and the NLL within 1e-4 relative; K8's tape and offsets
+     and K9's posteriors bit-equal to the parent kernels';
  16. the transducer training slice: the full-width ConformerTransducer
      (vocab 32, 80 mels, d 144, 2 layers, 4 heads, conv 15, enc 144, emb
      64, GRU 128, joint 128; seeded random weights, built on the card by
@@ -98,10 +102,13 @@ Phases (every failure raises, so the exit code is nonzero):
      and K9 once per step and every loss finite and > 0; on the first
      batch the CUDA loss within 1e-3 rel of the CPU model's, every
      parameter's gradient through the kernels within 1e-4 (of its max)
-     of the plain scan's, and K8/K9 within phase 15's tolerances at this
-     shape; then greedy decoding (lengths within the cap, finite scores,
-     the count of requests decoding alike on the card and the CPU);
+     of the plain scan's, and K8/K9 within phase 15's tolerances (and
+     bit-equal to the parent kernels) at this shape; then greedy decoding
+     (lengths within the cap, finite scores, the count of requests
+     decoding alike on the card and the CPU);
  17. timings: K8, K9 and their twins at the training and bench shapes,
+     K8 and K9 against the parent kernels in device time, in turns (their
+     outputs bit-equal), with cycles a diagonal,
      the loss+gradient at the bench shape (also as lattice cells/s), the
      transducer train step with its parts, and the greedy decode;
  18. the online-softmax fused joint's kernels K10 (forward) and K11 (dh),
@@ -217,7 +224,8 @@ from end2end_tpu_torch.ops.rnnt_loss import (fused_additive_joint, rnnt_nll,
 from end2end_tpu_torch.ops.lm import (NGramLM, QuantizedBigramGuide,
                                       WordNGramLM, bigram_from_counts)
 from end2end_tpu_torch.tools import (beam_step_breakdown, ctc_alpha_breakdown,
-                                     joint_fwd_breakdown)
+                                     joint_fwd_breakdown,
+                                     rnnt_wavefront_breakdown)
 from end2end_tpu_torch.tools.joint_dw_breakdown import (
     N_SMS, device_ms, max_sm_mhz, tensor_ops_per_s, under_load)
 from end2end_tpu_torch.utils import cuda_build
@@ -940,6 +948,8 @@ def time_ctc(name, lp, tgt, il, tl):
         f"ctc_library_fwd_bwd_{name}": time_both(
             f"ctc_library_fwd_bwd_{name}",
             lambda: library_ctc(lp, *lib_args, grad=True)),
+        f"ctc_library_bwd_{name}": time_both(
+            f"ctc_library_bwd_{name}", library_ctc_bwd(lp, *lib_args)),
     }
     # K2 in checkpoint mode: each 64-frame chunk's alpha rows recomputed
     # by K1's step
@@ -959,6 +969,16 @@ def library_ctc(lp, tgt, il, tl, grad):
     if grad:
         loss.backward()
     return loss
+
+
+def library_ctc_bwd(lp, tgt, il, tl):
+    """torch's own CTC loss backward alone (the yardstick of K2 and the
+    combine): the forward once, then a function that runs its backward
+    (autograd.grad, the graph kept) on the same inputs."""
+    x = lp.detach().requires_grad_(True)
+    loss = torch.nn.functional.ctc_loss(x, tgt, il, tl, reduction="sum",
+                                        zero_infinity=True)
+    return lambda: torch.autograd.grad(loss, x, retain_graph=True)
 
 
 def timed(fn, events):
@@ -1044,10 +1064,34 @@ def rnnt_dp_inputs(x, tgt, il, ul, blank):
     return b_pl, l_pl, tape, rcum, il.long(), ul.long(), zs, zo
 
 
-def check_rnnt(x, tgt, il, ul, blank, what):
+def rnnt_parent_data(dp):
+    """The DP inputs `dp` (rnnt_dp_inputs') as the parent kernels' runner
+    takes them (rnnt_wavefront_breakdown.runner)."""
+    b_pl, l_pl, tape, rcum, il, ul, zs, zo = dp
+    return (b_pl.contiguous(), l_pl.contiguous(), il, ul,
+            (tape, rcum, il.int(), ul.int(), zs, zo))
+
+
+def check_rnnt_parent(dp, ref_lib, what):
+    """K8's tape and offsets and K9's posteriors bit-equal to the
+    block-per-sequence kernels' they replaced (tools/rnnt_loss_reference.cu)
+    on the same inputs."""
+    data = rnnt_parent_data(dp)
+    got = (dp[2], dp[3]), rnnt_loss_cuda.posteriors(*dp)
+    for post, kernel in ((0, "K8"), (1, "K9")):
+        want = rnnt_wavefront_breakdown.runner(ref_lib, False, data, post)()
+        if not rnnt_wavefront_breakdown.equal_outputs(got[post], want):
+            raise AssertionError(f"{what}: {kernel} differs from the parent "
+                                 "kernel's bits")
+    log(f"{what}: K8's tape and offsets and K9's posteriors bit-equal to the "
+        "parent kernels'")
+
+
+def check_rnnt(x, tgt, il, ul, blank, what, ref_lib):
     """K8/K9 (through rnnt_nll, from logits) vs the plain float32 and
-    float64 scans on the card, and K9 alone vs its plain twin on the same
-    residuals.  Returns (nll err, posterior err)."""
+    float64 scans on the card, K9 alone vs its plain twin on the same
+    residuals, and both bit-equal to the parent kernels.  Returns (nll err,
+    posterior err)."""
     k_nll, k_grad = rnnt_nll_and_grad(x, tgt, il, ul, blank, "pallas")
     p_nll, p_grad = rnnt_nll_and_grad(x, tgt, il, ul, blank, "xla")
     d_nll, d_grad = rnnt_nll_and_grad(x.double(), tgt, il, ul, blank, "xla")
@@ -1079,7 +1123,32 @@ def check_rnnt(x, tgt, il, ul, blank, what):
         f"{float((tape - p_tape).abs().max()):.3g}, offsets equal "
         f"{bool(torch.equal(rcum, p_rcum))}; vs float64: NLL rel err "
         f"{d_rel:.3g}, grad err {d_grad_err:.3g}")
+    check_rnnt_parent((b_pl, l_pl, tape, rcum, *rest), ref_lib, what)
     return nll_err, post_err
+
+
+def rnnt_vs_parent(dp, name, ref_lib):
+    """K8 and K9 against the parent kernels in device time, in turns (A B B
+    A, on contiguous planes), their outputs compared bit for bit, and the
+    cycles a diagonal of each at the SM clock sampled under it."""
+    data = rnnt_parent_data(dp)
+    n, t, up = data[0].shape
+    diagonals = t + up - 1
+    kernels = {"K8": lambda: rnnt_loss_cuda.alpha(*data[:2]),
+               "K9": lambda: rnnt_loss_cuda.posteriors(*data[:2], *dp[2:])}
+    for post, (kernel, fn) in enumerate(kernels.items()):
+        fns = {kernel: fn, "parent": rnnt_wavefront_breakdown.runner(
+            ref_lib, False, data, post)}
+        if not rnnt_wavefront_breakdown.equal_outputs(fn(), fns["parent"]()):
+            raise AssertionError(f"phase 17 {kernel} ({name}) differs from "
+                                 "the parent kernel's bits")
+        turns = in_turns(f"phase 17 {kernel} vs the parent ({name}: B={n}, "
+                         f"T={t}, U+1={up}; outputs bit-equal)", fns, 20)
+        for k, f in fns.items():
+            mhz = under_load(f, seconds=1.0)[0]
+            log(f"phase 17 {kernel} ({name}) {k}: "
+                f"{min(turns[k]) * 1e3 * mhz / diagonals:.0f} cycles a "
+                f"diagonal ({diagonals} diagonals) at {mhz:.0f} MHz")
 
 
 def rnnt_bound(b_pl, posteriors):
@@ -1121,7 +1190,7 @@ def transducer_grads(model, batch, implementation):
                            if p.grad is not None}
 
 
-def check_transducer_batch(model, batch):
+def check_transducer_batch(model, batch, ref_lib):
     """First batch: CUDA vs CPU loss, kernel vs plain gradients of every
     parameter, and K8/K9 vs plain at this shape.  Returns (nll err,
     posterior err, the DP inputs of this batch)."""
@@ -1151,7 +1220,8 @@ def check_transducer_batch(model, batch):
         x = model.joint_logits(enc, model._pred_states(batch[2]))
     tgt, tl = (torch.as_tensor(a, device=x.device) for a in batch[2:])
     errs = check_rnnt(x, tgt, enc_len, tl, 0,
-                      f"phase 16 K8/K9 at the training shape {tuple(x.shape)}")
+                      f"phase 16 K8/K9 at the training shape {tuple(x.shape)}",
+                      ref_lib)
     return (*errs, rnnt_dp_inputs(x, tgt, enc_len, tl, 0), cpu)
 
 
@@ -1610,17 +1680,20 @@ def main() -> None:
     # and, beside it, the kernels that K1, K10 and the beam step replaced
     # (the A/B baselines)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         ref_build = pool.submit(ctc_alpha_breakdown.build_reference,
                                 cuda_build.BUILD_DIR / "reference")
         k10_build = pool.submit(joint_fwd_breakdown.build_reference,
                                 cuda_build.BUILD_DIR / "reference_k10")
         beam_build = pool.submit(beam_step_breakdown.build_reference,
                                  cuda_build.BUILD_DIR / "reference_beam")
+        rnnt_build = pool.submit(rnnt_wavefront_breakdown.build_reference,
+                                 cuda_build.BUILD_DIR / "reference_rnnt")
         _, info = cuda_build.library()
         ref_lib, ref_ptxas = ref_build.result()
         k10_ref_lib, k10_ref_ptxas = k10_build.result()
         beam_ref_lib, beam_ref_ptxas = beam_build.result()
+        rnnt_ref_lib, rnnt_ref_ptxas = rnnt_build.result()
     parent = parent_step(beam_ref_lib)
     log(f"phase 3 build: {info['build_s']:.1f} s nvcc, "
         f"{time.perf_counter() - t0:.1f} s to load ({info['path']})")
@@ -1633,6 +1706,8 @@ def main() -> None:
         log(f"  ptxas (the wmma K10) {line}")
     for line in beam_ref_ptxas:
         log(f"  ptxas (the parent beam kernel) {line}")
+    for line in rnnt_ref_ptxas:
+        log(f"  ptxas (the parent K8/K9) {line}")
     rng = np.random.default_rng(SEED)
 
     # 4. top-k kernel vs plain
@@ -1834,10 +1909,17 @@ def main() -> None:
                   "ctc_beta_ckpt64", "ctc_beta_plain", "ctc_grad",
                   "ctc_grad_plain",
                   "ctc_loss_grad", "ctc_loss_grad_plain",
-                  "ctc_library_fwd", "ctc_library_fwd_bwd"):
+                  "ctc_library_fwd", "ctc_library_fwd_bwd",
+                  "ctc_library_bwd"):
             log(f"phase 10 {k}_{name} (B={b}, T={t}, S={tgt.shape[1]}): "
                 f"{ms[f'{k}_{name}']:.3f} ms, "
                 f"{cells / ms[f'{k}_{name}'] / 1e3:.1f} M lattice cells/s")
+        k2 = (DEVICE_MS[f"ctc_beta_{name}"][0]
+              + DEVICE_MS[f"ctc_grad_{name}"][0])
+        log(f"phase 10 device ms ({name}): K2 + combine {k2:.4f}, F.ctc_loss "
+            f"backward alone {DEVICE_MS[f'ctc_library_bwd_{name}'][0]:.4f} "
+            f"({DEVICE_MS[f'ctc_library_bwd_{name}'][1]}), forward + "
+            f"backward {DEVICE_MS[f'ctc_library_fwd_bwd_{name}'][0]:.4f}")
         if name == "main":
             ctc_b = [ctc_bound(lp, tgt, il, tl, beta) for beta in (0, 1)]
             ctc_grad_b = ctc_grad_bound(lp, tgt, il, tl)
@@ -2017,7 +2099,8 @@ def main() -> None:
         args = rnnt_problem(rng, dev, b, t, u, v, blank, var)
         rnnt_inputs[name] = (*args, blank)
         errs = check_rnnt(*args, blank, f"phase 15 {name} (B={b}, T={t}, "
-                                        f"U={u}, V={v}, blank={blank})")
+                                        f"U={u}, V={v}, blank={blank})",
+                          rnnt_ref_lib)
         rnnt_err = [max(a, e) for a, e in zip(rnnt_err, errs)]
 
     # 16. the transducer training slice at full width
@@ -2026,7 +2109,8 @@ def main() -> None:
     if model.device != dev:
         raise AssertionError(f"the transducer was built on {model.device}")
     xbatches = transducer_batches(rng, dev, tcfg.vocab_size)
-    *errs, main_dp, model_cpu = check_transducer_batch(model, xbatches[0])
+    *errs, main_dp, model_cpu = check_transducer_batch(model, xbatches[0],
+                                                       rnnt_ref_lib)
     rnnt_err = [max(a, e) for a, e in zip(rnnt_err, errs)]
     opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
     torch.cuda.synchronize()
@@ -2081,6 +2165,7 @@ def main() -> None:
                                                *rest))
         if name == "main":
             rnnt_b = [rnnt_bound(b_pl, post) for post in (0, 1)]
+        rnnt_vs_parent(dp, name, rnnt_ref_lib)
     x, tgt, il, ul, blank = rnnt_inputs["bench"]
     for impl, key in (("pallas", ""), ("xla", "_plain")):
         ms[f"rnnt_loss_grad{key}_bench"] = time_ms(

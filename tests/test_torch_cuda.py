@@ -20,7 +20,8 @@ from end2end_tpu_torch.ops.beam_search import beam_search_decode
 from end2end_tpu_torch.ops.ctc_loss import ctc_nll
 from end2end_tpu_torch.ops.rnnt_joint import rnnt_nll_fused_pallas
 from end2end_tpu_torch.ops.rnnt_loss import rnnt_loss, rnnt_nll
-from end2end_tpu_torch.tools import beam_step_breakdown, ctc_alpha_breakdown
+from end2end_tpu_torch.tools import (beam_step_breakdown, ctc_alpha_breakdown,
+                                     rnnt_wavefront_breakdown)
 
 pytestmark = pytest.mark.cuda
 
@@ -50,6 +51,16 @@ def parent_beam(tmp_path_factory):
         pytest.skip("needs an NVIDIA GPU")
     return beam_step_breakdown.build_reference(
         tmp_path_factory.mktemp("parent_beam"))[0]
+
+
+@pytest.fixture(scope="module")
+def parent_rnnt(tmp_path_factory):
+    """The block-per-sequence K8/K9 that the register kernels replaced,
+    built from tools/rnnt_loss_reference.cu: their bit-identity oracle."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return rnnt_wavefront_breakdown.build_reference(
+        tmp_path_factory.mktemp("parent_rnnt"))[0]
 
 
 def _topk_rows(rng, v):
@@ -483,7 +494,11 @@ def _rnnt_loss_grad(x, tgt, il, ul, blank, implementation):
 
 @pytest.mark.parametrize("n,t,u,v,blank", [
     (4, 7, 3, 9, 0), (3, 5, 12, 6, 0), (5, 40, 9, 17, 16),
-    (2, 3, 1100, 5, 0)])  # U+1 > 1024 threads: several lanes per thread
+    (2, 3, 1100, 5, 0),  # several warps
+    # the plan's edges: U+1 = 1, one warp's 32 lanes and one more, one lane
+    # a thread's 1024 and one more
+    (3, 6, 0, 5, 0), (3, 9, 31, 6, 0), (3, 9, 32, 6, 0), (2, 5, 1023, 5, 0),
+    (2, 5, 1024, 5, 0)])
 def test_rnnt_kernels_match_plain(dev, n, t, u, v, blank):
     """K8/K9 vs the plain scans on the card: NLL within 1e-4 + 2e-6 rel,
     K9's posteriors on the same residuals within 1e-6, the logits
@@ -511,6 +526,36 @@ def test_rnnt_kernels_match_plain(dev, n, t, u, v, blank):
     want = rnnt_loss_plain.posteriors(b_pl, l_pl, tape, rcum, *rest)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=1e-6, rtol=0)
+
+
+def _rnnt_planes(seed, n, t, up, dev):
+    """(b_pl, l_pl, il, ul) of _rnnt_case's logits, lengths int64."""
+    x, tgt, il, ul = _rnnt_case(seed, n, t, up - 1, 7, 0, dev)
+    y = torch.nn.functional.pad(tgt.long(), (0, 1))
+    b_pl, l_pl = rnnt_loss_plain.planes(torch.log_softmax(x, -1), y,
+                                        ul.long(), 0)
+    return b_pl.contiguous(), l_pl.contiguous(), il.long(), ul.long()
+
+
+@pytest.mark.parametrize("n,up", [
+    (3, 1), (3, 32), (3, 33), (3, 81), (3, 151), (3, 256), (3, 1024),
+    (3, 1025), (3, 2048), (3, 2049), (3, 4096), (3, 4097), (3, 8192),
+    (3, 8193),
+    (40000, 2)])  # 2N skew planes above 65535, a grid's y and z limit
+def test_rnnt_kernels_bit_equal_to_the_parent(dev, parent_rnnt, n, up):
+    """K8's tape and offsets and K9's posteriors (on the same inputs)
+    bit-equal to the block-per-sequence kernels' at the plan's edges (one
+    warp up to 32 lanes, several at 1, 2, 4 and 8 lanes a thread up to
+    8192, rows in shared memory past it) and at a batch of 40000
+    sequences, through the wrappers."""
+    run = rnnt_wavefront_breakdown.runner
+    same = rnnt_wavefront_breakdown.equal_outputs
+    data = _rnnt_planes(up, n, 9, up, dev)
+    data = (*data, rnnt_wavefront_breakdown.k9_inputs(parent_rnnt, False,
+                                                      data))
+    want = [run(parent_rnnt, False, data, post)() for post in (0, 1)]
+    assert same(rnnt_loss_cuda.alpha(*data[:2]), want[0])
+    assert same(rnnt_loss_cuda.posteriors(*data[:2], *data[4]), want[1])
 
 
 def test_rnnt_loss_reaches_the_kernels(dev):
