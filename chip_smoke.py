@@ -8,9 +8,10 @@ Phases (every failure raises, so the exit code is nonzero):
   1. a CUDA device must be present;
   2. print the card's name and power limit (nvidia-smi);
   3. build the CUDA kernels from end2end_tpu_torch/csrc (nvcc, sm_90a),
-     and beside them the two-barrier K1 that K1 replaced
-     (tools/ctc_alpha_reference.cu), the baseline of phases 8-10, the
-     wmma K10 that K10 replaced (tools/joint_fwd_reference.cu), the
+     and beside them the two-barrier K1 and K2 that K1 and K2 replaced
+     (tools/ctc_alpha_reference.cu, tools/ctc_beta_reference.cu), the
+     baselines of phases 8-10, the wmma K10 that K10 replaced
+     (tools/joint_fwd_reference.cu), the
      baseline of phases 20 and 25, the warp-per-sequence beam kernel
      that the beam step replaced (tools/beam_step_reference.cu), the
      baseline of phases 5, 7, 11, 12 and 14, and the block-per-sequence
@@ -46,21 +47,26 @@ Phases (every failure raises, so the exit code is nonzero):
      plain float64 scan or at least as accurate as torch's own CTC loss;
      checkpoint_every 0 and 64 give bit-identical losses and gamma; K1's
      outputs (tape and checkpoint rows, norms, z_hat, norm_end2) bit-equal
-     to the two-barrier K1's;
+     to the two-barrier K1's, and K2's gamma to the two-barrier K2's in
+     the tape and checkpoint (64 frames) modes; K2's branch-free log1p
+     bit-equal to libm's log1pf on every float in [0, 4);
   9. the training slice: the full-width pipeline takes 3 AdamW steps on
      batches of 8 requests (30/22/15 s, padded to 30 s) with random
      targets; the launch counters must show K1 and K2 once per step and
      every loss finite and > 0; on the first batch the CUDA loss must be
      within 1e-3 rel of the CPU model's, the encoder's gradients through
      the kernels within 1e-4 (of each tensor's max) of those through the
-     plain scan, and K1/K2 within phase 8's tolerances at this shape;
+     plain scan, and K1/K2 within phase 8's tolerances (and bit-equal to
+     the two-barrier K1/K2) at this shape;
  10. timings: K1, K2 and the plain scans at the metric shape (also as
      lattice cells/s) and at the training slice's shape, the loss+gradient
      both ways, torch's own CTC loss forward, forward+backward and
      backward alone (beside K2 + the combine in device time), and the
      whole train step, and K2 in checkpoint mode (64 frames); K1, the
-     two-barrier K1 and F.ctc_loss forward in device time, in turns; the
-     card's SM clock and power under K1;
+     two-barrier K1 and F.ctc_loss forward in device time, in turns; K2
+     against the two-barrier K2 in turns (also as cycles a frame), in the
+     tape and checkpoint (64 frames) modes; the card's SM clock and power
+     under K1 and under K2;
  11. the beam kernel's in-kernel bigram mode (K5) vs its plain twin at
      B=32, T=1000, V=29, beam 8, prune 16 (seeded bigram LM, alpha 0.6,
      beta 0.3): backpointer codes and the 10-field state identical to
@@ -224,7 +230,7 @@ from end2end_tpu_torch.ops.rnnt_loss import (fused_additive_joint, rnnt_nll,
 from end2end_tpu_torch.ops.lm import (NGramLM, QuantizedBigramGuide,
                                       WordNGramLM, bigram_from_counts)
 from end2end_tpu_torch.tools import (beam_step_breakdown, ctc_alpha_breakdown,
-                                     joint_fwd_breakdown,
+                                     ctc_beta_breakdown, joint_fwd_breakdown,
                                      rnnt_wavefront_breakdown)
 from end2end_tpu_torch.tools.joint_dw_breakdown import (
     N_SMS, device_ms, max_sm_mhz, tensor_ops_per_s, under_load)
@@ -790,12 +796,30 @@ def check_alpha_ab(lp, tgt, il, tl, ref_lib, what):
         "rows, norms, z_hat, norm_end2)")
 
 
-def check_ctc(lp, tgt, il, tl, what, ref_lib):
+def check_beta_ab(lp, tgt, il, tl, k2_lib, what):
+    """K2 vs the two-barrier K2 it replaced (tools/ctc_beta_reference.cu)
+    on the same K1 outputs: gamma bit-equal in the tape mode and in
+    checkpoint mode (64 frames)."""
+    for every in (0, 64):
+        z, ne, a, an = ctc_loss_cuda.alpha_cuda(lp, tgt, il, tl, 0, every)
+        got = ctc_loss_cuda.beta_cuda(lp, tgt, il, tl, a, an, z, ne, 0, every)
+        want = ctc_beta_breakdown.runner(k2_lib, False, (lp, tgt, il, tl),
+                                         every)()
+        torch.cuda.synchronize()
+        if not ctc_alpha_breakdown.equal_outputs([got], [want]):
+            raise AssertionError(f"{what}: K2's gamma (every={every}) "
+                                 "differs from the two-barrier K2's")
+    log(f"{what}: K2 == the two-barrier K2 bit for bit (gamma, tape and "
+        "checkpoint modes)")
+
+
+def check_ctc(lp, tgt, il, tl, what, ref_lib, k2_lib):
     """K1/K2 (through ctc_nll) vs the plain float32 and float64 scans on
     the card, and the kernels' tape and checkpoint modes against each other
-    (bit-identical outputs and gradients); K1 vs the two-barrier K1 (bit
-    for bit).  Returns (loss err, grad err)."""
+    (bit-identical outputs and gradients); K1 and K2 vs the two-barrier K1
+    and K2 (bit for bit).  Returns (loss err, grad err)."""
     check_alpha_ab(lp, tgt, il, tl, ref_lib, what)
+    check_beta_ab(lp, tgt, il, tl, k2_lib, what)
     k_loss, k_grad = nll_and_grad(lp, tgt, il, tl, "pallas")
     c_loss, c_grad = nll_and_grad(lp, tgt, il, tl, "pallas", every=64)
     p_loss, p_grad = nll_and_grad(lp, tgt, il, tl, "xla")
@@ -875,7 +899,7 @@ def train_shape_inputs(pipe, batch):
                   for a in (batch[2], out_len, batch[3])))
 
 
-def check_training_batch(pipe, batch, ref_lib):
+def check_training_batch(pipe, batch, ref_lib, k2_lib):
     """First batch: CUDA vs CPU loss, kernel vs plain encoder gradients,
     and K1/K2 vs plain at this shape.  Returns (loss err, grad err)."""
     k_loss, k_grads = encoder_grads(pipe, batch, "auto")
@@ -899,7 +923,7 @@ def check_training_batch(pipe, batch, ref_lib):
         raise AssertionError(f"encoder grads differ: {worst}")
     lp, tgt, il, tl = train_shape_inputs(pipe, batch)
     return check_ctc(lp, tgt, il, tl, f"phase 9 K1/K2 at T'={lp.shape[0]}, "
-                     f"B=8, S={tgt.shape[1]}", ref_lib)
+                     f"B=8, S={tgt.shape[1]}", ref_lib, k2_lib)
 
 
 def time_ctc(name, lp, tgt, il, tl):
@@ -979,6 +1003,37 @@ def library_ctc_bwd(lp, tgt, il, tl):
     loss = torch.nn.functional.ctc_loss(x, tgt, il, tl, reduction="sum",
                                         zero_infinity=True)
     return lambda: torch.autograd.grad(loss, x, retain_graph=True)
+
+
+def k2_vs_parent(args, name, k2_lib):
+    """K2 against the two-barrier K2 in device time, in turns (A B B A),
+    in the tape mode and in checkpoint mode (64 frames), with cycles a
+    frame (the better turn x the SM clock under K2, over the longest
+    sequence's frames), and the card's SM clock and power under each."""
+    lp, tgt, il, tl = args
+    what = f"{name}: B={lp.shape[1]}, T={lp.shape[0]}, S={tgt.shape[1]}"
+    frames = ctc_beta_breakdown.frames_of(args)
+    clock = {}
+    for label, lib, new in (("K2", None, True),
+                            ("two-barrier K2", k2_lib, False)):
+        fn = ctc_beta_breakdown.runner(lib or cuda_build.library()[0], new,
+                                       args)
+        mhz, watts, temp = under_load(fn, seconds=1.5)
+        clock[label] = mhz
+        log(f"phase 10 the card running {label} back to back ({name}): SM "
+            f"clock {mhz:.0f} MHz, {watts:.1f} W, {temp:.0f} C")
+    for every in (0, 64):
+        mode = "checkpoint 64" if every else "tape"
+        turns = in_turns(f"phase 10 K2 vs the two-barrier K2 ({what}, "
+                         f"{mode})", {
+                             "K2": ctc_beta_breakdown.runner(
+                                 cuda_build.library()[0], True, args, every),
+                             "two-barrier K2": ctc_beta_breakdown.runner(
+                                 k2_lib, False, args, every)}, 20)
+        log(f"phase 10 K2 vs the two-barrier K2 ({name}, {mode}), cycles a "
+            "frame: " + "; ".join(
+                f"{k} {min(v) * 1e3 * clock[k] / frames:.0f}"
+                for k, v in turns.items()))
 
 
 def timed(fn, events):
@@ -1680,9 +1735,11 @@ def main() -> None:
     # and, beside it, the kernels that K1, K10 and the beam step replaced
     # (the A/B baselines)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
         ref_build = pool.submit(ctc_alpha_breakdown.build_reference,
                                 cuda_build.BUILD_DIR / "reference")
+        k2_build = pool.submit(ctc_beta_breakdown.build_reference,
+                               cuda_build.BUILD_DIR / "reference_k2")
         k10_build = pool.submit(joint_fwd_breakdown.build_reference,
                                 cuda_build.BUILD_DIR / "reference_k10")
         beam_build = pool.submit(beam_step_breakdown.build_reference,
@@ -1691,6 +1748,7 @@ def main() -> None:
                                  cuda_build.BUILD_DIR / "reference_rnnt")
         _, info = cuda_build.library()
         ref_lib, ref_ptxas = ref_build.result()
+        k2_ref_lib, k2_ref_ptxas = k2_build.result()
         k10_ref_lib, k10_ref_ptxas = k10_build.result()
         beam_ref_lib, beam_ref_ptxas = beam_build.result()
         rnnt_ref_lib, rnnt_ref_ptxas = rnnt_build.result()
@@ -1702,6 +1760,8 @@ def main() -> None:
             log(f"  ptxas {line.strip()}")
     for line in ref_ptxas:
         log(f"  ptxas (the two-barrier K1) {line}")
+    for line in k2_ref_ptxas:
+        log(f"  ptxas (the two-barrier K2) {line}")
     for line in k10_ref_ptxas:
         log(f"  ptxas (the wmma K10) {line}")
     for line in beam_ref_ptxas:
@@ -1846,7 +1906,13 @@ def main() -> None:
             f"{ms[f'decode_{mode}_b8_30s']:.3f} ms per batch, "
             f"{8e3 / ms[f'decode_{mode}_b8_30s']:.1f} seq/s")
 
-    # 8. CTC kernels vs plain at the loss's reference shapes
+    # 8. CTC kernels vs plain at the loss's reference shapes; K2's
+    # branch-free log1p against libm's on every float of its range
+    bad = ctc_loss_cuda.log1p_mismatches()
+    log(f"phase 8 K2's log1p: {bad} of {0x40800000:,} floats in [0, 4) "
+        "differ from libm's log1pf")
+    if bad:
+        raise AssertionError("K2's log1p differs from libm's log1pf")
     ctc_err = [0.0, 0.0]
     ctc_inputs = {}
     for name, (b, t, s, v) in CTC_SHAPES.items():
@@ -1856,14 +1922,14 @@ def main() -> None:
                                                         tl_np)))
         ctc_inputs[name] = args
         errs = check_ctc(*args, f"phase 8 {name} (B={b}, T={t}, S={s}, "
-                                f"V={v})", ref_lib)
+                                f"V={v})", ref_lib, k2_ref_lib)
         ctc_err = [max(a, e) for a, e in zip(ctc_err, errs)]
 
     # 9. the training slice
     tpipe = ConformerCTCPipeline(
         cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
     tbatches = training_batches(rng, cfg)
-    errs = check_training_batch(tpipe, tbatches[0], ref_lib)
+    errs = check_training_batch(tpipe, tbatches[0], ref_lib, k2_ref_lib)
     ctc_err = [max(a, e) for a, e in zip(ctc_err, errs)]
     opt = torch.optim.AdamW(tpipe.parameters(), lr=1e-3, weight_decay=1e-4)
     torch.cuda.synchronize()
@@ -1904,6 +1970,7 @@ def main() -> None:
             log("phase 10 the card running K1 back to back (main): "
                 + card_under_load(
                     lambda: ctc_loss_cuda.alpha_cuda(lp, tgt, il, tl)))
+        k2_vs_parent(args, name, k2_ref_lib)
         cells = b * t * (2 * tgt.shape[1] + 1)
         for k in ("ctc_alpha", "ctc_alpha_plain", "ctc_beta",
                   "ctc_beta_ckpt64", "ctc_beta_plain", "ctc_grad",
@@ -1916,9 +1983,11 @@ def main() -> None:
                 f"{cells / ms[f'{k}_{name}'] / 1e3:.1f} M lattice cells/s")
         k2 = (DEVICE_MS[f"ctc_beta_{name}"][0]
               + DEVICE_MS[f"ctc_grad_{name}"][0])
+        bwd = DEVICE_MS[f"ctc_library_bwd_{name}"][0]
         log(f"phase 10 device ms ({name}): K2 + combine {k2:.4f}, F.ctc_loss "
-            f"backward alone {DEVICE_MS[f'ctc_library_bwd_{name}'][0]:.4f} "
-            f"({DEVICE_MS[f'ctc_library_bwd_{name}'][1]}), forward + "
+            f"backward alone {bwd:.4f} "
+            f"({DEVICE_MS[f'ctc_library_bwd_{name}'][1]}; K2 + combine "
+            f"{k2 / bwd:.3f}x it), forward + "
             f"backward {DEVICE_MS[f'ctc_library_fwd_bwd_{name}'][0]:.4f}")
         if name == "main":
             ctc_b = [ctc_bound(lp, tgt, il, tl, beta) for beta in (0, 1)]
@@ -2443,9 +2512,10 @@ def main() -> None:
         ("ctc_alpha", ctc_src, "end2end_tpu/ops/ctc_loss_pallas.py:115",
          train_launches["ctc_alpha"], ctc_err[0], "ctc_alpha_main", ctc_b[0],
          "ctc_library_fwd_main"),
+        # library: F.ctc_loss backward alone, the yardstick of K2 + combine
         ("ctc_beta", ctc_src, "end2end_tpu/ops/ctc_loss_pallas.py:174",
          train_launches["ctc_beta"], ctc_err[1], "ctc_beta_main", ctc_b[1],
-         "ctc_library_fwd_bwd_main"),
+         "ctc_library_bwd_main"),
         ("beam_step_lm", beam_src, f"{beam_tpu}:202",
          lm_launches["launches_lm"], k5_err, "beam_lm_main", lm_b, None),
         ("beam_step_cls", beam_src, f"{beam_tpu}:101",
@@ -2500,6 +2570,11 @@ def main() -> None:
             f"one call {k['call_ms']:.4f}), bound {k['bound_ms']:.4f}, "
             f"library {k['library_ms']} ms (one call "
             f"{k['library_call_ms']})")
+    beta_row = next(k for k in kernels if k["name"] == "ctc_beta")
+    log(f"ctc_beta's library_ms is F.ctc_loss backward alone, which "
+        f"computes what K2 + the combine do: K2 + combine "
+        f"{beta_row['ms'] + DEVICE_MS['ctc_grad_main'][0]:.4f} ms against "
+        f"{beta_row['library_ms']:.4f}")
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel never ran on its path: {kernels}")
     log("chip_smoke: done")

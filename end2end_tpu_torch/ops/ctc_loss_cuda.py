@@ -12,8 +12,9 @@ every sum in a fixed order, so the gradient is bit-identical run to run).
 It never falls back to the plain version: anything the kernels do not take
 raises.
 
-K1's launch plan (`alpha_plan`: states per thread, threads, ring depth,
-shared bytes) is computed here and checked by the C entry point.
+K1's and K2's launch plans (`alpha_plan`, `beta_plan`: states per
+thread, threads, ring depth, staged frames, shared bytes) are computed
+here and checked by the C entry points.
 
 `launches` counts kernel launches by name (it is the only module state).
 """
@@ -38,15 +39,24 @@ ALPHA_STATES = 2
 STATES = (1, 2, 3, 4, 6, 8, 16)
 RINGS = (2, 4, 8)
 _RING_TAPE = ((8, 64), (8, 32), (8, 16), (4, 8), (2, 4), (2, 2), (2, 1))
+# K2's states per thread: the fewest that fit 1024 threads (even: the even
+# states share the blank's emission slot); the (states, ring) pairs
+# beta_plan picks for some S <= 5806, the only ones csrc/ctc_loss.cu builds
+BETA_STATES = (2, 4, 8, 16)
+BETA_KERNELS = ((2, 8), (2, 4), (4, 4), (4, 2), (8, 2), (16, 2))
 
 
 def beta_smem_bytes(s_max: int) -> int:
-    """K2's dynamic shared memory (the sum in csrc/ctc_loss.cu): the
-    recompute's slots and buf (2L + 2 floats), beta~ (L + 2), red (32) and
-    the lattice (L + L + 2 ints).  It sets the largest S the kernels
-    take."""
+    """The shared memory of the K2 that the current one replaced
+    (tools/ctc_beta_reference.cu: a beta row, a scratch row, the
+    recompute's slots, the lattice; 4 (5L + 38) bytes at L = 2S+1).  It
+    sets the largest S the kernels take (5806), which the redesign kept."""
     L = 2 * s_max + 1
     return 4 * (3 * L + 36 + 2 * L + 2)
+
+
+def _whole_warps(L: int, r: int) -> int:
+    return -(-(-(-L // r)) // 32) * 32
 
 
 def alpha_plan(s_max: int, states: int | None = None,
@@ -65,14 +75,10 @@ def alpha_plan(s_max: int, states: int | None = None,
         raise ValueError(f"S={s_max} labels: the lattice does not fit the "
                          "kernels' shared memory")
     L = 2 * s_max + 1
-
-    def computing(r):
-        return -(-(-(-L // r)) // 32) * 32
-
     if states is None:
         states = next(r for r in STATES if r >= ALPHA_STATES
-                      and computing(r) <= _MAX_THREADS)
-    threads = computing(states)
+                      and _whole_warps(L, r) <= _MAX_THREADS)
+    threads = _whole_warps(L, states)
     if states not in STATES or threads > _MAX_THREADS:
         raise ValueError(f"K1 takes {STATES} states a thread within "
                          f"{_MAX_THREADS} threads, got {states} at L={L}")
@@ -87,6 +93,54 @@ def alpha_plan(s_max: int, states: int | None = None,
                          "not fit")
     return {"states": states, "threads": threads, "ring": ring,
             "tape": tape, "smem": nbytes(ring, tape)}
+
+
+def beta_smem(states: int, threads: int, ring: int, tape: int) -> int:
+    """K2's shared bytes: the step's slot rows (16 floats a warp), the
+    recompute's (8), the input ring (a thread's stage: its emissions,
+    states / 2 + 1 with the blank shared when `states` is even, else
+    `states`, and `states` alpha entries, padded to a multiple of 4
+    floats), the staged gamma rows (`states` a thread a frame) and the
+    alpha norms (2 ring ints)."""
+    emissions = states if states % 2 else states // 2 + 1
+    stage = (emissions + states + 3) // 4 * 4
+    return 4 * (24 * (threads // 32) + ring * stage * threads
+                + tape * states * threads + 2 * ring)
+
+
+def beta_plan(s_max: int) -> dict:
+    """K2's launch at L = 2 s_max + 1 states, a function of s_max alone:
+    `states` a thread (R, the fewest of BETA_STATES that fit 1024
+    threads), `threads` (whole warps over ceil(L/R)), `ring` (frames of
+    emissions and alpha entries copied ahead) and `tape` (frames of gamma
+    staged between stores), the first pair of (8, 64), (8, 32), (8, 16),
+    (4, 8), (2, 4), (2, 2), (2, 1) that fits, and `smem` (beta_smem).
+    Raises where alpha_plan does (S > 5806)."""
+    alpha_plan(s_max)
+    L = 2 * s_max + 1
+    states = next(r for r in BETA_STATES
+                  if _whole_warps(L, r) <= _MAX_THREADS)
+    threads = _whole_warps(L, states)
+    ring, tape = next(p for p in _RING_TAPE
+                      if beta_smem(states, threads, *p) <= _SMEM_LIMIT)
+    return {"states": states, "threads": threads, "ring": ring,
+            "tape": tape, "smem": beta_smem(states, threads, ring, tape)}
+
+
+def log1p_mismatches(lo: int = 0, hi: int = 0x40800000) -> int:
+    """On the card: how many floats with bits in [lo, hi) (by default
+    [0, 4)) K2's branch-free log1p gives other bits for than libm's
+    log1pf; 0 is what K2's bit-equality rests on.  Raises unless every
+    float of the range was checked."""
+    out = torch.zeros(2, dtype=torch.int32, device="cuda")
+    lib, _ = cuda_build.library()
+    cuda_build.check(lib.e2e_ctc_log1p_check(lo, hi, out.data_ptr(),
+                                             _stream(out.device)),
+                     "e2e_ctc_log1p_check")
+    bad, seen = out.tolist()
+    if seen != hi - lo:
+        raise RuntimeError(f"log1p check saw {seen} of {hi - lo} floats")
+    return bad
 
 
 def _check(log_probs, targets, every):
@@ -150,10 +204,11 @@ def alpha_cuda(log_probs, targets, input_lengths, target_lengths, blank=0,
 
 def beta_cuda(log_probs, targets, input_lengths, target_lengths, alpha,
               anorm2, z_hat, norm_end2, blank=0, every=0):
-    """Launch K2 on alpha_cuda's outputs (same `every`).  Returns gamma
-    (T, N, L): the state occupations, 0 on invalid states, at t >= il and
-    where z is not finite."""
-    plan = _check(log_probs, targets, every)
+    """Launch K2 on alpha_cuda's outputs (same `every`), at beta_plan.
+    Returns gamma (T, N, L): the state occupations, 0 on invalid states,
+    at t >= il and where z is not finite."""
+    _check(log_probs, targets, every)
+    plan = beta_plan(targets.shape[1])
     dev = log_probs.device
     t_max, n, v = log_probs.shape
     s_max = targets.shape[1]
@@ -171,7 +226,8 @@ def beta_cuda(log_probs, targets, input_lengths, target_lengths, alpha,
             alpha.data_ptr(), anorm2.data_ptr(), z_hat.data_ptr(),
             norm_end2.data_ptr(), gamma.data_ptr(), abuf.data_ptr(),
             nbuf.data_ptr(), t_max, n, v, s_max, blank, every,
-            plan["states"], _stream(dev))
+            *(plan[k] for k in ("states", "threads", "ring", "tape",
+                                "smem")), _stream(dev))
     cuda_build.check(status, "e2e_ctc_beta_f32")
     launches["ctc_beta"] += 1
     return gamma

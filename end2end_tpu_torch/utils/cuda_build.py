@@ -43,9 +43,13 @@ _SIGNATURES = {
     "e2e_ctc_alpha_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP),
     # lp, targets, il, tl, a_in, n_in, z_hat, norm_end2, gamma, abuf, nbuf,
-    # t_max, n, v, s_max, blank, every, states, stream
+    # t_max, n, v, s_max, blank, every, states, threads, ring, tape, smem,
+    # stream
     "e2e_ctc_beta_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                         _VP, _I, _I, _I, _I, _I, _I, _I, _VP),
+                         _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _VP),
+    # lo, hi (float bits), out (int32 mismatches, floats checked), stream
+    "e2e_ctc_log1p_check": (_I, _I, _VP, _VP),
     # lp, gamma, targets, il, tl, g, out, t_max, n, v, s_max, blank, stream
     "e2e_ctc_grad_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
                          _I, _VP),

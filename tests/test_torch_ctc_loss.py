@@ -17,6 +17,8 @@ criterion, which decides that libm exp/log1p are accurate enough (the JAX
 package's fastmath polynomials are not ported).
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +32,7 @@ from end2end_tpu.ops.ctc_loss_xla import ctc_nll_xla
 from end2end_tpu.utils.reference_impl import ctc_loss_ref
 from end2end_tpu_torch import CTCLoss, ctc_loss, ctc_loss_jit, ctc_nll
 from end2end_tpu_torch.ops import ctc_common, ctc_loss_cuda
-from end2end_tpu_torch.tools import ctc_alpha_breakdown
+from end2end_tpu_torch.tools import ctc_alpha_breakdown, ctc_beta_breakdown
 from end2end_tpu_torch.tools.joint_dw_breakdown import patched
 from end2end_tpu_torch.utils import cuda_build
 from tests.conftest import random_ctc_problem
@@ -376,6 +378,93 @@ def test_alpha_plan_refuses_where_the_kernels_do():
         ctc_loss_cuda.alpha_plan(100, ring=3)
     with pytest.raises(ValueError, match="do not fit"):
         ctc_loss_cuda.alpha_plan(_S_LIMIT, ring=8, tape=16)
+
+
+def _beta_slots(plan):
+    """The shared bytes K2's plan must ask for: 16 + 8 floats a warp of
+    slots, a ring stage of R/2 + 1 emissions and R alpha entries a thread
+    padded to a multiple of 4 floats, the staged gamma rows (R a thread a
+    frame), 2 ring norms."""
+    r, threads, ring, tape = (plan[k] for k in ("states", "threads",
+                                                 "ring", "tape"))
+    emissions = r if r % 2 else r // 2 + 1
+    stage = -(-(emissions + r) // 4) * 4
+    return 4 * (24 * (threads // 32) + ring * stage * threads
+                + tape * r * threads + 2 * ring)
+
+
+@pytest.mark.parametrize("s_max", [0, 1, 16, 63, 100, 187, 200, 255, 256,
+                                   511, 512, 1023, 2047, 2048, 4095,
+                                   _S_LIMIT])
+def test_beta_plan_covers_every_lattice_that_fits(s_max):
+    """K2's launch plan for L = 2S+1 from 1 up to the shared-memory limit,
+    a function of S alone: the fewest of 2, 4, 8, 16 states a thread that
+    fit 1024 threads; whole warps over ceil(L/R) with no idle warp; the
+    deepest (ring, staged gamma) pair that fits and its shared bytes;
+    a (states, ring) pair the library builds."""
+    L = 2 * s_max + 1
+    plan = ctc_loss_cuda.beta_plan(s_max)
+    r, threads = plan["states"], plan["threads"]
+    assert r == min(x for x in (2, 4, 8, 16) if _computing(L, x) <= 1024)
+    assert threads % 32 == 0 and threads <= 1024
+    assert r * threads >= L > r * (threads - 32)  # no idle warp
+    assert plan["smem"] == _beta_slots(plan) <= 232448
+    pairs = ((8, 64), (8, 32), (8, 16), (4, 8), (2, 4), (2, 2), (2, 1))
+    at = pairs.index((plan["ring"], plan["tape"]))
+    assert all(_beta_slots({**plan, "ring": ring, "tape": tape}) > 232448
+               for ring, tape in pairs[:at])
+    assert (r, plan["ring"]) in ctc_loss_cuda.BETA_KERNELS
+    assert ctc_loss_cuda.beta_plan(s_max) == plan  # no state, no override
+
+
+def test_beta_kernels_are_the_plans_picks():
+    """The (states, ring) pairs that beta_plan picks over every S the
+    kernels take are BETA_KERNELS, and csrc/ctc_loss.cu instantiates those
+    and no others; above the limit beta_plan refuses as alpha_plan
+    does."""
+    picked = {(p["states"], p["ring"]) for p in map(
+        ctc_loss_cuda.beta_plan, range(_S_LIMIT + 1))}
+    assert picked == set(ctc_loss_cuda.BETA_KERNELS)
+    src = (cuda_build.CSRC / "ctc_loss.cu").read_text()
+    built = {tuple(map(int, m)) for m in re.findall(
+        r"launch_beta<(\d+), (\d+)>", src)}
+    assert built == picked
+    with pytest.raises(ValueError, match="shared memory"):
+        ctc_loss_cuda.beta_plan(_S_LIMIT + 1)
+
+
+@pytest.mark.parametrize("name", [f"new: {k}" for k in ctc_beta_breakdown.NEW]
+                         + [f"parent: {k}" for k in ctc_beta_breakdown.PARENT]
+                         + ["probe", "parent probe", "any plan"])
+def test_beta_breakdown_patches_apply(name):
+    """Each of the K2 breakdown tool's text patches finds its text exactly
+    once, in csrc/ctc_loss.cu (the kernel's variants, its clock probe and
+    the build of every plan) or in tools/ctc_beta_reference.cu (the
+    parent's), so the variants it times exist."""
+    src = (cuda_build.CSRC / "ctc_loss.cu").read_text()
+    ref = ctc_beta_breakdown.REFERENCE.read_text()
+    kind, _, key = name.partition(": ")
+    text, patches = {
+        "new": (src, ctc_beta_breakdown.NEW.get(key)),
+        "parent": (ref, ctc_beta_breakdown.PARENT.get(key)),
+        "probe": (src, ctc_beta_breakdown.PROBE),
+        "parent probe": (ref, ctc_beta_breakdown.PARENT_PROBE),
+        "any plan": (src, ctc_beta_breakdown.ANY_PLAN)}[kind]
+    assert patched(text, patches) != text
+
+
+def test_beta_breakdown_other_plans():
+    """The tool's other plans at the two timed shapes: each differs from
+    beta_plan's in what it names, keeps whole warps over ceil(L/R), and
+    asks for the shared bytes the C entry checks."""
+    for _, _, s, _ in ctc_alpha_breakdown.SHAPES.values():
+        base = ctc_loss_cuda.beta_plan(s)
+        for over in ctc_beta_breakdown.PLANS.values():
+            plan = ctc_beta_breakdown.plan_with(s, **over)
+            assert {k: plan[k] for k in over} == over != {
+                k: base[k] for k in over}
+            assert plan["threads"] == _computing(2 * s + 1, plan["states"])
+            assert plan["smem"] == _beta_slots(plan) <= 232448
 
 
 @pytest.mark.parametrize("name", list(ctc_alpha_breakdown.NEW))

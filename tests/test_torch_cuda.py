@@ -21,6 +21,7 @@ from end2end_tpu_torch.ops.ctc_loss import ctc_nll
 from end2end_tpu_torch.ops.rnnt_joint import rnnt_nll_fused_pallas
 from end2end_tpu_torch.ops.rnnt_loss import rnnt_loss, rnnt_nll
 from end2end_tpu_torch.tools import (beam_step_breakdown, ctc_alpha_breakdown,
+                                     ctc_beta_breakdown,
                                      rnnt_wavefront_breakdown)
 
 pytestmark = pytest.mark.cuda
@@ -41,6 +42,16 @@ def two_barrier_k1(tmp_path_factory):
         pytest.skip("needs an NVIDIA GPU")
     return ctc_alpha_breakdown.build_reference(
         tmp_path_factory.mktemp("two_barrier_k1"))[0]
+
+
+@pytest.fixture(scope="module")
+def parent_k2(tmp_path_factory):
+    """The two-barrier K2 that K2 replaced, built from
+    tools/ctc_beta_reference.cu: K2's bit-identity oracle."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return ctc_beta_breakdown.build_reference(
+        tmp_path_factory.mktemp("parent_k2"))[0]
 
 
 @pytest.fixture(scope="module")
@@ -453,6 +464,81 @@ def test_alpha_kernel_signed_zero_row_max(dev, two_barrier_k1):
     for states in (1, 2, 3, 4):
         got = ctc_loss_cuda.alpha_cuda(*args, states=states)
         assert ctc_alpha_breakdown.equal_outputs(got, want), states
+
+
+def _k2_case(rng, t, s, v, blank, dev):
+    """Lengths with il = T, il = 0, il = 1 and one in between, full and
+    empty targets, repeated labels, labels clear of the blank, and one
+    sample whose target is longer than its input (infeasible)."""
+    x = rng.standard_normal((t, 5, v)) * 2.0
+    lp = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+    lp[::3, 0, 1] = -np.inf
+    il = np.array([t, 0, 1, max(t // 2, 1), max(min(s - 1, t), 1)])
+    tl = np.array([s, s, min(s, 1), s // 2, s])
+    tgt = rng.integers(1, 4, (5, s))
+    tgt = np.where(tgt == blank, 1, tgt)
+    return [torch.from_numpy(lp).to(dev)] + [
+        torch.from_numpy(a.astype(np.int32)).to(dev) for a in (tgt, il, tl)]
+
+
+@pytest.mark.parametrize("s", [0, 16, 511, 512, 1024, 2048, 5806])
+@pytest.mark.parametrize("t", [1, 37])
+def test_beta_kernel_bit_equal_to_the_parent(dev, parent_k2, s, t):
+    """K2 at L = 1, 33, 1023 and 1025 states (2 a thread) and at the
+    plans of 4, 8 and 16 states a thread (S = 1024, 2048, 5806), with
+    il = 0, il = 1, T = 1 and an infeasible sample, blank 0 and 6, in the
+    tape mode and checkpoint mode (4 and 64 frames): gamma bit-equal to
+    the two-barrier K2's, and equal across the modes."""
+    for blank in (0, 6):
+        args = _k2_case(np.random.default_rng(s + t + blank), t, s, 7, blank,
+                        dev)
+        want = ctc_beta_breakdown.runner(parent_k2, False, args, 0, None,
+                                         blank)()
+        for every in (0, 4, 64):
+            z, ne, a, an = ctc_loss_cuda.alpha_cuda(*args, blank, every)
+            got = ctc_loss_cuda.beta_cuda(*args, a, an, z, ne, blank, every)
+            parent = ctc_beta_breakdown.runner(parent_k2, False, args, every,
+                                               None, blank)()
+            assert ctc_alpha_breakdown.equal_outputs([got], [parent]), (
+                blank, every)
+            assert ctc_alpha_breakdown.equal_outputs([got], [want]), (
+                blank, every)
+
+
+def test_beta_log1p_is_libm_on_its_range(dev):
+    """K2's branch-free log1p (libm's log1pf without its path for
+    infinities, NaNs and u <= -1) gives libm's bits on every one of the
+    1,082,130,432 floats in [0, 4), which holds K2's sums (in [0, 2])."""
+    assert ctc_loss_cuda.log1p_mismatches() == 0
+
+
+def test_beta_kernel_signed_zero_row_max(dev, parent_k2):
+    """Beta rows whose max is exactly zero, the emissions along the path
+    +0.0 and -0.0 in both orders (label or blank log-probs 0, the other
+    column -inf, so beta~ and alpha are exact zeros on the path).  The
+    redesigned K2 takes its row max by a redux on the floats'
+    order-preserving ints (-0 below +0), the parent by fmaxf; both
+    shifts, and every gamma bit, agree.  (logaddexp3 adds log1pf's +0,
+    so a beta~ value is never -0 itself: the zeros' signs enter through
+    the emissions.)"""
+    lp = torch.full((4, 4, 3), -1.0)
+    lp[:, :2, 0] = float("-inf")  # sequences 0, 1: the label's path
+    lp[:, 0, 1] = torch.tensor([0.0, -0.0, 0.0, -0.0])
+    lp[:, 1, 1] = torch.tensor([-0.0, 0.0, -0.0, 0.0])
+    lp[:, 2:, 1] = float("-inf")  # sequences 2, 3: blanks only
+    lp[:, 2, 0] = torch.tensor([0.0, -0.0, -0.0, 0.0])
+    lp[:, 3, 0] = torch.tensor([-0.0, 0.0, 0.0, -0.0])
+    args = [lp.to(dev)] + [torch.tensor(a, dtype=torch.int32, device=dev)
+                           for a in ([[1], [1], [1], [1]], [4, 4, 4, 3],
+                                     [1, 1, 0, 0])]
+    for every in (0, 2):
+        z, ne, a, an = ctc_loss_cuda.alpha_cuda(*args, 0, every)
+        assert torch.equal(z.cpu(), torch.zeros(4))
+        got = ctc_loss_cuda.beta_cuda(*args, a, an, z, ne, 0, every)
+        want = ctc_beta_breakdown.runner(parent_k2, False, args, every)()
+        assert ctc_alpha_breakdown.equal_outputs([got], [want]), every
+        assert got[:, :2, 1].eq(1.0).all() and got[:, 2, 0].eq(1.0).all()
+        assert got[:3, 3, 0].eq(1.0).all() and not got[3, 3].any()
 
 
 def test_ctc_kernels_reject_what_they_cannot_run(dev):
