@@ -14,10 +14,14 @@ Phases (every failure raises, so the exit code is nonzero):
      (tools/joint_fwd_reference.cu), the
      baseline of phases 20 and 25, the warp-per-sequence beam kernel
      that the beam step replaced (tools/beam_step_reference.cu), the
-     baseline of phases 5, 7, 11, 12 and 14, and the block-per-sequence
+     baseline of phases 5, 7, 11, 12 and 14, the block-per-sequence
      K8/K9 that K8 and K9 replaced (tools/rnnt_loss_reference.cu), the
-     baseline of phases 15-17;
-  4. top-k kernel vs its plain version: values bit-equal, indices equal;
+     baseline of phases 15-17, and the K3 that K3 replaced
+     (tools/topk_reference.cu), the baseline of phases 4 and 7;
+  4. top-k kernel vs its plain version and the parent K3 at the beam
+     decoder's reference shape (V=1024, k=24), the serving slice's (V=32),
+     the LM decode's at B=128 (V=29) and the beam-16 row's k=40: values
+     and indices bit-equal;
   5. beam-step kernel vs its plain version and vs the parent kernel on
      peaked lattices at the beam decoder's reference shape (B=32, T=1000,
      V=1024, beam 8, prune 16) and at bench.py's beam-16 row (beam 16,
@@ -30,14 +34,21 @@ Phases (every failure raises, so the exit code is nonzero):
      d 256, 4 layers, 4 heads, 80 mels, seeded random weights, built on
      the card by default, with no device argument) answers three
      batches of 8 requests of mixed length (padded to 30 s) with greedy and
-     beam-8 / prune-16 decoding; the launch counters must show both kernels
-     ran; one batch's log-probs must match the same model on the CPU within
+     beam-8 / prune-16 decoding; the launch counters must show the top-k,
+     the beam step and the backtrace kernel once per beam batch; one
+     batch's log-probs must match the same model on the CPU within
      1e-3, and on them the kernels' best hypotheses must equal the plain
      path's;
   7. timings with CUDA events (median of 5 after warm-up), and in device
-     time, in turns (A B B A): K3 against torch.topk, the beam step (K4)
-     against the parent kernel at the serving slice's shape and at the
-     beam-16 row (also as microseconds a frame);
+     time, in turns (A B B A): K3 against the parent K3 and torch.topk at
+     phase 4's four shapes (bit-equal first), the beam step (K4) against
+     the parent kernel at the serving slice's shape and at the beam-16 row
+     (also as microseconds a frame); the backtrace kernel equal to
+     backtrace_plain with the host walk (tokens, lengths, scores, times)
+     and the lane-walk kernel equal to lane_walk_plain (lane0, the
+     frame-aligned tokens, their counts) on the serving slice's, the
+     reference shape's and the beam-16 row's codes, their device times
+     and one calls beside the host walks';
   8. CTC alpha (K1) and beta (K2) kernels vs their plain versions at the
      loss's reference shapes (metric B=32 T=1000 S=100 V=1024,
      librispeech-char B=32 T=1000 S=200 V=29, bpe-asr B=16 T=1500 S=150
@@ -79,18 +90,22 @@ Phases (every failure raises, so the exit code is nonzero):
      K7).  Driven through `beam_search_decode(implementation='chunked')`
      with the launch counters read around it, then kernels vs the plain
      twin and vs the parent kernel on the card: every chunk's codes and
-     the final state identical, same hypotheses;
+     the final state identical, same hypotheses; the lane walk launched
+     once per chunk and the backtrace kernel once per decode;
  13. the serving slice with an LM: the pipeline of phase 6 decodes the
      same 3 batches with beam 8, prune 16 and a seeded bigram LM over its
-     32 symbols; the counters must show the top-k kernel and K5 once per
-     batch, and on one batch the kernels' best hypotheses must equal the
-     plain path's;
+     32 symbols; the counters must show the top-k kernel, K5 and the
+     backtrace kernel once per batch, and on one batch the kernels' best
+     hypotheses must equal the plain path's;
  14. timings: K5, K6, K7 alone vs their plain twins and, in device time
      in turns, vs the parent kernel (also as microseconds a frame), the
      LM-fused and the
      chunked word-LM decodes at B=128, T=1000, V=29 (seq/s; the chunked
      one split into kernel and chunk-boundary time), the pipeline's LM
-     decode at B=8 x 30 s, and torch.topk beside K3;
+     decode at B=8 x 30 s, and torch.topk beside K3; the lane walk equal
+     to the host walk on the first chunk of two of phase 12's decodes
+     (timed on the word LM's), and the backtrace kernel checked and timed
+     at B=128 as in phase 7;
  15. the RNN-T alpha (K8) and posterior (K9) kernels vs the plain scans at
      the JAX bench row's shape (B=8, T=400, U=80, V=256, random logits,
      from logits) and two edge batches (U > T with variable lengths and an
@@ -231,7 +246,7 @@ from end2end_tpu_torch.ops.lm import (NGramLM, QuantizedBigramGuide,
                                       WordNGramLM, bigram_from_counts)
 from end2end_tpu_torch.tools import (beam_step_breakdown, ctc_alpha_breakdown,
                                      ctc_beta_breakdown, joint_fwd_breakdown,
-                                     rnnt_wavefront_breakdown)
+                                     rnnt_wavefront_breakdown, topk_breakdown)
 from end2end_tpu_torch.tools.joint_dw_breakdown import (
     N_SMS, device_ms, max_sm_mhz, tensor_ops_per_s, under_load)
 from end2end_tpu_torch.utils import cuda_build
@@ -317,7 +332,12 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 EXP_PER_SM_CLOCK = 16
 BEAM_COUNTERS = ("launches", "launches_lm", "launches_cls",
-                 "launches_resume")
+                 "launches_resume", "launches_backtrace", "launches_walk")
+# K3 against the K3 it replaced, torch.topk and its plain version: name:
+# (T, B, V, k), the serving slice's top-k, the LM decode's at B=128, the
+# beam decoder's reference shape and bench.py's beam-16 row (k = K + 8)
+TOPK_SHAPES = {"main": (750, 8, 32, 24), "b128": (1000, 128, 29, 24),
+               "ref": (1000, 32, 1024, 24), "beam16": (1000, 32, 1024, 40)}
 
 
 START = time.perf_counter()
@@ -426,6 +446,127 @@ def topk_bound(x, k):
     compare per value."""
     rows = x.numel() // x.shape[-1]
     return bound(x.numel() * 4 + rows * k * 8, x.numel())
+
+
+def backtrace_bound(bp, out):
+    """The backtrace kernel on this run's data: the codes and scores read
+    once, the top-k id of each emission on the best paths read once, the
+    token and time rows, lengths and scores written once (the scratch row
+    of emissions is neither input nor output); no arithmetic to speak
+    of."""
+    t_max, w, n = bp.shape
+    tokens, lens = out[:2]
+    nbytes = (bp.numel() * 4 + w * n * 4 + int(lens.long().sum()) * 4
+              + 2 * tokens.numel() * 4 + 2 * lens.numel() * 4)
+    return bound(nbytes)
+
+
+def lane_walk_bound(bp, out):
+    """The lane-walk kernel on this run's data: the codes read once, the
+    top-k id of each emission on the final beams' paths read once, lane0,
+    the int64 token rows and their counts written once (the scratch of
+    slots is neither input nor output); no arithmetic to speak of."""
+    lane0, toks, n_emit = out
+    nbytes = (bp.numel() * 4 + int(n_emit.sum()) * 4
+              + (lane0.numel() + toks.numel() + n_emit.numel()) * 8)
+    return bound(nbytes)
+
+
+def check_walk(bp, ck, W, K, what):
+    """The lane-walk kernel equal to the host walk on the card: lane0, the
+    frame-aligned tokens and their counts; its launch is not counted.
+    Returns the max abs difference (0)."""
+    before = beam_search_cuda.launches_walk
+    got = beam_search_cuda.lane_walk_cuda(bp, ck, W, K)
+    beam_search_cuda.launches_walk = before
+    want = beam_search_cuda.lane_walk_plain(bp, ck, W, K)
+    torch.cuda.synchronize()
+    if not all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(got, want)):
+        raise AssertionError(f"lane walk kernel != host walk ({what})")
+    log(f"{what}: the lane walk equals the host walk (T={bp.shape[0]}, "
+        f"W={W}, N={bp.shape[2]}: lane0, tokens, counts)")
+    return max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+
+def check_backtrace(bp, ck, score, W, K, s_cap, what):
+    """The backtrace kernel equal to backtrace_plain (the host walk) on the
+    card: tokens, lengths, times and the scores' bits; its launch is not
+    counted.  Also the lane walk on the same codes (check_walk).  Returns
+    the max abs differences (0) of the two: (backtrace, lane walk)."""
+    before = beam_search_cuda.launches_backtrace
+    got = beam_search_cuda.backtrace_cuda(bp, ck, score, W, K, s_cap)
+    beam_search_cuda.launches_backtrace = before
+    want = beam_search_cuda.backtrace_plain(bp, ck, score, W, K, s_cap)
+    torch.cuda.synchronize()
+    if not all(a.dtype == b.dtype and torch.equal(
+            a.view(torch.int32), b.view(torch.int32))
+            for a, b in zip(got, want)):
+        raise AssertionError(f"backtrace kernel != backtrace_plain ({what})")
+    log(f"{what}: the backtrace kernel equals backtrace_plain with the host "
+        f"walk (T={bp.shape[0]}, W={W}, N={bp.shape[2]}, s_cap={s_cap}: "
+        f"tokens, lengths, scores, times)")
+    err = max(float((a.float() - b.float()).nan_to_num().abs().max())
+              for a, b in zip(got, want))
+    return err, check_walk(bp, ck, W, K, what)
+
+
+def time_walk(name, bp, ck, score, W, K, s_cap):
+    """The backtrace kernel's device time and one call beside
+    backtrace_plain's (the host walk, then the torch compaction: before
+    this kernel), and the lane-walk kernel's on the same codes beside
+    lane_walk_plain's; into the ms dict returned, logged.  Returns (ms,
+    the backtrace kernel's bound)."""
+    ms = {f"backtrace_{name}": time_both(
+        f"backtrace_{name}", lambda: beam_search_cuda.backtrace_cuda(
+            bp, ck, score, W, K, s_cap)),
+        f"backtrace_plain_{name}": time_ms(
+            lambda: beam_search_cuda.backtrace_plain(bp, ck, score, W, K,
+                                                     s_cap)),
+        f"lane_walk_{name}": time_both(
+            f"lane_walk_{name}", lambda: beam_search_cuda.lane_walk_cuda(
+                bp, ck, W, K)),
+        f"lane_walk_plain_{name}": time_ms(
+            lambda: beam_search_cuda.lane_walk_plain(bp, ck, W, K))}
+    b = backtrace_bound(bp, beam_search_cuda.backtrace_cuda(
+        bp, ck, score, W, K, s_cap))
+    wb = lane_walk_bound(bp, beam_search_cuda.lane_walk_cuda(bp, ck, W, K))
+    frames = bp.shape[0]
+    log(f"backtrace ({name}: T={frames}, W={W}, N={bp.shape[2]}, "
+        f"s_cap={s_cap}): the kernel {DEVICE_MS[f'backtrace_{name}'][0]:.4f}"
+        f" ms device, one call {ms[f'backtrace_{name}']:.4f}, with the host "
+        f"walk and the torch compaction {ms[f'backtrace_plain_{name}']:.3f}"
+        f" ms; bound {b[0]:.4f} ms ({b[1]}); the lane walk "
+        f"{DEVICE_MS[f'lane_walk_{name}'][0]:.4f} ms device "
+        f"({1e6 * DEVICE_MS[f'lane_walk_{name}'][0] / frames:.1f} ns a "
+        f"frame), one call {ms[f'lane_walk_{name}']:.4f}, the host walk "
+        f"{ms[f'lane_walk_plain_{name}']:.3f} ms; bound {wb[0]:.4f} ms "
+        f"({wb[1]})")
+    return ms, b
+
+
+def topk_turns(name, x, k, ref_lib):
+    """K3, the K3 it replaced and torch.topk in device time, in turns (A B
+    B A), after checking K3's values and indices bit-equal to the parent's
+    and to topk_plain's; logged with the plan and the bound."""
+    t, b, v = x.shape
+    parent = topk_breakdown.runner(ref_lib, x, k)
+    got = topk_cuda.topk_cuda(x, k)
+    for what, want in (("the parent K3", parent()),
+                       ("topk_plain", topk_cuda.topk_plain(x, k))):
+        if not topk_breakdown.same_bits(got, want):
+            raise AssertionError(f"K3 != {what} at {name} {(t, b, v, k)}")
+    plan = topk_cuda.topk_plan(v, k)
+    out = in_turns(f"phase 7 K3 vs the parent K3 and torch.topk ({name}: "
+                   f"T={t}, B={b}, V={v}, k={k}; plan {plan}; bit-equal to "
+                   f"the parent and to topk_plain)",
+                   {"K3": lambda: topk_cuda.topk_cuda(x, k),
+                    "parent": parent,
+                    "torch.topk": lambda: torch.topk(x, k)}, 50)
+    tb = topk_bound(x, k)
+    log(f"phase 7 K3 ({name}) bound {tb[0]:.5f} ms ({tb[1]}): K3 at "
+        f"{100 * tb[0] / min(out['K3']):.1f}% of it")
+    return out
 
 
 def beam_bound(lpk, il, W, K, inc=None, cls_map=None, resume=False):
@@ -560,7 +701,7 @@ def plain_beam_decode(log_probs, il, W, K, s_cap, blank=0, lm=None):
     if lm is not None:
         eos = lm._eos[last.long().clamp(0, v - 1)]
         score = score + torch.where(last >= 0, LM_ALPHA * eos, 0.0)
-    return beam_search_cuda.backtrace(bp, ck, score, W, K, s_cap)[:3]
+    return beam_search_cuda.backtrace_plain(bp, ck, score, W, K, s_cap)[:3]
 
 
 def parent_step(lib):
@@ -674,7 +815,8 @@ def check_chunked(name, inputs, lm, main_out, W, K, parent):
             raise AssertionError(f"{name} vs {what}: {differing} codes "
                                  "differ, or the state does")
     got = beam_search_cuda.backtrace(kern[0], ck, kern[1], W, K, s_cap)[:3]
-    want = beam_search_cuda.backtrace(plain[0], ck, plain[1], W, K, s_cap)
+    want = beam_search_cuda.backtrace_plain(plain[0], ck, plain[1], W, K,
+                                            s_cap)
     err = compare_beams(beam_sets(*got), beam_sets(*want[:3]), name)
     if not all(torch.equal(a, b) for a, b in zip(got, main_out)):
         raise AssertionError(f"{name}: beam_search_decode differs from the "
@@ -685,18 +827,25 @@ def check_chunked(name, inputs, lm, main_out, W, K, parent):
     return err
 
 
-def check_topk(rng, dev, shapes):
+def check_topk(rng, dev, shapes, ref_lib):
+    """K3 against topk_plain and the K3 it replaced: values and indices
+    bit for bit."""
     err = 0.0
     for t, b, v, ks in shapes:
         x = torch.from_numpy(
             rng.standard_normal((t, b, v)).astype(np.float32)).to(dev)
         vals, idx = topk_cuda.topk_cuda(x, ks)
         pv, pi = topk_cuda.topk_plain(x, ks)
+        parent = topk_breakdown.runner(ref_lib, x, ks)()
         torch.cuda.synchronize()
-        if not torch.equal(vals, pv) or not torch.equal(idx, pi):
+        if not topk_breakdown.same_bits((vals, idx), (pv, pi)):
             raise AssertionError(f"top-k kernel != plain at {(t, b, v, ks)}")
+        if not topk_breakdown.same_bits((vals, idx), parent):
+            raise AssertionError(f"top-k kernel != the parent K3 at "
+                                 f"{(t, b, v, ks)}")
         err = max(err, float((vals - pv).abs().max()))
-        log(f"phase 4 top-k (T={t}, B={b}, V={v}, ks={ks}): bit-equal")
+        log(f"phase 4 top-k (T={t}, B={b}, V={v}, ks={ks}): bit-equal to "
+            f"topk_plain and to the parent K3")
     return err
 
 
@@ -718,8 +867,8 @@ def check_beam(rng, dev, t, b, v, W, K, parent):
     assert_same_bits(kern, parent(*args), "beam step vs the parent kernel")
     got = beam_sets(*beam_search_cuda.backtrace(kern[0], ck, kern[1], W, K,
                                                 s_cap)[:3])
-    want = beam_sets(*beam_search_cuda.backtrace(plain[0], ck, plain[1], W,
-                                                 K, s_cap)[:3])
+    want = beam_sets(*beam_search_cuda.backtrace_plain(
+        plain[0], ck, plain[1], W, K, s_cap)[:3])
     err = compare_beams(got, want, "beam kernel vs plain")
     log(f"phase 5 beam step (B={b}, T={t}, V={v}, W={W}, K={K}): 0 of "
         f"{n_codes} codes differ from the plain twin's and the parent "
@@ -1051,11 +1200,11 @@ def timed(fn, events):
 def time_chunk_split(inputs, lm, W, reps=5):
     """The chunk loop of a chunked decode with CUDA events around it, each
     kernel launch and each piece of the chunk boundary: the lane walk back
-    through the chunk's codes (`_chunk_emissions`), the left-justification
+    through the chunk's codes (`lane_walk`), the left-justification
     of the emitted tokens (`compact_rows`) and the LM replay
     (`score_chunk`); the rest of the boundary is the LM-state re-homing and
     the bonus update.  Returns the ms of the median rep after a warm-up."""
-    pieces = {"lane_walk": (beam_chunked, "_chunk_emissions"),
+    pieces = {"lane_walk": (beam_chunked, "lane_walk"),
               "compact": (beam_chunked, "compact_rows"),
               "score_chunk": (lm, "score_chunk")}
     originals = {k: getattr(o, a) for k, (o, a) in pieces.items()}
@@ -1070,7 +1219,7 @@ def time_chunk_split(inputs, lm, W, reps=5):
                    timed(beam_search_cuda.beam_step_cuda, events["kernels"]))
         end.record()
         end.synchronize()
-        setattr(beam_chunked, "_chunk_emissions", originals["lane_walk"])
+        setattr(beam_chunked, "lane_walk", originals["lane_walk"])
         setattr(beam_chunked, "compact_rows", originals["compact"])
         del lm.score_chunk  # the class's method again
         if rep:
@@ -1735,7 +1884,7 @@ def main() -> None:
     # and, beside it, the kernels that K1, K10 and the beam step replaced
     # (the A/B baselines)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(5) as pool:
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
         ref_build = pool.submit(ctc_alpha_breakdown.build_reference,
                                 cuda_build.BUILD_DIR / "reference")
         k2_build = pool.submit(ctc_beta_breakdown.build_reference,
@@ -1746,12 +1895,15 @@ def main() -> None:
                                  cuda_build.BUILD_DIR / "reference_beam")
         rnnt_build = pool.submit(rnnt_wavefront_breakdown.build_reference,
                                  cuda_build.BUILD_DIR / "reference_rnnt")
+        topk_build = pool.submit(topk_breakdown.build_reference,
+                                 cuda_build.BUILD_DIR / "reference_topk")
         _, info = cuda_build.library()
         ref_lib, ref_ptxas = ref_build.result()
         k2_ref_lib, k2_ref_ptxas = k2_build.result()
         k10_ref_lib, k10_ref_ptxas = k10_build.result()
         beam_ref_lib, beam_ref_ptxas = beam_build.result()
         rnnt_ref_lib, rnnt_ref_ptxas = rnnt_build.result()
+        topk_ref_lib, topk_ref_ptxas = topk_build.result()
     parent = parent_step(beam_ref_lib)
     log(f"phase 3 build: {info['build_s']:.1f} s nvcc, "
         f"{time.perf_counter() - t0:.1f} s to load ({info['path']})")
@@ -1768,10 +1920,18 @@ def main() -> None:
         log(f"  ptxas (the parent beam kernel) {line}")
     for line in rnnt_ref_ptxas:
         log(f"  ptxas (the parent K8/K9) {line}")
+    for line in topk_ref_ptxas:
+        log(f"  ptxas (the parent K3) {line}")
     rng = np.random.default_rng(SEED)
 
-    # 4. top-k kernel vs plain
-    topk_err = check_topk(rng, dev, [(1000, 32, 1024, 24), (750, 8, 32, 24)])
+    # 4. top-k kernel vs plain and vs the parent K3 (the LM decode's B=128
+    # shape and the beam-16 row's k from an rng of their own, which leaves
+    # rng's draws alone)
+    topk_err = check_topk(rng, dev, [(1000, 32, 1024, 24), (750, 8, 32, 24)],
+                          topk_ref_lib)
+    topk_err = max(topk_err, check_topk(
+        np.random.default_rng(SEED + 3), dev,
+        [(1000, 128, 29, 24), (1000, 32, 1024, 40)], topk_ref_lib))
     # 5. beam kernel vs plain and vs the parent at the beam decoder's
     # reference shape and at the beam-16 row; the scan outside the envelope
     beam_err, beam_inputs = check_beam(rng, dev, 1000, 32, 1024, 8, 16,
@@ -1801,8 +1961,7 @@ def main() -> None:
             wav[j, : s * sr] = 0.1 * rng.standard_normal(s * sr)
         batches.append((wav, (secs * sr).astype(np.int32)))
     torch.cuda.synchronize()
-    topk_cuda.launches = 0
-    beam_search_cuda.launches = 0
+    reset_counts()
     results = []
     for wav, ns in batches:
         greedy = pipe.decode(wav, ns, beam_width=0)
@@ -1810,10 +1969,11 @@ def main() -> None:
         results.append((greedy, beam))
     torch.cuda.synchronize()
     launches = {"topk": topk_cuda.launches,
-                "beam_step": beam_search_cuda.launches}
+                "beam_step": beam_search_cuda.launches,
+                "backtrace": beam_search_cuda.launches_backtrace}
     log(f"phase 6 serving: pipeline built on {pipe.device} by default; 3 "
         f"batches x 8 requests, launches {launches}")
-    if launches != {"topk": 3, "beam_step": 3}:
+    if launches != {"topk": 3, "beam_step": 3, "backtrace": 3}:
         raise AssertionError(f"kernels missed on the serving path: {launches}")
     for (g_tok, g_len, g_sc), (b_tok, b_len, b_sc) in results:
         if b_tok.shape[0] != 8 or g_tok.shape[0] != 8:
@@ -1855,11 +2015,13 @@ def main() -> None:
         ms[f"topk_plain_{name}"] = time_ms(lambda: topk_cuda.topk_plain(x, ks))
         ms[f"topk_library_{name}"] = time_both(f"topk_library_{name}",
                                                lambda: torch.topk(x, ks))
-        in_turns(f"phase 7 K3 vs torch.topk ({name}: T={t}, B={b}, V={v}, "
-                 f"k={ks})", {"K3": lambda: topk_cuda.topk_cuda(x, ks),
-                              "torch.topk": lambda: torch.topk(x, ks)}, 200)
         if name == "main":
             topk_b = topk_bound(x, ks)
+    # K3 against the parent K3 and torch.topk in turns at the four shapes
+    turns_rng = np.random.default_rng(SEED + 7)
+    for name, (t, b, v, k) in TOPK_SHAPES.items():
+        topk_turns(name, torch.from_numpy(turns_rng.standard_normal(
+            (t, b, v)).astype(np.float32)).to(dev), k, topk_ref_lib)
     lpk, ck, lpb, il_ref, s_cap_ref = beam_inputs
     ms["beam_ref"] = time_ms(lambda: beam_search_cuda.beam_step_cuda(
         lpk, ck, lpb, il_ref, 8, 16, s_cap_ref, 0))
@@ -1868,8 +2030,9 @@ def main() -> None:
                                                  s_cap_ref, 0))
     bp, score, _, _ = beam_search_cuda.beam_step_cuda(lpk, ck, lpb, il_ref,
                                                       8, 16, s_cap_ref, 0)
-    ms["backtrace_ref"] = time_ms(lambda: beam_search_cuda.backtrace(
-        bp, ck, score, 8, 16, s_cap_ref))
+    bt_err, walk_err = check_backtrace(bp, ck, score, 8, 16, s_cap_ref,
+                                       "phase 7 ref")
+    ms.update(time_walk("ref", bp, ck, score, 8, 16, s_cap_ref)[0])
     mlpk, mck = topk_cuda.topk_cuda(lp_gpu, 24)
     mlpb = lp_gpu[:, :, 0].contiguous()
     ms["beam_main"] = time_both(
@@ -1881,8 +2044,10 @@ def main() -> None:
     beam_b = beam_bound(mlpk, il, 8, 16)
     bp, score, _, _ = beam_search_cuda.beam_step_cuda(mlpk, mck, mlpb, il, 8,
                                                       16, s_cap, 0)
-    ms["backtrace_main"] = time_ms(lambda: beam_search_cuda.backtrace(
-        bp, mck, score, 8, 16, s_cap))
+    bt_err, walk_err = np.maximum((bt_err, walk_err), check_backtrace(
+        bp, mck, score, 8, 16, s_cap, "phase 7 main")).tolist()
+    bt_ms, bt_b = time_walk("main", bp, mck, score, 8, 16, s_cap)
+    ms.update(bt_ms)
     beam_turns(f"phase 7 K4 vs the parent (main: T'={mlpk.shape[0]}, B=8, "
                f"W=8, K=16)", (mlpk, mck, mlpb, il, 8, 16, s_cap, 0), {},
                beam_ref_lib)
@@ -1892,6 +2057,12 @@ def main() -> None:
     ms["beam_plain_w16"] = time_plain(
         lambda: beam_search_cuda.beam_step_plain(*w16_args))
     w16_b = beam_bound(w16_inputs[0], w16_inputs[3], 16, 32)
+    bp16, score16, _, _ = beam_search_cuda.beam_step_cuda(*w16_args)
+    bt_err, walk_err = np.maximum((bt_err, walk_err), check_backtrace(
+        bp16, w16_inputs[1], score16, 16, 32, w16_inputs[4],
+        "phase 7 beam-16 row")).tolist()
+    ms.update(time_walk("w16", bp16, w16_inputs[1], score16, 16, 32,
+                        w16_inputs[4])[0])
     log(f"phase 7 beam-16 row: plain twin {ms['beam_plain_w16']:.3f} ms, "
         f"bound {w16_b[0]:.5f} ms ({w16_b[1]})")
     ms["encode_b8_30s"] = time_ms(lambda: pipe.encode(wav, ns))
@@ -2040,7 +2211,9 @@ def main() -> None:
     n_chunks = -(-1000 // CHUNK_T)
     if chunk_launches != {"launches": 3 * n_chunks,
                           "launches_lm": n_chunks, "launches_cls": n_chunks,
-                          "launches_resume": 3 * n_chunks}:
+                          "launches_resume": 3 * n_chunks,
+                          "launches_backtrace": 3,
+                          "launches_walk": 3 * n_chunks}:
         raise AssertionError(f"kernels missed on the chunked path: "
                              f"{chunk_launches}")
     chunk_err, chunk_inputs = 0.0, {}
@@ -2061,7 +2234,8 @@ def main() -> None:
     log(f"phase 13 serving with an LM: 3 batches x 8 requests, launches "
         f"{lm_launches}")
     if lm_launches != {"topk": 3, "launches": 3, "launches_lm": 3,
-                       "launches_cls": 0, "launches_resume": 0}:
+                       "launches_cls": 0, "launches_resume": 0,
+                       "launches_backtrace": 3, "launches_walk": 0}:
         raise AssertionError(f"kernels missed on the LM serving path: "
                              f"{lm_launches}")
     for tok, _, sc in lm_results:
@@ -2113,6 +2287,19 @@ def main() -> None:
                    beam_ref_lib)
     args, kw = first["word LM, V=29"]
     resume_b = beam_bound(args[0], args[3], W, K, resume=True)
+    for name, (args, kw) in first.items():  # a chunk's walk, W = 8
+        bp_c = beam_search_cuda.beam_step_cuda(*args, **kw)[0]
+        walk_err = max(walk_err, check_walk(
+            bp_c, args[1], W, K, f"phase 14 the first chunk of '{name}'"))
+        if name == "word LM, V=29":
+            ck_c = args[1]
+            ms["lane_walk_chunk"] = time_both(
+                "lane_walk_chunk",
+                lambda: beam_search_cuda.lane_walk_cuda(bp_c, ck_c, W, K))
+            ms["lane_walk_plain_chunk"] = time_ms(
+                lambda: beam_search_cuda.lane_walk_plain(bp_c, ck_c, W, K))
+            walk_b = lane_walk_bound(
+                bp_c, beam_search_cuda.lane_walk_cuda(bp_c, ck_c, W, K))
     args, kw = first["bigram LM + 63-class guide, V=1024"]
     cls_b = beam_bound(args[0], args[3], W, K, inc=kw["inc"],
                        cls_map=kw["cls_map"], resume=True)
@@ -2132,8 +2319,9 @@ def main() -> None:
     ms["beam_lm_b128"] = time_ms(
         lambda: beam_search_cuda.beam_step_cuda(*bargs, inc=inc29))
     bp, score, _, _ = beam_search_cuda.beam_step_cuda(*bargs, inc=inc29)
-    ms["backtrace_b128"] = time_ms(
-        lambda: beam_search_cuda.backtrace(bp, ck, score, W, K, 512))
+    bt_err, walk_err = np.maximum((bt_err, walk_err), check_backtrace(
+        bp, ck, score, W, K, 512, "phase 14 b128")).tolist()
+    ms.update(time_walk("b128", bp, ck, score, W, K, 512)[0])
     lpw128 = torch.from_numpy(word_lattice(rng, 1000, 128, 29,
                                            spellings)).to(dev)
     ms["decode_word_chunked_b128"] = time_ms(lambda: beam_search_decode(
@@ -2146,7 +2334,8 @@ def main() -> None:
         wav, ns, beam_width=W, prune_k=K, lm=lm32, lm_alpha=LM_ALPHA,
         lm_beta=LM_BETA))
     for k in ("beam_lm_main", "beam_lm_plain_main", "beam_resume_chunk",
-              "beam_resume_plain_chunk", "beam_cls_chunk",
+              "beam_resume_plain_chunk", "lane_walk_chunk",
+              "lane_walk_plain_chunk", "beam_cls_chunk",
               "beam_cls_plain_chunk", "decode_lm_fused_b128", "topk_b128",
               "beam_lm_b128", "backtrace_b128", "decode_word_chunked_b128",
               "chunk_loop_b128", "chunk_kernels_b128", "chunk_boundary_b128",
@@ -2497,6 +2686,7 @@ def main() -> None:
 
     beam_src = "end2end_tpu_torch/csrc/beam_step.cu"
     beam_tpu = "end2end_tpu/ops/beam_search_pallas.py"
+    walk_src = "end2end_tpu_torch/csrc/backtrace.cu"
     ctc_src = "end2end_tpu_torch/csrc/ctc_loss.cu"
     rnnt_src = "end2end_tpu_torch/csrc/rnnt_loss.cu"
     rnnt_tpu = "end2end_tpu/ops/rnnt_loss_pallas.py"
@@ -2509,6 +2699,10 @@ def main() -> None:
          "topk_main", topk_b, "topk_library_main"),
         ("beam_step", beam_src, f"{beam_tpu}:94", launches["beam_step"],
          beam_err, "beam_main", beam_b, None),
+        # outside Pallas on the TPU: the backtrace's lane-map composition
+        # and compaction, and the chunked decode's (one chunk's) scan
+        ("backtrace", walk_src, f"{beam_tpu}:442", launches["backtrace"],
+         bt_err, "backtrace_main", bt_b, None),
         ("ctc_alpha", ctc_src, "end2end_tpu/ops/ctc_loss_pallas.py:115",
          train_launches["ctc_alpha"], ctc_err[0], "ctc_alpha_main", ctc_b[0],
          "ctc_library_fwd_main"),
@@ -2524,6 +2718,9 @@ def main() -> None:
         ("beam_step_resume", beam_src, f"{beam_tpu}:129",
          chunk_launches["launches_resume"], chunk_err, "beam_resume_chunk",
          resume_b, None),
+        ("lane_walk", walk_src, "end2end_tpu/ops/beam_chunked.py:70",
+         chunk_launches["launches_walk"], walk_err, "lane_walk_chunk",
+         walk_b, None),
         # torch has no transducer loss (and torchaudio is not installed)
         ("rnnt_alpha", rnnt_src, f"{rnnt_tpu}:108",
          rnnt_launches["rnnt_alpha"], rnnt_err[0], "rnnt_alpha_main",

@@ -48,20 +48,6 @@ from .semiring import logaddexp2
 from .topk_cuda import topk
 
 
-def _chunk_emissions(bp_c, ck_c, W: int, K: int):
-    """Replay inputs of one chunk: bp_c (C, W, N) codes, ck_c (C, N, K) ids.
-    Returns lane0 (N, W), each end-of-chunk lane's ancestor lane at the
-    chunk start, toks (N, W, C) frame-aligned emitted tokens (-1 where the
-    lane's path emitted nothing) and n_emit (N, W)."""
-    code, lane_after, lane0 = lane_walk(bp_c, W, K)
-    code_sel = code.gather(2, lane_after)
-    emit = code_sel >= W
-    slot = torch.where(emit, (code_sel - W) % K, 0)
-    ch = ck_c.long().gather(2, slot)
-    toks = torch.where(emit, ch, -1).permute(1, 2, 0)
-    return lane0, toks, emit.sum(dim=0)
-
-
 def _rehome(state, src):
     """Rows w*N + n of an LM state (a tensor or a tuple of them) take the
     values of row src[w, n]*N + n: each lane inherits its ancestor's."""
@@ -121,7 +107,10 @@ def decode_chunks(lpk, ck, lpb, il, W: int, s_cap: int, blank: int, lm,
         bp_c, _, _, state = step(lpk[t0:t1], ck[t0:t1], lpb[t0:t1], il - t0,
                                  W, k, s_cap, blank, inc=inc,
                                  cls_map=cls_map, state_in=state)
-        lane0, toks, n_emit = _chunk_emissions(bp_c, ck[t0:t1], W, k)
+        # each end-of-chunk lane's ancestor lane at the chunk start, its
+        # frame-aligned emitted tokens (-1 where it emitted nothing) and
+        # their count
+        lane0, toks, n_emit = lane_walk(bp_c, ck[t0:t1], W, k)
         src = lane0.T  # (W, N)
         lm_state = _rehome(lm_state, src)
         toks = compact_rows(toks.transpose(0, 1).reshape(W * n, t1 - t0))

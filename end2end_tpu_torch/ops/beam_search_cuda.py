@@ -11,7 +11,13 @@ and no 128-lane padding.
     CUDA tensor the hand-written kernel in `csrc/beam_step.cu`, on a CPU
     tensor `beam_step_plain`.
   * `backtrace(...)` turns the codes into token and time matrices, ranked
-    by score.  It is plain torch on either device.
+    by score: on a CUDA tensor one launch of the kernel in
+    `csrc/backtrace.cu` (the lane walk and the compaction), on a CPU
+    tensor `backtrace_plain` (a host walk, one gather a frame, then a
+    handful of whole-tensor torch ops).  `lane_walk` (the chunked LM
+    decode's boundary: each path's ancestor lane and its ids frame by
+    frame) routes the same way, to the same file's other kernel or to
+    `lane_walk_plain`.
 
 Semantics are the TPU kernel's (see the note at the top of
 `csrc/beam_step.cu`): extensions come from the first K slots, the repeat
@@ -35,7 +41,9 @@ otherwise); `beam_state_init` is the empty prefix.
 Launch counts (the only module state): `launches` counts every launch of
 the beam kernel; `launches_lm`, `launches_cls` and `launches_resume` count
 the launches that ran the symbol-keyed increments (K5), the class-keyed
-increments (K6) and the resume mode (K7).
+increments (K6) and the resume mode (K7); `launches_backtrace` and
+`launches_walk` the launches of the backtrace kernel and of the lane-walk
+kernel.
 """
 
 from __future__ import annotations
@@ -49,6 +57,8 @@ launches = 0
 launches_lm = 0
 launches_cls = 0
 launches_resume = 0
+launches_backtrace = 0
+launches_walk = 0
 
 MAX_BEAM_WIDTH = 32
 MAX_PRUNE_K = 128
@@ -360,13 +370,12 @@ def beam_step(lpk, ck, lpb, il, W: int, K: int, s_cap: int, blank: int,
                            cls_map, state_in)
 
 
-def lane_walk(bp, W: int, K: int):
-    """The reverse pointer walk over backpointer codes bp (T, W, N).
-
-    Returns code (T, N, W) int64, lane_after (T, N, W), the lane each final
-    beam occupied after frame t, and lane0 (N, W), the lane it descends
-    from before frame 0.
-    """
+def _host_walk(bp, ck, W: int, K: int):
+    """The reverse pointer walk over backpointer codes bp (T, W, N), one
+    gather a frame: for every final beam, the lane it occupied after each
+    frame and what its path took there.  Returns lane0 (N, W), the lane it
+    descends from before frame 0, emit (T, N, W), whether it emitted at t,
+    and ch (T, N, W) int64, the id of ck (T, N, ks) it emitted there."""
     t_max, _, n = bp.shape
     code = bp.permute(0, 2, 1).long()
     parent = torch.where(code < W, code, (code - W) // K)
@@ -375,26 +384,84 @@ def lane_walk(bp, W: int, K: int):
     for t in range(t_max - 1, -1, -1):
         lane_after[t] = lane
         lane = parent[t].gather(1, lane)
-    return code, lane_after, lane
+    code_sel = code.gather(2, lane_after)
+    emit = code_sel >= W
+    slot = torch.where(emit, (code_sel - W) % K, 0)
+    return lane, emit, ck.long().gather(2, slot)
 
 
-def backtrace(bp, ck, scores, W: int, K: int, s_cap: int):
-    """Token and time matrices from backpointer codes, best beam first.
+def lane_walk_plain(bp, ck, W: int, K: int):
+    """Each final beam's path through bp (T, W, N) codes with ck (T, N, ks)
+    top-k ids, by the host walk (the plain version of the lane-walk
+    kernel).  Returns lane0 (N, W), the lane it descends from before frame
+    0, toks (N, W, T) int64, the id it emitted at each frame (-1 where it
+    emitted nothing), and n_emit (N, W), how many it emitted."""
+    lane0, emit, ch = _host_walk(bp, ck, W, K)
+    toks = torch.where(emit, ch, -1).permute(1, 2, 0)
+    return lane0, toks, emit.sum(dim=0)
 
-    bp (T, W, N) codes; ck (T, N, ks) top-k ids; scores (W, N).  A reverse
-    pointer walk finds, for every final beam, the lane it occupied after
-    each frame; emissions along that path are then compacted with a cumsum
-    scatter.  Returns tokens (N, W, s_cap) int32 (-1 pad), lengths (N, W)
+
+def lane_walk_cuda(bp, ck, W: int, K: int):
+    """The lane walk as one launch of the lane-walk kernel in
+    `csrc/backtrace.cu`; bp (T, W, N) int32 and ck (T, N, ks) on a CUDA
+    device, same returns as `lane_walk_plain`."""
+    global launches_walk
+    t_max, _, n = bp.shape
+    dev = bp.device
+    if not (bp.is_cuda and bp.dtype == torch.int32 and bp.shape[1] == W
+            and ck.device == dev and ck.dim() == 3
+            and tuple(ck.shape[:2]) == (t_max, n)):
+        raise ValueError(f"lane_walk_cuda: bp must be a CUDA int32 (T, W={W}"
+                         f", N) tensor and ck (T, N, ks) on its device; got "
+                         f"bp {bp.dtype} {tuple(bp.shape)} on {bp.device}, "
+                         f"ck {tuple(ck.shape)} on {ck.device}")
+    if not (1 <= W <= MAX_BEAM_WIDTH and 1 <= K <= MAX_PRUNE_K
+            and ck.shape[2] >= K and t_max < 2**24):
+        raise ValueError(f"lane_walk_cuda: unsupported W={W}, K={K}, "
+                         f"ks={ck.shape[2]}, T={t_max}")
+    bp = bp.contiguous()
+    ck = ck.to(torch.int32).contiguous()
+    took = torch.empty((t_max, n, W), dtype=torch.int32, device=dev)
+    toks = torch.empty((n, W, t_max), dtype=torch.int64, device=dev)
+    lane0 = torch.empty((n, W), dtype=torch.int64, device=dev)
+    n_emit = torch.empty_like(lane0)
+    lib, _ = cuda_build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.e2e_lane_walk(
+            bp.data_ptr(), ck.data_ptr(), took.data_ptr(), toks.data_ptr(),
+            lane0.data_ptr(), n_emit.data_ptr(), t_max, n, W, K, ck.shape[2],
+            stream)
+    cuda_build.check(status, "e2e_lane_walk")
+    launches_walk += 1
+    return lane0, toks, n_emit
+
+
+def lane_walk(bp, ck, W: int, K: int):
+    """(lane0, toks, n_emit) of `lane_walk_plain`: the kernel for CUDA
+    tensors, the host walk for CPU ones."""
+    if bp.is_cuda:
+        return lane_walk_cuda(bp, ck, W, K)
+    if bp.device.type != "cpu":
+        raise ValueError(f"lane_walk: unsupported device {bp.device}")
+    return lane_walk_plain(bp, ck, W, K)
+
+
+def backtrace_plain(bp, ck, scores, W: int, K: int, s_cap: int):
+    """Token and time matrices from backpointer codes, best beam first (the
+    plain version of the backtrace kernel).
+
+    bp (T, W, N) codes; ck (T, N, ks) top-k ids; scores (W, N).  The host
+    walk finds, for every final beam, the lane it occupied after each
+    frame; emissions along that path are then compacted with a cumsum
+    scatter (emissions past s_cap land on its last slot, the last one
+    there).  Returns tokens (N, W, s_cap) int32 (-1 pad), lengths (N, W)
     int32, scores (N, W) f32 (-inf for dead beams), times (N, W, s_cap)
     int32 emission frames (-1 pad).
     """
     t_max, _, n = bp.shape
     dev = bp.device
-    code, lane_after, _ = lane_walk(bp, W, K)
-    code_sel = code.gather(2, lane_after)
-    emit = code_sel >= W
-    slot = torch.where(emit, (code_sel - W) % K, 0)
-    ch = ck.long().gather(2, slot)
+    _, emit, ch = _host_walk(bp, ck, W, K)
     pos = torch.cumsum(emit.long(), dim=0) - 1
     lens = torch.clamp(pos[-1] + 1, max=s_cap)
     idx = torch.where(emit, torch.clamp(pos, max=s_cap - 1), s_cap)
@@ -413,3 +480,60 @@ def backtrace(bp, ck, scores, W: int, K: int, s_cap: int):
     times = times.gather(1, order[:, :, None].expand_as(times))
     lens = lens.gather(1, order).to(torch.int32)
     return tokens, lens, sc, times
+
+
+def backtrace_cuda(bp, ck, scores, W: int, K: int, s_cap: int):
+    """The backtrace as one launch of the kernel in `csrc/backtrace.cu`
+    (the lane walk with the compaction); CUDA tensors, same returns as
+    `backtrace_plain`."""
+    global launches_backtrace
+    t_max, _, n = bp.shape
+    dev = bp.device
+    if not (bp.is_cuda and bp.dtype == torch.int32 and bp.shape[1] == W
+            and ck.device == dev and ck.dim() == 3
+            and tuple(ck.shape[:2]) == (t_max, n) and scores.device == dev
+            and scores.dtype == torch.float32
+            and tuple(scores.shape) == (W, n)):
+        raise ValueError(f"backtrace_cuda: bp must be a CUDA int32 (T, W={W}"
+                         f", N) tensor, ck (T, N, ks) and scores float32 "
+                         f"(W, N) on its device; got bp {bp.dtype} "
+                         f"{tuple(bp.shape)} on {bp.device}, ck "
+                         f"{tuple(ck.shape)} on {ck.device}, scores "
+                         f"{scores.dtype} {tuple(scores.shape)} on "
+                         f"{scores.device}")
+    if not (1 <= W <= MAX_BEAM_WIDTH and 1 <= K <= MAX_PRUNE_K
+            and ck.shape[2] >= K and 1 <= t_max < 2**24
+            and 1 <= s_cap < 2**24):
+        raise ValueError(f"backtrace_cuda: unsupported W={W}, K={K}, "
+                         f"ks={ck.shape[2]}, T={t_max}, s_cap={s_cap}")
+    bp = bp.contiguous()
+    ck = ck.to(torch.int32).contiguous()
+    scores = scores.contiguous()
+    rev = torch.empty((n, W, t_max), dtype=torch.int32, device=dev)
+    tokens = torch.empty((n, W, s_cap), dtype=torch.int32, device=dev)
+    times = torch.empty_like(tokens)
+    lens = torch.empty((n, W), dtype=torch.int32, device=dev)
+    sc = torch.empty((n, W), dtype=torch.float32, device=dev)
+    lib, _ = cuda_build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.e2e_backtrace(
+            bp.data_ptr(), ck.data_ptr(), scores.data_ptr(), rev.data_ptr(),
+            tokens.data_ptr(), times.data_ptr(), lens.data_ptr(),
+            sc.data_ptr(), t_max, n, W, K, ck.shape[2], s_cap, stream)
+    cuda_build.check(status, "e2e_backtrace")
+    launches_backtrace += 1
+    return tokens, lens, sc, times
+
+
+def backtrace(bp, ck, scores, W: int, K: int, s_cap: int):
+    """Token and time matrices from backpointer codes, best beam first:
+    the kernel for CUDA tensors, `backtrace_plain` for CPU ones.  Returns
+    tokens (N, W, s_cap) int32 (-1 pad), lengths (N, W) int32, scores
+    (N, W) f32 (-inf for dead beams), times (N, W, s_cap) int32 emission
+    frames (-1 pad)."""
+    if bp.is_cuda:
+        return backtrace_cuda(bp, ck, scores, W, K, s_cap)
+    if bp.device.type != "cpu":
+        raise ValueError(f"backtrace: unsupported device {bp.device}")
+    return backtrace_plain(bp, ck, scores, W, K, s_cap)

@@ -32,8 +32,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: (argtypes); every one returns cudaGetLastError() as int.
 _SIGNATURES = {
-    # x, vals, idx, rows, v, k, stream
-    "e2e_topk_f32": (_VP, _VP, _VP, _LL, _I, _I, _VP),
+    # x, vals, idx, rows, v, k, segment, list, stream
+    "e2e_topk_f32": (_VP, _VP, _VP, _LL, _I, _I, _I, _I, _VP),
+    # bp, ck, took, toks, lane0, n_emit, t_max, n, W, K, ks, stream
+    "e2e_lane_walk": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                      _VP),
+    # bp, ck, scores, rev, tokens, times, lens, sc, t_max, n, W, K, ks,
+    # s_cap, stream
+    "e2e_backtrace": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                      _I, _I, _I, _VP),
     # lpk, ck, lpb, il, inc, cls_map, state_in, bp, score, state_out,
     # t_max, n, ks, W, K, s_cap, blank, n_ctx, v, stream
     "e2e_beam_step_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,

@@ -22,7 +22,9 @@ from end2end_tpu_torch.ops.rnnt_joint import rnnt_nll_fused_pallas
 from end2end_tpu_torch.ops.rnnt_loss import rnnt_loss, rnnt_nll
 from end2end_tpu_torch.tools import (beam_step_breakdown, ctc_alpha_breakdown,
                                      ctc_beta_breakdown,
-                                     rnnt_wavefront_breakdown)
+                                     rnnt_wavefront_breakdown,
+                                     topk_breakdown)
+from end2end_tpu_torch.utils import cuda_build
 
 pytestmark = pytest.mark.cuda
 
@@ -74,10 +76,20 @@ def parent_rnnt(tmp_path_factory):
         tmp_path_factory.mktemp("parent_rnnt"))[0]
 
 
+@pytest.fixture(scope="module")
+def parent_topk(tmp_path_factory):
+    """The K3 that K3 replaced, built from tools/topk_reference.cu: its
+    bit-identity oracle."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return topk_breakdown.build_reference(
+        tmp_path_factory.mktemp("parent_topk"))[0]
+
+
 def _topk_rows(rng, v):
     """Rows of one V: normal values, all equal, few distinct values (ties
-    across lanes), runs of -inf, -inf ties with finite values, and
-    mixed +-inf."""
+    across lanes), runs of -inf, -inf ties with finite values, mixed
+    +-inf, and +-0.0 ties among small values of both signs."""
     x = rng.standard_normal((9, v)).astype(np.float32)
     x[1] = 0.5
     x[2] = rng.integers(0, 3, v)
@@ -87,7 +99,10 @@ def _topk_rows(rng, v):
     x[6, v // 3:] = -np.inf
     x[7] = np.where(np.arange(v) % 33 == 7, 1.0, 0.0)  # ties 33 apart
     x[8, -1] = np.inf
-    return x
+    zeros = np.where(rng.random(v) < 0.5, -0.0, 0.0).astype(np.float32)
+    small = rng.random(v) < 0.2
+    zeros[small] = np.where(rng.random(small.sum()) < 0.5, -1e-45, 1e-45)
+    return np.concatenate([x, zeros[None]])
 
 
 @pytest.mark.parametrize("v", [1, 2, 16, 31, 32, 33, 64, 1000, 1024, 4096])
@@ -99,6 +114,132 @@ def test_topk_kernel_matches_plain_at_each_width(dev, v):
         vals, idx = topk_cuda.topk_cuda(x, k)
         pv, pi = topk_cuda.topk_plain(x, k)
         assert torch.equal(vals, pv) and torch.equal(idx, pi), k
+
+
+@pytest.mark.parametrize("v", [1, 2, 16, 29, 31, 32, 33, 64, 1000, 1024,
+                               4096])
+def test_topk_kernel_bit_equal_to_the_parent(dev, parent_topk, v):
+    """K3 bit-equal to the K3 it replaced and to the stable sort at every
+    width its plans branch on (the sort path up to V = 32, the select
+    path's list lengths, the rounds past k = 256): k = 1, a middle k,
+    24 (the serving slice's K + 8), 40 (the beam-16 row's) and V; again
+    with the rows one float off 16-byte alignment (scalar loads)."""
+    x = torch.from_numpy(_topk_rows(np.random.default_rng(v + 1), v)).to(dev)
+    shifted = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+    for rows in (x, shifted.copy_(x)):
+        for k in sorted({1, max(1, v // 2), min(24, v), min(40, v), v}):
+            got = topk_cuda.topk_cuda(rows, k)
+            want = topk_breakdown.runner(parent_topk, rows, k)()
+            plain = topk_cuda.topk_plain(rows, k)
+            assert topk_breakdown.same_bits(got, want), (k, "parent")
+            assert topk_breakdown.same_bits(got, plain), (k, "plain")
+
+
+@pytest.mark.parametrize("v,k,plan", [
+    (16, 5, {"segment": 32, "list": 0}), (29, 29, {"segment": 32, "list": 0}),
+    (1024, 24, {"segment": 0, "list": 256}),
+    (1000, 40, {"segment": 0, "list": 128}),
+    (1024, 24, {"segment": 0, "list": 0})])
+def test_topk_kernel_other_plans(dev, v, k, plan):
+    """Plans other than topk_plan's (wider segments, longer lists, the
+    rounds) give the same bits: the breakdown tool's other plans."""
+    x = torch.from_numpy(_topk_rows(np.random.default_rng(v), v)).to(dev)
+    got = topk_breakdown.runner(cuda_build.library()[0], x, k, plan)()
+    assert topk_breakdown.same_bits(got, topk_cuda.topk_plain(x, k))
+
+
+def test_topk_kernel_rejects_what_it_cannot_run(dev):
+    x = torch.zeros((4, 64), device=dev)
+    for plan in ({"segment": 32, "list": 0}, {"segment": 0, "list": 32},
+                 {"segment": 3, "list": 0}):
+        with pytest.raises(RuntimeError, match="e2e_topk_f32"):
+            topk_breakdown.runner(cuda_build.library()[0], x, 40, plan)()
+
+
+@pytest.mark.parametrize("t", [1, 37, 1000])
+@pytest.mark.parametrize("n", [1, 5, 128])
+@pytest.mark.parametrize("W", [1, 8, 16, 32])
+def test_lane_walk_kernel_matches_plain(dev, W, n, t):
+    """The lane-walk kernel against the host walk on the card: lane0, the
+    frame-aligned tokens and their counts equal, one launch; codes of
+    stays, extensions and dead picks drawn over [0, W + W K)."""
+    K = 16
+    rng = np.random.default_rng(W * 10007 + n * 101 + t)
+    bp = torch.from_numpy(rng.integers(0, W + W * K, (t, W, n)).astype(
+        np.int32)).to(dev)
+    ck = torch.from_numpy(rng.integers(0, 1024, (t, n, K)).astype(
+        np.int32)).to(dev)
+    before = beam_search_cuda.launches_walk
+    got = beam_search_cuda.lane_walk(bp, ck, W, K)
+    assert beam_search_cuda.launches_walk == before + 1
+    want = beam_search_cuda.lane_walk_plain(bp, ck, W, K)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("W,n,t,s_cap", [
+    (1, 5, 1, 1), (5, 37, 37, 9), (8, 128, 1000, 512), (8, 5, 300, 40),
+    (16, 32, 1000, 1000), (32, 1, 37, 37), (32, 5, 1000, 64)])
+def test_backtrace_kernel_matches_plain(dev, W, n, t, s_cap):
+    """The backtrace kernel against backtrace_plain on the CPU: tokens,
+    lengths, times and the scores' bits; dead beams, tied scores, caps that
+    truncate (the CPU scatter leaves the last emission on the cap's last
+    slot, as the kernel does; the card's scatter_ would leave any) and
+    caps that do not."""
+    K = 16
+    rng = np.random.default_rng(W * 7919 + n * 31 + t)
+    bp = rng.integers(0, W + W * K, (t, W, n))
+    bp = np.where(rng.random((t, W, n)) < 0.6, np.arange(W)[None, :, None],
+                  bp).astype(np.int32)
+    ck = rng.integers(0, 1024, (t, n, K + 8)).astype(np.int32)
+    scores = (rng.standard_normal((W, n)) * 10).astype(np.float32)
+    scores[rng.random((W, n)) < 0.3] = -1e30
+    scores[:, 0] = np.round(scores[:, 0])
+    args = [torch.from_numpy(a) for a in (bp, ck, scores)]
+    before = beam_search_cuda.launches_backtrace
+    got = beam_search_cuda.backtrace(*(a.to(dev) for a in args), W, K, s_cap)
+    assert beam_search_cuda.launches_backtrace == before + 1
+    want = beam_search_cuda.backtrace_plain(*args, W, K, s_cap)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(
+            a.cpu().view(torch.int32), b.view(torch.int32))
+
+
+def test_decodes_on_the_card_match_the_cpu(dev):
+    """beam_search_decode (no LM, beam 8 and 16) and beam_search_chunked_lm
+    through the kernels on the card against the plain path on the CPU:
+    same tokens, lengths and frames, scores within 1e-4; the backtrace
+    kernel launched once per decode and the lane walk once per chunk."""
+    from end2end_tpu_torch.ops.beam_chunked import beam_search_chunked_lm
+
+    rng = np.random.default_rng(5)
+    T, B, V = 200, 6, 29
+    x = rng.standard_normal((T, B, V)) * 3.0
+    lp = torch.from_numpy(
+        (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32))
+    il = torch.from_numpy(rng.integers(T // 2, T + 1, B).astype(np.int32))
+    words = [(1, 2), (3,), (2, 2, 4), (5, 6)]
+    wb = np.log(rng.random((4, 4)) + 0.05).astype(np.float32)
+    outs = {}
+    for device in ("cpu", dev):
+        word = tlm.WordNGramLM(words, wb, np.zeros(4), 7, device=device)
+        before = (beam_search_cuda.launches_backtrace,
+                  beam_search_cuda.launches_walk)
+        outs[str(device)] = [
+            beam_search_decode(lp.to(device), il, beam_width=W, prune_k=K,
+                               return_timestamps=True)
+            for W, K in ((8, 16), (16, 24))] + [
+            beam_search_chunked_lm(lp.to(device), il, beam_width=8,
+                                   prune_k=16, lm=word, lm_alpha=0.6,
+                                   lm_beta=0.3, chunk_t=64,
+                                   return_timestamps=True)]
+        walks = (beam_search_cuda.launches_backtrace - before[0],
+                 beam_search_cuda.launches_walk - before[1])
+        assert walks == ((0, 0) if device == "cpu" else (3, 4))
+    for got, want in zip(outs[str(dev)], outs["cpu"]):
+        for i in (0, 1, 3):
+            assert torch.equal(got[i].cpu(), want[i])
+        torch.testing.assert_close(got[2].cpu(), want[2], atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("T,B,V,k", [(7, 3, 5, 5), (20, 4, 1024, 24),
