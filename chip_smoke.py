@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's serving and training paths (CTC,
-transducer and the fused transducer joint) once on one GPU and check
-them.
+transducer and the fused transducer joint; forced alignment and MWER
+fine-tuning) once on one GPU and check them.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -193,7 +193,33 @@ Phases (every failure raises, so the exit code is nonzero):
      K10tp against the wmma K10tp in turns (shard 0), K10tp's, K11tp's
      and K12tp's launches, the card's clock while it runs each,
      and the shards' K11tp and K12tp times against K11's and K12's; and
-     the combine against the `scatter_add_` combine.
+     the combine against the `scatter_add_` combine;
+ 26. the CTC forced alignment kernel (csrc/ctc_align.cu) vs align_plain on
+     the card: through `ctc_forced_alignment` on phase 6's first batch of
+     pipeline log-probs with random targets of T'/5 labels (the main
+     path's run: one launch), and at BASELINE config 2's shape (B=32,
+     T=1000, S=200, V=29, peaked lattices, variable lengths, an infeasible
+     sample, an empty target, an input length of 0); labels, positions
+     and the scores' bits equal; each request's greedy transcript,
+     force-aligned by the kernel and by align_plain, scores the sum of its
+     frames' maxima (within 1e-4 of the float32 sum in frame order);
+ 27. the MWER fine-tuning slice: a fresh full-width pipeline takes 3 AdamW
+     steps on `pipeline.loss(...) + 0.5 * mwer_loss(log_probs, ...,
+     beam_width=4, prune_k=16)` on phase 9's batches; the counters must
+     show K3, K4 and the backtrace kernel once a step, K1, K2 and the
+     combine twice, and every loss finite; before that, step 1's MWER term
+     on the card's N-best through the kernels against the plain scan:
+     loss within 1e-5 relative, posterior within 1e-5, errors equal, the
+     encoder's gradients within 1e-4 of each tensor's max; on phase 6's
+     first batch `greedy_decode_with_confidence` card vs CPU (tokens,
+     lengths, times equal, confidences within 1e-6), one request's
+     `word_confidences` and SRT, and `collapse_and_bucket` then the beam
+     decode on the kept frames (K3, K4 once);
+ 28. timings: the alignment kernel (device and one call) and align_plain
+     at both shapes with the bound; the MWER step and its parts (the
+     N-best decode, the scoring on N*W rows forward and backward,
+     batch_edit_distance, word_id_hashes, the rest);
+     greedy_decode_with_confidence; blank_collapse.
 Every kernel row and library yardstick is also timed on the device alone
 (`device_ms`: calls captured in a CUDA graph and replayed between one
 pair of events; torch.profiler's kernel time where a call cannot be
@@ -228,14 +254,20 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from end2end_tpu_torch import (ConformerCTCPipeline, ConformerTransducer,
-                               PipelineConfig, TransducerConfig)
+                               PipelineConfig, TransducerConfig,
+                               ctc_forced_alignment, greedy_decode,
+                               greedy_decode_with_confidence, mwer_loss,
+                               mwer_loss_from_nbest, word_confidences)
 from end2end_tpu_torch.models.frontend import log_mel_spectrogram, num_frames
-from end2end_tpu_torch.ops import (beam_chunked, beam_search_cuda,
+from end2end_tpu_torch.ops import (alignment, beam_chunked, beam_search_cuda,
                                    ctc_common, ctc_loss_cuda, ctc_loss_plain,
-                                   rnnt_joint_cuda, rnnt_joint_plain,
+                                   mwer, rnnt_joint_cuda, rnnt_joint_plain,
                                    rnnt_loss_cuda, rnnt_loss_plain, topk_cuda)
 from end2end_tpu_torch.ops.beam_search import beam_search_decode
 from end2end_tpu_torch.ops.ctc_loss import ctc_nll
+from end2end_tpu_torch.ops.decode_utils import (blank_collapse,
+                                                collapse_and_bucket)
+from end2end_tpu_torch.ops.mwer import word_id_hashes
 from end2end_tpu_torch.ops.rnnt_decode import rnnt_greedy_decode
 from end2end_tpu_torch.ops.rnnt_joint import (
     rnnt_nll_fused_pallas, rnnt_nll_fused_pallas_vocab_parallel)
@@ -250,6 +282,9 @@ from end2end_tpu_torch.tools import (beam_step_breakdown, ctc_alpha_breakdown,
 from end2end_tpu_torch.tools.joint_dw_breakdown import (
     N_SMS, device_ms, max_sm_mhz, tensor_ops_per_s, under_load)
 from end2end_tpu_torch.utils import cuda_build
+from end2end_tpu_torch.utils.metrics import batch_edit_distance
+from end2end_tpu_torch.utils.subtitles import group_word_spans, to_srt
+from end2end_tpu_torch.utils.text import asr_alphabet
 
 SEED = 0
 SCORE_TOL = 1e-4  # beam-set scores, kernel vs plain: ulp-level libm drift
@@ -261,6 +296,14 @@ CTC_LOSS_RTOL = 2e-6
 CTC_GRAD_TOL = 1e-5
 TRAIN_LOSS_RTOL = 1e-3  # CUDA vs CPU pipeline loss (TF32 off)
 TRAIN_GRAD_RTOL = 1e-4  # kernel vs plain encoder gradients, of tensor max
+# the MWER term through K1/K2 vs the plain scan on the same N-best: the
+# loss (relative) and the posterior (absolute), float32 CTC scores of
+# ~1e3 whose differences are libm's last bits
+MWER_RTOL = 1e-5
+CONF_TOL = 1e-6  # confidences in [0, 1], card vs CPU libm
+# a greedy transcript's forced-alignment score vs the float32 sum of its
+# frames' maxima in frame order: the same adds in the same order
+ALIGN_SUM_TOL = 1e-4
 CTC_SHAPES = {  # name: (B, T, S, V), tests/test_full_configs.py
     "metric": (32, 1000, 100, 1024),
     "librispeech-char": (32, 1000, 200, 29),
@@ -1867,6 +1910,215 @@ def check_tp_slice(params, tgt, il, ul):
     return res, nll_rel, max(errs)
 
 
+def align_bound(lp, tgt, il, tl, blank=0):
+    """The alignment on this run's data: each frame it runs (t < il, and
+    frame 0 where il = 0) needs the log-probs of its sample's distinct
+    target labels and blank once (at most a row of V floats); the target
+    labels, the lengths, and labels, positions (T, N) int32 and the
+    scores once.  The choices need no memory traffic: a sequence's tape
+    fits on the chip.  About 8 operations a lattice cell (three maxes, two
+    compares, an add, a floor)."""
+    t_max, n, _ = lp.shape
+    il, tl = il.long().cpu(), tl.long().cpu()
+    rows = tgt.long().cpu()
+    labels = sum(max(int(i), 1) * len(set(rows[k, :int(tl[k])].tolist())
+                                      | {blank})
+                 for k, i in enumerate(il))
+    nbytes = (labels * 4 + int(tl.sum()) * 4 + n * 8 + 2 * t_max * n * 4
+              + n * 4)
+    return bound(nbytes, 8 * int((il * (2 * tl + 1)).sum()))
+
+
+def check_align(lp, tgt, il, tl, blank, what):
+    """The alignment kernel against align_plain on the card: labels,
+    positions and the scores' bits equal, one launch (not counted on the
+    main path).  Returns the kernel's output and the largest difference
+    (|kernel - plain| over the finite scores, 1 for a label or position
+    that differs)."""
+    before = alignment.launches
+    got = alignment.ctc_forced_alignment(lp, tgt, il, tl, blank=blank)
+    if alignment.launches != before + 1:
+        raise AssertionError(f"{what}: the alignment kernel launched "
+                             f"{alignment.launches - before} times")
+    alignment.launches = before
+    want = alignment.align_plain(lp, tgt.long(), il.long(), tl.long(), blank)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want.scores)
+    err = max(float((got.scores - want.scores)[fin].abs().max())
+              if fin.any() else 0.0,
+              float(not torch.equal(got.labels, want.labels)),
+              float(not torch.equal(got.positions, want.positions)))
+    if not (torch.equal(got.labels, want.labels)
+            and torch.equal(got.positions, want.positions)
+            and torch.equal(got.scores.view(torch.int32),
+                            want.scores.view(torch.int32))):
+        raise AssertionError(f"{what}: alignment kernel != align_plain "
+                             f"(max err {err})")
+    log(f"{what}: the alignment kernel equals align_plain (labels, "
+        f"positions, scores' bits; T={lp.shape[0]}, N={lp.shape[1]}, "
+        f"S={tgt.shape[1]}, plan {alignment.align_plan(2 * tgt.shape[1] + 1)}"
+        f"); scores {[round(x, 3) for x in got.scores.tolist()[:8]]}")
+    return got, err
+
+
+def sequential_sum(x, il):
+    """Each column's sum of x (T, N) over its first il frames, added in
+    frame order in float32 (the order the Viterbi forward adds them)."""
+    total = x[0].clone()
+    for t in range(1, x.shape[0]):
+        total = torch.where(t < il, total + x[t], total)
+    return total
+
+
+def check_greedy_alignment(lp, il, what):
+    """Each request's greedy transcript, force-aligned by the kernel and
+    by align_plain, scores that request's per-frame maxima summed over its
+    frames (the argmax path is the best of all and collapses to that
+    transcript): within ALIGN_SUM_TOL of the float32 sum in frame order
+    (the Viterbi's own order of adds; torch's sum takes another and
+    differs by ~1e-3 at T'=750); the float64 sum beside it.  Returns the
+    largest difference."""
+    tokens, lengths, _ = greedy_decode(lp, il)
+    s = max(int(lengths.max()), 1)
+    live = il > 0  # il = 0 scores frame 0's blank, as the JAX package's
+    tgt = tokens[:, :s].clamp(min=0)
+    best = lp.max(dim=-1).values
+    want = sequential_sum(best, il.long())
+    want64 = torch.where(torch.arange(lp.shape[0], device=lp.device)[:, None]
+                         < il.long(), best.double(), 0.0).sum(0)
+    before = alignment.launches
+    kern = alignment.ctc_forced_alignment(lp, tgt, il, lengths).scores
+    alignment.launches = before
+    plain = alignment.align_plain(lp, tgt.long(), il.long(), lengths.long(),
+                                  0).scores
+    err = max(float((kern - want)[live].abs().max()),
+              float((plain - want)[live].abs().max()))
+    log(f"{what}: greedy transcripts (lengths {lengths.tolist()}) "
+        f"force-aligned score their per-frame maxima: max err {err:.3g} "
+        f"(kernel and align_plain against the float32 sum in frame "
+        f"order), {float((kern.double() - want64)[live].abs().max()):.3g} "
+        f"against the float64 sum; requests with il = 0 left out")
+    if err > ALIGN_SUM_TOL:
+        raise AssertionError(f"{what}: greedy alignment score err {err}")
+    return err
+
+
+def mwer_term(log_probs, il, tgt, tl, score_implementation="auto",
+              nbest=None):
+    """0.5 * mwer_loss of the slice (beam 4, prune 16), or of a given
+    N-best through mwer_loss_from_nbest; returns (loss, aux)."""
+    if nbest is None:
+        loss, aux = mwer_loss(log_probs, tgt, il, tl, beam_width=4,
+                              prune_k=16, return_aux=True,
+                              score_implementation=score_implementation)
+    else:
+        loss, aux = mwer_loss_from_nbest(
+            log_probs, il, nbest[0], nbest[1], tgt, tl, hyp_valid=nbest[2],
+            return_aux=True, score_implementation=score_implementation)
+    return 0.5 * loss, aux
+
+
+def mwer_counts():
+    return {"topk": topk_cuda.launches, "beam_step": beam_search_cuda.launches,
+            "backtrace": beam_search_cuda.launches_backtrace,
+            **ctc_loss_cuda.launches}
+
+
+def check_mwer_step1(pipe, batch):
+    """Step 1's MWER term on the card's N-best through the kernels and
+    through the plain scan, on the same log-probs: loss, posterior,
+    errors, and the encoder's gradients of the term.  Returns (loss rel
+    err, grad err)."""
+    wav, ns, tgt, tl = batch
+    with torch.no_grad():
+        logits, out_len = pipe.encode(wav, ns)
+        lp = torch.log_softmax(logits, -1).transpose(0, 1)
+        tok, lens, sc = beam_search_decode(lp, out_len, beam_width=4,
+                                           prune_k=16)
+    nbest = (tok, lens, torch.isfinite(sc))
+    out = {}
+    for impl in ("auto", "xla"):
+        pipe.zero_grad()
+        logits, out_len = pipe.encode(wav, ns)
+        lp = torch.log_softmax(logits, -1).transpose(0, 1)
+        loss, aux = mwer_term(lp, out_len, tgt, tl, impl, nbest)
+        loss.backward()
+        out[impl] = (loss.item(), aux, {k: p.grad.clone() for k, p in
+                                        pipe.named_parameters()})
+    (lk, ak, gk), (lp_, ap, gp) = out["auto"], out["xla"]
+    rel = abs(lk - lp_) / max(abs(lp_), 1e-12)
+    post = float((ak["posterior"] - ap["posterior"]).detach().abs().max())
+    worst = 0.0
+    for name, g in gk.items():
+        scale = max(float(gp[name].abs().max()), 1e-4)
+        worst = max(worst, float((g - gp[name]).abs().max()) / scale)
+    log(f"phase 27 step 1 on the card's N-best (N=8, W=4, hypothesis "
+        f"lengths {lens.min().item()}-{lens.max().item()}): 0.5 * MWER "
+        f"through K1/K2 {lk:.6f}, through the plain scan {lp_:.6f} (rel err "
+        f"{rel:.3g}); posterior max err {post:.3g}; errors equal: "
+        f"{torch.equal(ak['errors'], ap['errors'])}; encoder gradients max "
+        f"err {worst:.3g} of each tensor's max; errors per hypothesis "
+        f"{ak['errors'][0].tolist()}")
+    if not (rel <= MWER_RTOL and post <= MWER_RTOL
+            and torch.equal(ak["errors"], ap["errors"])
+            and worst <= TRAIN_GRAD_RTOL and np.isfinite(lk)):
+        raise AssertionError(f"MWER step 1, kernels vs plain: loss {rel}, "
+                             f"posterior {post}, gradients {worst}")
+    return rel, worst
+
+
+def mwer_parts(pipe, batch, space_id):
+    """The MWER step's parts at the slice's shape, with CUDA events (median
+    of 5 after warm-up): the N-best decode, the hypotheses' scoring on N*W
+    rows forward and backward, batch_edit_distance, word_id_hashes, the
+    whole term forward and backward; logged, into a dict returned."""
+    wav, ns, tgt, tl = batch
+    dev = pipe.device
+    with torch.no_grad():
+        logits, out_len = pipe.encode(wav, ns)
+        lp0 = torch.log_softmax(logits, -1).transpose(0, 1).contiguous()
+    tgt_t = torch.as_tensor(tgt, device=dev).long()
+    tl_t = torch.as_tensor(tl, device=dev).long()
+    with torch.no_grad():
+        tok, lens, _ = beam_search_decode(lp0, out_len, beam_width=4,
+                                          prune_k=16)
+    n, w = lens.shape
+    hyp = mwer._trim_nbest(tok.long(), lens.long())
+    s = hyp.shape[-1]
+    hl = lens.long()
+
+    def scoring():
+        lp = lp0.clone().requires_grad_()
+        mwer._score_nbest(lp, out_len.long(), hyp, hl, 0,
+                          "auto").sum().backward()
+
+    def whole():
+        lp = lp0.clone().requires_grad_()
+        mwer_term(lp, out_len, tgt, tl)[0].backward()
+
+    out = {
+        "mwer_decode": time_ms(lambda: beam_search_decode(
+            lp0, out_len, beam_width=4, prune_k=16)),
+        "mwer_scoring_fwd_bwd": time_ms(scoring),
+        "mwer_edit_distance": time_ms(lambda: batch_edit_distance(
+            hyp.reshape(n * w, s), hl.reshape(n * w),
+            tgt_t.repeat_interleave(w, 0), tl_t.repeat_interleave(w, 0))),
+        "mwer_word_hashes": time_ms(lambda: word_id_hashes(
+            tok[..., :s], lens, space_id)),
+        "mwer_term_fwd_bwd": time_ms(whole)}
+    # the term less its decode, scoring and edit distances (host loops
+    # spread by a few ms between calls, so this can come out below 0)
+    out["mwer_rest"] = out["mwer_term_fwd_bwd"] - (
+        out["mwer_decode"] + out["mwer_scoring_fwd_bwd"]
+        + out["mwer_edit_distance"])
+    log(f"phase 28 MWER parts (T'={lp0.shape[0]}, N={n}, W={w}, S'={s}, "
+        f"S_ref={tgt_t.shape[1]}, N*W={n * w} scoring rows): "
+        + "; ".join(f"{k} {v:.3f} ms" for k, v in out.items())
+        + f"; batch_edit_distance's loop {s + tgt_t.shape[1] - 1} steps, "
+        f"word_id_hashes' {s}")
+    return out
+
+
 def main() -> None:
     # 1. the device
     if not torch.cuda.is_available():
@@ -2682,6 +2934,172 @@ def main() -> None:
             f"{ms[f'ctc_grad_plain_{name}']:.3f} ms")
     log(f"phase 25 bound ctc_grad (main): {ctc_grad_b[0]:.4f} ms "
         f"({ctc_grad_b[1]})")
+    # 26. the forced alignment: the kernel against align_plain at the
+    # serving pipeline's log-probs (phase 6's first batch, random targets
+    # of T'/5 labels; the main path's run, counted) and at BASELINE config
+    # 2's shape with edge samples; the greedy transcripts' invariant
+    arng = np.random.default_rng(SEED + 26)  # leaves rng's draws alone
+    a_tl = (serve_il // 5).to(torch.int32)
+    a_tgt = torch.from_numpy(arng.integers(
+        1, cfg.vocab_size, (8, int(a_tl.max()))).astype(np.int32)).to(dev)
+    torch.cuda.synchronize()
+    alignment.launches = 0
+    main_align = ctc_forced_alignment(lp_gpu, a_tgt, serve_il, a_tl)
+    torch.cuda.synchronize()
+    align_launches = alignment.launches
+    log(f"phase 26 the pipeline's alignment (T'={lp_gpu.shape[0]}, B=8, "
+        f"S={a_tgt.shape[1]}): launches {align_launches}, scores "
+        f"{[round(x, 3) for x in main_align.scores.tolist()]}")
+    if align_launches != 1:
+        raise AssertionError(f"alignment kernel launches {align_launches}")
+    got, align_err = check_align(lp_gpu, a_tgt, serve_il, a_tl, 0,
+                                 "phase 26 the pipeline's log-probs")
+    if not all(torch.equal(a, b) for a, b in zip(got, main_align)):
+        raise AssertionError("alignment kernel differs run to run")
+    b2, t2, s2, v2 = CTC_SHAPES["librispeech-char"]
+    lp2 = torch.from_numpy(peaked_lattice(arng, t2, b2, v2)).to(dev)
+    il2 = arng.integers(t2 // 2, t2 + 1, b2).astype(np.int32)
+    tl2 = arng.integers(s2 // 2, s2 + 1, b2).astype(np.int32)
+    il2[1], tl2[1] = s2 - 1, s2  # infeasible: S labels in S - 1 frames
+    tl2[2] = 0  # an empty target
+    il2[3] = 0  # an input length of 0
+    tgt2 = torch.from_numpy(arng.integers(1, v2, (b2, s2)).astype(
+        np.int32)).to(dev)
+    il2, tl2 = (torch.from_numpy(a).to(dev) for a in (il2, tl2))
+    got2, _ = check_align(lp2, tgt2, il2, tl2, 0,
+                          f"phase 26 config 2 (B={b2}, T={t2}, S={s2}, "
+                          f"V={v2}, peaked; an infeasible sample, an empty "
+                          "target, an input length of 0)")
+    if not (torch.isneginf(got2.scores[1]) and (got2.labels[:, 3] == -1).all()
+            and (got2.positions[:, 2] == -1).all()):
+        raise AssertionError("phase 26 edge samples wrong")
+    check_greedy_alignment(lp_gpu, serve_il, "phase 26 the pipeline")
+    check_greedy_alignment(lp2, il2, "phase 26 config 2")
+
+    # 27. the MWER fine-tuning slice: 3 AdamW steps on pipeline.loss + 0.5
+    # * mwer_loss with phase 9's batches
+    mpipe = ConformerCTCPipeline(
+        cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    check_mwer_step1(mpipe, tbatches[0])
+    mopt = torch.optim.AdamW(mpipe.parameters(), lr=1e-3, weight_decay=1e-4)
+
+    def mwer_objective(batch):
+        """(pipeline.loss, 0.5 * mwer_loss) of a batch, differentiable."""
+        wav_, ns_, tgt_, tl_ = batch
+        logits_, out_len_ = mpipe.encode(wav_, ns_)
+        lp_ = torch.log_softmax(logits_, -1).transpose(0, 1)
+        return mpipe.loss(*batch), mwer_term(lp_, out_len_, tgt_, tl_)[0]
+
+    def mwer_step(batch):
+        mopt.zero_grad()
+        ctc_term, mwer_t = mwer_objective(batch)
+        (ctc_term + mwer_t).backward()
+        mopt.step()
+        return ctc_term.item(), mwer_t.item()
+
+    torch.cuda.synchronize()
+    reset_counts()
+    for k in ctc_loss_cuda.launches:
+        ctc_loss_cuda.launches[k] = 0
+    mwer_losses = [mwer_step(batch) for batch in tbatches]
+    torch.cuda.synchronize()
+    mwer_launches = mwer_counts()
+    log(f"phase 27 MWER fine-tuning: 3 AdamW steps x 8 requests, (CTC, 0.5 "
+        f"* MWER) {[tuple(round(x, 6) for x in p) for p in mwer_losses]}, "
+        f"launches {mwer_launches}")
+    if mwer_launches != {"topk": 3, "beam_step": 3, "backtrace": 3,
+                         "ctc_alpha": 6, "ctc_beta": 6, "ctc_grad": 6}:
+        raise AssertionError(f"kernels missed on the MWER path: "
+                             f"{mwer_launches}")
+    if not all(np.isfinite(x) for p in mwer_losses for x in p):
+        raise AssertionError(f"bad MWER loss: {mwer_losses}")
+    # serving extras on phase 6's first batch
+    conf_out = greedy_decode_with_confidence(lp_gpu, serve_il)
+    conf_cpu = greedy_decode_with_confidence(lp_gpu.cpu(), serve_il.cpu())
+    conf_err = max(float((a.cpu() - b).abs().max())
+                   for a, b in zip(conf_out[4:], conf_cpu[4:]))
+    same = all(torch.equal(conf_out[i].cpu(), conf_cpu[i]) for i in (0, 1, 3))
+    log(f"phase 27 greedy_decode_with_confidence, card vs CPU: tokens, "
+        f"lengths and times equal: {same}; confidences max err "
+        f"{conf_err:.3g}; utterance confidences "
+        f"{[round(x, 4) for x in conf_out[5].tolist()]}")
+    if not same or conf_err > CONF_TOL:
+        raise AssertionError(f"confidences differ: {same}, {conf_err}")
+    ab = asr_alphabet()
+    space = ab.encode(" ")[0]
+    n0 = int(conf_out[1][0])
+    words = word_confidences(conf_out[0][0, :n0].tolist(),
+                             conf_out[3][0, :n0].tolist(),
+                             conf_out[4][0, :n0].tolist(), space_id=space,
+                             alphabet=ab)
+    srt = to_srt(group_word_spans(words, frame_duration_s=0.04), 0.04)
+    log(f"phase 27 request 0: {len(words)} words, first "
+        f"{words[:2]}; SRT {srt[:160]!r}")
+    reset_counts()
+    packed, kept = collapse_and_bucket(lp_gpu, serve_il)
+    c_tok, c_len, c_sc = beam_search_decode(packed, kept, beam_width=8,
+                                            prune_k=16)
+    torch.cuda.synchronize()
+    c_counts = beam_counts()
+    log(f"phase 27 collapse_and_bucket: kept frames {kept.tolist()} of "
+        f"{serve_il.tolist()}, T {lp_gpu.shape[0]} -> {packed.shape[0]}; the "
+        f"beam decode on them: top-k {topk_cuda.launches}, beam step "
+        f"{c_counts['launches']}, backtrace "
+        f"{c_counts['launches_backtrace']}; best lengths "
+        f"{c_len[:, 0].tolist()}")
+    if (topk_cuda.launches, c_counts["launches"]) != (1, 1) or not bool(
+            torch.isfinite(c_sc[:, 0]).all()):
+        raise AssertionError("the collapsed decode missed its kernels")
+    kept2 = collapse_and_bucket(lp2, il2)[1]
+    log(f"phase 27 collapse_and_bucket on phase 26's peaked config-2 "
+        f"lattice (blank at 0.997 on half the frames): "
+        f"{int(kept2.sum())} of {int(il2.sum())} frames kept")
+
+    # 28. timings: the alignment, the MWER step and its parts, the
+    # confidences, the blank collapse
+    ms["ctc_align_main"] = time_both("ctc_align_main", lambda: (
+        alignment.align_cuda(lp_gpu, a_tgt, serve_il, a_tl)))
+    ms["ctc_align_plain_main"] = time_plain(lambda: alignment.align_plain(
+        lp_gpu, a_tgt.long(), serve_il.long(), a_tl.long()))
+    ms["ctc_align_ref2"] = time_both("ctc_align_ref2", lambda: (
+        alignment.align_cuda(lp2, tgt2, il2, tl2)))
+    ms["ctc_align_plain_ref2"] = time_plain(lambda: alignment.align_plain(
+        lp2, tgt2.long(), il2.long(), tl2.long()))
+    align_b = align_bound(lp_gpu, a_tgt, serve_il, a_tl)
+    align_b2 = align_bound(lp2, tgt2, il2, tl2)
+    for name, b in (("main", align_b), ("ref2", align_b2)):
+        log(f"phase 28 ctc_align ({name}): the kernel "
+            f"{DEVICE_MS[f'ctc_align_{name}'][0]:.4f} ms device, one call "
+            f"{ms[f'ctc_align_{name}']:.4f}; align_plain one call "
+            f"{ms[f'ctc_align_plain_{name}']:.3f} ms; bound {b[0]:.5f} ms "
+            f"({b[1]})")
+    # the step's forward and backward without the optimizer's update, so
+    # that the timed calls leave the model, and the N-best's length with
+    # it, where mwer_parts finds them
+    ms.update(mwer_parts(mpipe, tbatches[0], cfg.vocab_size - 1))
+
+    def fwd_bwd(with_mwer):
+        mopt.zero_grad()
+        if with_mwer:
+            sum(mwer_objective(tbatches[0])).backward()
+        else:
+            mpipe.loss(*tbatches[0]).backward()
+
+    ms["mwer_fwd_bwd_b8_30s"] = time_ms(lambda: fwd_bwd(True))
+    ms["ctc_fwd_bwd_b8_30s"] = time_ms(lambda: fwd_bwd(False))
+    ms["greedy_confidence_main"] = time_ms(
+        lambda: greedy_decode_with_confidence(lp_gpu, serve_il))
+    ms["greedy_main"] = time_ms(lambda: greedy_decode(lp_gpu, serve_il))
+    ms["blank_collapse_main"] = time_ms(
+        lambda: blank_collapse(lp_gpu, serve_il))
+    log(f"phase 28 the MWER step's forward and backward (CTC + 0.5 MWER, B=8 "
+        f"x 30 s, no optimizer update): {ms['mwer_fwd_bwd_b8_30s']:.3f} ms "
+        f"against the CTC loss's {ms['ctc_fwd_bwd_b8_30s']:.3f} (the CTC "
+        f"train step of phase 10 {ms['train_step_b8_30s']:.3f}); "
+        f"greedy_decode_with_confidence "
+        f"{ms['greedy_confidence_main']:.3f} ms (greedy_decode "
+        f"{ms['greedy_main']:.3f}); blank_collapse "
+        f"{ms['blank_collapse_main']:.3f} ms")
     log(json.dumps({"card": card, "ms": ms, "device_ms": DEVICE_MS}))
 
     beam_src = "end2end_tpu_torch/csrc/beam_step.cu"
@@ -2750,6 +3168,11 @@ def main() -> None:
         ("ctc_grad", ctc_src, "end2end_tpu/ops/ctc_loss_xla.py:196",
          train_launches["ctc_grad"], combine_err, "ctc_grad_main",
          ctc_grad_b, None),
+        # outside Pallas on the TPU: the Viterbi forward and backtrace
+        # scans; torch has no forced alignment (nor torchaudio here)
+        ("ctc_align", "end2end_tpu_torch/csrc/ctc_align.cu",
+         "end2end_tpu/ops/alignment.py:37", align_launches, align_err,
+         "ctc_align_main", align_b, None),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -4,26 +4,35 @@ The Conformer-CTC pipeline's serving and training paths: log-mel frontend,
 Conformer encoder, the CTC loss and its gradient, greedy and prefix
 beam-search CTC decoding, with LM shallow fusion (dense bigram in the
 kernel, class-keyed guides, chunked word-LM decoding, N-best rescoring,
-ARPA loading).  The Conformer-Transducer's training path and greedy
-decoding: the RNN-T loss and its gradient (from logits, log-probs or
-planes, over a chunked never-materialised joint, and through the
-online-softmax fused joint `rnnt_nll_fused_pallas`), and the fused joint
-with its output projection vocabulary-sharded over a torch.distributed
-group (`rnnt_nll_fused_pallas_vocab_parallel` and the float32
-`rnnt_nll_fused_vocab_parallel`).  On CUDA tensors the
-CTC loss runs two hand-written kernels (csrc/ctc_loss.cu), the beam search
-two more (csrc/topk.cu, csrc/beam_step.cu, whose beam kernel has the LM
-modes), the RNN-T loss two (csrc/rnnt_loss.cu) and the fused joint three
-with their vocabulary-sharded modes (csrc/rnnt_joint.cu), built with nvcc
-at first use; on CPU tensors their
-plain torch versions.  Models and LMs are
-built on the card unless `device="cpu"` is passed.  This package imports
-torch and numpy, never jax or the JAX package.
+ARPA loading); CTC forced alignment, decode confidences, blank collapse
+and the MWER fine-tuning loss.  The Conformer-Transducer's training path
+and greedy decoding: the RNN-T loss and its gradient (from logits,
+log-probs or planes, over a chunked never-materialised joint, and through
+the online-softmax fused joint `rnnt_nll_fused_pallas`), and the fused
+joint with its output projection vocabulary-sharded over a
+torch.distributed group (`rnnt_nll_fused_pallas_vocab_parallel` and the
+float32 `rnnt_nll_fused_vocab_parallel`).  On CUDA tensors the CTC loss
+runs two hand-written kernels (csrc/ctc_loss.cu), the beam search three
+more (csrc/topk.cu, csrc/beam_step.cu, whose beam kernel has the LM
+modes, and csrc/backtrace.cu), the forced alignment one
+(csrc/ctc_align.cu), the RNN-T loss two (csrc/rnnt_loss.cu) and the fused
+joint three with their vocabulary-sharded modes (csrc/rnnt_joint.cu),
+built with nvcc at first use; on CPU tensors their plain torch versions.
+Models and LMs are built on the card unless `device="cpu"` is passed.
+This package imports torch and numpy, never jax or the JAX package.
 """
 
 from .models.pipeline import ConformerCTCPipeline, PipelineConfig
 from .models.transducer import ConformerTransducer, TransducerConfig
+from .ops.alignment import ForcedAlignment, ctc_forced_alignment
 from .ops.beam_search import BeamSearchCTCDecoder, beam_search_decode
+from .ops.confidence import (
+    aggregate_confidence,
+    frame_confidence,
+    greedy_decode_with_confidence,
+    token_confidence,
+    word_confidences,
+)
 from .ops.ctc_loss import CTCLoss, ctc_loss, ctc_loss_jit, ctc_nll
 from .ops.beam_chunked import beam_search_chunked_lm
 from .ops.greedy import (
@@ -38,6 +47,7 @@ from .ops.lm import (
     WordNGramLM,
     bigram_from_counts,
 )
+from .ops.mwer import mwer_loss, mwer_loss_from_nbest
 from .ops.rescore import rescore_nbest
 from .ops.rnnt_decode import (FactoredAdditiveJoint, additive_joint,
                               rnnt_beam_decode, rnnt_greedy_decode)
@@ -61,6 +71,7 @@ __all__ = [
     "ConformerCTCPipeline",
     "ConformerTransducer",
     "FactoredAdditiveJoint",
+    "ForcedAlignment",
     "GreedyCTCDecoder",
     "NGramLM",
     "PipelineConfig",
@@ -70,16 +81,22 @@ __all__ = [
     "UniformLM",
     "WordNGramLM",
     "additive_joint",
+    "aggregate_confidence",
     "beam_search_chunked_lm",
     "beam_search_decode",
     "bigram_from_counts",
+    "ctc_forced_alignment",
     "ctc_loss",
     "ctc_loss_jit",
     "ctc_nll",
+    "frame_confidence",
     "fused_additive_joint",
     "greedy_decode",
+    "greedy_decode_with_confidence",
     "greedy_decode_with_timestamps",
     "load_arpa",
+    "mwer_loss",
+    "mwer_loss_from_nbest",
     "ngram_lm_from_arpa",
     "rescore_nbest",
     "rnnt_beam_decode",
@@ -92,4 +109,6 @@ __all__ = [
     "rnnt_nll_fused_pallas",
     "rnnt_nll_fused_pallas_vocab_parallel",
     "rnnt_nll_fused_vocab_parallel",
+    "token_confidence",
+    "word_confidences",
 ]

@@ -228,6 +228,52 @@ def _beam_search_scan(log_probs, il, W: int, K: int, s_cap: int, blank: int,
             _gather_w(times, order).to(torch.int32))
 
 
+def beam_search_from_topk(lpk, ck, lpb, input_lengths, beam_width: int,
+                          blank: int, max_symbols: int, lm=None,
+                          lm_alpha: float = 0.0, lm_beta: float = 0.0,
+                          return_timestamps: bool = False):
+    """Batched beam search from precomputed per-frame candidates.
+
+    lpk/ck: (T, N, K) top-K log-probs / token ids, best first; lpb: (T, N)
+    blank log-probs.  The JAX package's candidate-only semantics: every
+    extension and the repeat ("stay") term read the K candidates only,
+    so this is exact when they cover the vocabulary and otherwise the beam
+    kernel's documented prune.  It is the beam kernel's contract with its
+    stay window ks = K: all frames' steps (`beam_step`, K4, or K5 with a
+    dense bigram `NGramLM` of at most 63 symbols, its end-of-sequence
+    bonus added after) and the backtrace kernel on CUDA tensors, their
+    plain versions on CPU ones; outside the kernel's envelope (beam_width
+    > 32, K > 128, not float32) the CUDA path raises.  Other LMs are not
+    ported here (NotImplementedError).  Returns (tokens (N, W,
+    max_symbols) int32, lengths (N, W) int32, scores (N, W) and, with
+    return_timestamps, times (N, W, max_symbols) emission frames).
+    """
+    lpk = torch.as_tensor(lpk)
+    dev = lpk.device
+    ck = torch.as_tensor(ck, device=dev).to(torch.int32)
+    lpb = torch.as_tensor(lpb, device=dev).to(lpk.dtype)
+    il = torch.as_tensor(input_lengths, device=dev).to(torch.int32)
+    W, K, s_cap = int(beam_width), lpk.shape[2], int(max_symbols)
+    inc = None
+    if lm is not None:
+        # the candidates carry no vocabulary size: the LM's own is taken
+        ok, reason = lm_fusion_supported(lm, getattr(lm, "_v", 0), W)
+        if not ok:
+            raise NotImplementedError(
+                f"beam_search_from_topk with this LM ({reason}) is not "
+                f"ported yet: {_ITEM5}")
+        check_lm_device(lm, dev)
+        inc = lm_alpha * lm._table + lm_beta
+    bp, scores, last, _ = beam_step(lpk.contiguous(), ck.contiguous(),
+                                    lpb.contiguous(), il, W, K, s_cap,
+                                    int(blank), inc=inc)
+    if lm is not None:  # end-of-sequence bonus, after the last frame
+        eos = lm._eos[last.long().clamp(0, lm._v - 1)]
+        scores = scores + torch.where(last >= 0, lm_alpha * eos, 0.0)
+    out = backtrace(bp, ck, scores, W, K, s_cap)
+    return out if return_timestamps else out[:3]
+
+
 def beam_search_decode(
     log_probs,
     input_lengths=None,

@@ -55,6 +55,10 @@ _SIGNATURES = {
     "e2e_ctc_beta_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                          _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _VP),
+    # lp, targets, il, tl, tape, labels, positions, scores, t_max, n, v,
+    # s_max, blank, states, threads, stream
+    "e2e_ctc_align_f32": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                          _I, _I, _I, _I, _VP),
     # lo, hi (float bits), out (int32 mismatches, floats checked), stream
     "e2e_ctc_log1p_check": (_I, _I, _VP, _VP),
     # lp, gamma, targets, il, tl, g, out, t_max, n, v, s_max, blank, stream

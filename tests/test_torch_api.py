@@ -7,8 +7,6 @@ import end2end_tpu
 import end2end_tpu_torch
 
 NOT_YET_PORTED = {  # name: ROADMAP.md queue 1 item
-    "ForcedAlignment": 4,
-    "ctc_forced_alignment": 4,
     "CompositeLM": 5,
     "HashedNGramLM": 5,
     "HashedWordNGramLM": 5,
@@ -19,13 +17,6 @@ NOT_YET_PORTED = {  # name: ROADMAP.md queue 1 item
     "train_ngram_arpa": 5,
     "train_ngram_lm": 5,
     "word_lm_from_corpus": 5,
-    "aggregate_confidence": 6,
-    "frame_confidence": 6,
-    "greedy_decode_with_confidence": 6,
-    "mwer_loss": 6,
-    "mwer_loss_from_nbest": 6,
-    "token_confidence": 6,
-    "word_confidences": 6,
     "StreamingRNNTBeamDecoder": 7,
     "StreamingRNNTGreedyDecoder": 7,
     "rnnt_greedy_decode_with_confidence": 7,

@@ -10,11 +10,13 @@ import numpy as np
 import pytest
 import torch
 
-from end2end_tpu_torch.ops import (beam_search_cuda, ctc_loss_cuda,
-                                   ctc_loss_plain, rnnt_joint_cuda,
+from end2end_tpu_torch.ops import (alignment, beam_search_cuda,
+                                   ctc_loss_cuda, ctc_loss_plain,
+                                   rnnt_joint_cuda,
                                    rnnt_joint_plain, rnnt_loss_cuda,
                                    rnnt_loss_plain, topk_cuda)
 from end2end_tpu_torch.ops.ctc_common import build_ctc_tables
+from end2end_tpu_torch import mwer_loss
 from end2end_tpu_torch.ops import lm as tlm
 from end2end_tpu_torch.ops.beam_search import beam_search_decode
 from end2end_tpu_torch.ops.ctc_loss import ctc_nll
@@ -1092,3 +1094,72 @@ def test_joint_kernels_reject_what_they_cannot_run(dev):
         rnnt_joint_cuda.joint_fwd(h.T.contiguous().T, w, b, y, blank)
     with pytest.raises(ValueError, match="blank"):
         rnnt_joint_cuda.joint_fwd(h, w, b, y, 20)
+
+
+def _align_problem(rng, t, b, s, v):
+    """Random lattices with variable lengths, a repeat, an empty target,
+    an input length of 0, an infeasible sample (S > T) and blank inside
+    the targets' range."""
+    x = 2.0 * rng.standard_normal((t, b, v))
+    lp = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+    tgt = rng.integers(1, v, (b, s)).astype(np.int32)
+    tgt[1, :4] = 2
+    il = rng.integers(max(t // 2, 1), t + 1, b).astype(np.int32)
+    tl = rng.integers(0, s + 1, b).astype(np.int32)
+    il[2], tl[3], tl[4] = 0, 0, s
+    il[4] = min(il[4], max(s - 1, 0))  # S labels in fewer frames
+    return lp, tgt, il, tl
+
+
+@pytest.mark.parametrize("t,b,s,v,blank", [
+    (1, 5, 1, 4, 0), (37, 6, 5, 7, 3), (750, 8, 150, 32, 0),
+    (1000, 32, 200, 29, 0), (200, 5, 511, 16, 0), (300, 6, 600, 16, 5),
+    (64, 5, 1500, 8, 0), (64, 5, 2100, 8, 0), (40, 5, 4095, 8, 0)])
+def test_alignment_kernel_bit_equal_to_plain(dev, t, b, s, v, blank):
+    """The alignment kernel against align_plain on the card at each of its
+    plans (R = 1, 2, 4, 8): labels, positions and the scores' bits equal;
+    one launch a call; an L past the plan raises."""
+    lp, tgt, il, tl = (torch.from_numpy(a).to(dev) for a in _align_problem(
+        np.random.default_rng(t + s), t, b, s, v))
+    before = alignment.launches
+    got = alignment.ctc_forced_alignment(lp, tgt, il, tl, blank=blank)
+    assert alignment.launches == before + 1
+    want = alignment.align_plain(lp, tgt.long(), il.long(), tl.long(), blank)
+    assert torch.equal(got.labels, want.labels)
+    assert torch.equal(got.positions, want.positions)
+    assert torch.equal(got.scores.view(torch.int32),
+                       want.scores.view(torch.int32))
+    assert torch.isneginf(got.scores[4]) or s < 2
+    with pytest.raises(ValueError, match="states"):
+        alignment.ctc_forced_alignment(
+            lp, torch.ones((b, 4096), dtype=torch.int32, device=dev), il,
+            tl, blank=blank)
+
+
+def test_mwer_loss_on_the_card_matches_the_cpu(dev):
+    """mwer_loss through K3, K4, the backtrace kernel, K1, K2 and the
+    combine against the same loss on the CPU: the same N-best, the loss
+    within 1e-5 relative and its gradient within 1e-5."""
+    rng = np.random.default_rng(15)
+    t, b, v = 120, 6, 12
+    x = 3.0 * rng.standard_normal((t, b, v))
+    lp = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+    il = rng.integers(60, t + 1, b).astype(np.int32)
+    tgt = rng.integers(1, v, (b, 20)).astype(np.int32)
+    tl = rng.integers(5, 21, b).astype(np.int32)
+    out = {}
+    for device in ("cpu", dev):
+        x_ = torch.from_numpy(lp).to(device).requires_grad_()
+        before = ctc_loss_cuda.launches["ctc_alpha"]
+        loss, aux = mwer_loss(x_, tgt, il, tl, beam_width=4, prune_k=8,
+                              err="word", space_id=3, return_aux=True)
+        loss.backward()
+        if device != "cpu":
+            assert ctc_loss_cuda.launches["ctc_alpha"] == before + 1
+        out[str(device)] = (loss.item(), x_.grad.cpu(),
+                            aux["errors"].cpu())
+    (lc, gc, ec), (lg, gg, eg) = out["cpu"], out[str(dev)]
+    assert torch.equal(ec, eg)
+    assert abs(lg - lc) <= 1e-5 * max(abs(lc), 1e-3)
+    assert float((gg - gc).abs().max()) <= 1e-5
+
