@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's serving and training paths (CTC,
 transducer and the fused transducer joint; forced alignment and MWER
-fine-tuning) once on one GPU and check them.
+fine-tuning; LM fusion with hashed, composite and neural LMs) once on one
+GPU and check them.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -219,7 +220,32 @@ Phases (every failure raises, so the exit code is nonzero):
      at both shapes with the bound; the MWER step and its parts (the
      N-best decode, the scoring on N*W rows forward and backward,
      batch_edit_distance, word_id_hashes, the rest);
-     greedy_decode_with_confidence; blank_collapse.
+     greedy_decode_with_confidence; blank_collapse;
+ 29. the hashed-LM serving slice: phase 6's 3 batches, encoded, decode
+     with `beam_search_decode(implementation='chunked', beam_width=8,
+     prune_k=16, lm_chunk_t=128, lm_alpha=0.8, lm_beta=0.4)`, the LM a
+     `CompositeLM` of a 2000-word hashed word trigram over a seeded
+     lexicon (drawn as bench.py's, separator 31) and a `HotwordBoostLM`
+     of 5 lexicon words, the guide a 15-class `QuantizedBigramGuide`; the
+     counters must show K3 once a batch, the class-keyed step (K6 in K7)
+     and the lane walk once a chunk and the backtrace once a decode; on
+     batch 0 the kernels against the plain top-k, step, walk and
+     backtrace on the card, and the decode on the CPU: the same best
+     hypotheses and beam sets, scores within SCORE_TOL; `rescore_nbest`
+     of a no-LM beam-8 decode (K3, K4, the backtrace once a batch) by the
+     word trigram, a `NeuralLM.gru` and the trigram without score_chunk
+     (the per-token route): card against CPU and the two routes against
+     each other within RESCORE_TOL; a Kneser-Ney trigram from
+     `train_ngram_lm` on a seeded corpus through `HashedNGramLM` and the
+     per-frame scan (`implementation='xla'`) on batch 0, card against
+     CPU;
+ 30. timings: bench.py's word-trigram chunked row (B=128, T=1000, V=29,
+     beam 8, prune 16, max_symbols 256, chunk 128, bench.py's 2000-word
+     trigram and lattice; the chunk loop split into its kernels and its
+     boundary, `score_chunk` alone; the plain chunk loop once) and its
+     rescore row (the no-LM decode, then `rescore_nbest`), seq/s;
+     `score_chunk` on one chunk's tokens (device time and one call);
+     phase 29's decode of one batch.
 Every kernel row and library yardstick is also timed on the device alone
 (`device_ms`: calls captured in a CUDA graph and replayed between one
 pair of events; torch.profiler's kernel time where a call cannot be
@@ -274,8 +300,14 @@ from end2end_tpu_torch.ops.rnnt_joint import (
 from end2end_tpu_torch.ops.rnnt_loss import (fused_additive_joint, rnnt_nll,
                                              rnnt_nll_from_planes,
                                              rnnt_nll_fused)
-from end2end_tpu_torch.ops.lm import (NGramLM, QuantizedBigramGuide,
+from end2end_tpu_torch.ops.indexing import compact_rows
+from end2end_tpu_torch.ops.lm import (CompositeLM, HashedNGramLM,
+                                      HashedWordNGramLM, HotwordBoostLM,
+                                      NGramLM, QuantizedBigramGuide,
                                       WordNGramLM, bigram_from_counts)
+from end2end_tpu_torch.ops.neural_lm import NeuralLM, random_gru_params
+from end2end_tpu_torch.ops.rescore import rescore_nbest
+from end2end_tpu_torch.utils.lm_train import train_ngram_lm
 from end2end_tpu_torch.tools import (beam_step_breakdown, ctc_alpha_breakdown,
                                      ctc_beta_breakdown, joint_fwd_breakdown,
                                      rnnt_wavefront_breakdown, topk_breakdown)
@@ -323,6 +355,13 @@ RNNT_POST_TOL = 1e-6
 RNNT_F64_TOL = 1e-4
 LM_ALPHA, LM_BETA = 0.6, 0.3  # LM weight and insertion bonus
 CHUNK_T = 128  # frames per chunk of the chunked LM decode
+# the hashed-LM slice's weights: bench.py's word-trigram rows
+HLM_ALPHA, HLM_BETA = 0.8, 0.4
+# N-best rescoring, card vs CPU and per-token vs score_chunk: the same
+# float32 adds in the same order for the n-gram LMs; the GRU's matmuls
+# round differently on the card (absolute plus relative, of sums of up
+# to 512 tokens' log-probs)
+RESCORE_TOL = 1e-5
 JOINT_SHAPES = {  # name: (N, T, U, V, J, blank, bias scale); R = N T (U+1)
     "JAX test problem": (2, 7, 3, 11, 8, 0, 0.1),  # test_rnnt_joint_pallas
     "V=13, blank=5": (2, 7, 3, 13, 8, 5, 0.1),
@@ -828,14 +867,16 @@ def chunked_inputs(lp, il, guide, W, K):
     return lpk, ck, lp[:, :, 0].contiguous(), il, inc, cls_map
 
 
-def run_chunks(inputs, lm, W, step):
+def run_chunks(inputs, lm, W, step, walk=None, s_cap=512, alpha=LM_ALPHA,
+               beta=LM_BETA):
     """The chunk loop of beam_search_decode(implementation='chunked') on
-    chunked_inputs, with `step` as the beam step."""
+    chunked_inputs, with `step` as the beam step and `walk` as the lane
+    walk (None: the routed one)."""
     lpk, ck, lpb, il, inc, cls_map = inputs
     return beam_chunked.decode_chunks(lpk, ck, lpb, il, W,
-                                      min(lpk.shape[0], 512), 0, lm,
-                                      LM_ALPHA, LM_BETA, CHUNK_T, inc,
-                                      cls_map, step=step)
+                                      min(lpk.shape[0], s_cap), 0, lm,
+                                      alpha, beta, CHUNK_T, inc, cls_map,
+                                      step=step, walk=walk)
 
 
 def check_chunked(name, inputs, lm, main_out, W, K, parent):
@@ -1240,8 +1281,9 @@ def timed(fn, events):
     return wrapper
 
 
-def time_chunk_split(inputs, lm, W, reps=5):
-    """The chunk loop of a chunked decode with CUDA events around it, each
+def time_chunk_split(inputs, lm, W, reps=5, tag="b128", **kw):
+    """The chunk loop of a chunked decode (`run_chunks`'s keywords in kw)
+    with CUDA events around it, each
     kernel launch and each piece of the chunk boundary: the lane walk back
     through the chunk's codes (`lane_walk`), the left-justification
     of the emitted tokens (`compact_rows`) and the LM replay
@@ -1259,7 +1301,8 @@ def time_chunk_split(inputs, lm, W, reps=5):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         run_chunks(inputs, lm, W,
-                   timed(beam_search_cuda.beam_step_cuda, events["kernels"]))
+                   timed(beam_search_cuda.beam_step_cuda, events["kernels"]),
+                   **kw)
         end.record()
         end.synchronize()
         setattr(beam_chunked, "lane_walk", originals["lane_walk"])
@@ -1270,12 +1313,12 @@ def time_chunk_split(inputs, lm, W, reps=5):
                          *(sum(a.elapsed_time(b) for a, b in ev)
                            for ev in events.values())))
     loop, kern, walk, compact, replay = sorted(rows)[reps // 2]
-    return {"chunk_loop_b128": loop, "chunk_kernels_b128": kern,
-            "chunk_boundary_b128": loop - kern,
-            "boundary_lane_walk_b128": walk,
-            "boundary_compact_b128": compact,
-            "boundary_score_chunk_b128": replay,
-            "boundary_other_b128": loop - kern - walk - compact - replay}
+    return {f"chunk_loop_{tag}": loop, f"chunk_kernels_{tag}": kern,
+            f"chunk_boundary_{tag}": loop - kern,
+            f"boundary_lane_walk_{tag}": walk,
+            f"boundary_compact_{tag}": compact,
+            f"boundary_score_chunk_{tag}": replay,
+            f"boundary_other_{tag}": loop - kern - walk - compact - replay}
 
 
 def rnnt_problem(rng, dev, b, t, u, v, blank=0, variable=False):
@@ -2117,6 +2160,239 @@ def mwer_parts(pipe, batch, space_id):
         + f"; batch_edit_distance's loop {s + tgt_t.shape[1] - 1} steps, "
         f"word_id_hashes' {s}")
     return out
+
+
+def word_trigram_lm(rng, spellings, v, dev):
+    """A hashed word trigram over the lexicon (separator v - 1), its
+    n-grams drawn as bench.py's word-trigram LM draws them: a unigram and
+    a backoff per word, 6 * Wv bigram and 8 * Wv trigram draws with
+    duplicates merged, <unk> at -6; built on `dev` and on the CPU."""
+    wv = len(spellings)
+    ng = {1: [], 2: [], 3: [], "unk": -6.0}
+    for w in range(wv):
+        ng[1].append(((w,), float(rng.uniform(-6, -1)),
+                      float(rng.uniform(-1, 0))))
+    for g in {tuple(int(x) for x in rng.integers(0, wv, 2))
+              for _ in range(6 * wv)}:
+        ng[2].append((g, float(rng.uniform(-4, -0.5)),
+                      float(rng.uniform(-1, 0))))
+    for g in {tuple(int(x) for x in rng.integers(0, wv, 3))
+              for _ in range(8 * wv)}:
+        ng[3].append((g, float(rng.uniform(-3, -0.3)), 0.0))
+    return tuple(HashedWordNGramLM(spellings, 3, ng, v - 1, device=d)
+                 for d in (dev, "cpu"))
+
+
+class ProtocolOnly:
+    """An LM with the protocol's score/select/final and no score_chunk:
+    rescore_nbest folds it token by token (its per-token route)."""
+
+    def __init__(self, lm):
+        self._lm = lm
+
+    def __getattr__(self, name):
+        if name == "score_chunk":
+            raise AttributeError(name)
+        return getattr(self._lm, name)
+
+
+def close_scores(got, want, what, tol=RESCORE_TOL):
+    """Finite scores of (N, W) tensors alike, within tol absolute plus tol
+    relative; returns the largest difference relative to max(1, |want|)."""
+    got, want = got.cpu(), want.cpu()
+    if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
+        raise AssertionError(f"{what}: dead beams differ")
+    fin = torch.isfinite(got)
+    diff = (got[fin] - want[fin]).abs()
+    if bool((diff > tol + tol * want[fin].abs()).any()):
+        raise AssertionError(f"{what}: max score diff {float(diff.max())}")
+    return float((diff / want[fin].abs().clamp(min=1)).max()) if (
+        diff.numel()) else 0.0
+
+
+def hashed_lm_slice(lps, v, dev):
+    """Phase 29: the pipeline's log-probs `lps` [(lp, il)] through the
+    chunked decode with a CompositeLM (a 2000-word hashed word trigram and
+    a hotword booster) steered by a 15-class guide, checked against the
+    plain twins on the card and against the CPU; N-best rescoring of a
+    no-LM decode by three LMs (score_chunk, a GRU, the per-token route),
+    card against CPU; a Kneser-Ney token trigram trained from a seeded
+    corpus through the per-frame scan, card against CPU.  Returns the
+    launch counts, the largest errors and what phase 30 times."""
+    rng = np.random.default_rng(SEED + 29)
+    spellings = seeded_lexicon(rng, v)
+    tri, tri_cpu = word_trigram_lm(rng, spellings, v, dev)
+    phrases = [spellings[i] for i in rng.choice(len(spellings), 5,
+                                                replace=False)]
+    hot, hot_cpu = (HotwordBoostLM(phrases, 1.0, 2.0, device=d)
+                    for d in (dev, "cpu"))
+    lm, lm_cpu = CompositeLM([tri, hot]), CompositeLM([tri_cpu, hot_cpu])
+    guide = QuantizedBigramGuide.from_bigram(seeded_bigram(rng, v, dev),
+                                             n_classes=15)
+    guide_cpu = QuantizedBigramGuide(guide._cls_map.cpu(),
+                                     guide._table.cpu(), device="cpu")
+    kw = dict(beam_width=8, prune_k=16, lm_alpha=HLM_ALPHA,
+              lm_beta=HLM_BETA, implementation="chunked",
+              lm_chunk_t=CHUNK_T)
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = [beam_search_decode(lp, il, lm=lm, guide_lm=guide, **kw)
+            for lp, il in lps]
+    torch.cuda.synchronize()
+    counts = {"topk": topk_cuda.launches, **beam_counts()}
+    n_chunks = sum(-(-lp.shape[0] // CHUNK_T) for lp, _ in lps)
+    log(f"phase 29 the pipeline's chunked decodes with a CompositeLM (2000-"
+        f"word hashed trigram + 5 hotwords) and a 15-class guide "
+        f"({len(lps)} batches x 8 requests, T'={lps[0][0].shape[0]}): "
+        f"launches {counts}")
+    if counts != {"topk": len(lps), "launches": n_chunks, "launches_lm": 0,
+                  "launches_cls": n_chunks, "launches_resume": n_chunks,
+                  "launches_backtrace": len(lps), "launches_walk": n_chunks}:
+        raise AssertionError(f"kernels missed on the hashed-LM path: "
+                             f"{counts}")
+    for tok, lens, sc in outs:
+        if tok.shape[:2] != (8, 8) or not torch.isfinite(sc[:, 0]).all():
+            raise AssertionError("bad hashed-LM decode output")
+    # one batch: the plain top-k, beam step, walk and backtrace on the card
+    lp0, il0 = lps[0]
+    s_cap = min(lp0.shape[0], 512)
+    lpk, ck = topk_cuda.topk_plain(lp0, 16)
+    inc, cls_map = beam_chunked._resolve_guide(guide, v, 8, HLM_ALPHA,
+                                               HLM_BETA)
+    bp, score, _ = beam_chunked.decode_chunks(
+        lpk, ck, lp0[:, :, 0].contiguous(), il0, 8, s_cap, 0, lm, HLM_ALPHA,
+        HLM_BETA, CHUNK_T, inc, cls_map,
+        step=beam_search_cuda.beam_step_plain,
+        walk=beam_search_cuda.lane_walk_plain)
+    plain = beam_search_cuda.backtrace_plain(bp, ck, score, 8, 16, s_cap)
+    err = compare_beams(beam_sets(*outs[0]), beam_sets(*plain[:3]),
+                        "phase 29 kernels vs plain")
+    cpu = beam_search_decode(lp0.cpu(), il0.cpu(), lm=lm_cpu,
+                             guide_lm=guide_cpu, **kw)
+    err = max(err, compare_beams(beam_sets(*outs[0]), beam_sets(*cpu),
+                                 "phase 29 card vs CPU"))
+    log(f"phase 29 batch 0: the kernels' hypotheses == the plain twins' on "
+        f"the card and the CPU decode's, max score err {err:.3g}; best "
+        f"lengths {outs[0][1][:, 0].tolist()}")
+    # N-best rescoring of the no-LM decode: K3, K4, the backtrace
+    reset_counts()
+    nolm = [beam_search_decode(lp, il, beam_width=8, prune_k=16)
+            for lp, il in lps]
+    torch.cuda.synchronize()
+    nolm_counts = {"topk": topk_cuda.launches, **beam_counts()}
+    if (nolm_counts["topk"], nolm_counts["launches"],
+            nolm_counts["launches_backtrace"]) != (len(lps),) * 3:
+        raise AssertionError(f"the no-LM decode missed its kernels: "
+                             f"{nolm_counts}")
+    gru_params = random_gru_params(rng, v)
+    gru, gru_cpu = (NeuralLM.gru(gru_params, eos_id=v - 1, device=d)
+                    for d in (dev, "cpu"))
+    rescorers = {"word trigram": (tri, tri_cpu),
+                 "GRU": (gru, gru_cpu),
+                 "word trigram, per token": (ProtocolOnly(tri),
+                                             ProtocolOnly(tri_cpu))}
+    rescored, resc_err = {}, 0.0
+    for name, (lm_d, lm_c) in rescorers.items():
+        got = [rescore_nbest(*out, lm_d, HLM_ALPHA, HLM_BETA,
+                             resort=False)[2] for out in nolm]
+        want = [rescore_nbest(*(x.cpu() for x in out), lm_c, HLM_ALPHA,
+                              HLM_BETA, resort=False)[2] for out in nolm]
+        resc_err = max([resc_err] + [close_scores(
+            g, w, f"phase 29 rescoring by the {name}, card vs CPU")
+            for g, w in zip(got, want)])
+        rescored[name] = got
+    route_err = max(close_scores(a, b, "phase 29 per-token vs score_chunk")
+                    for a, b in zip(rescored["word trigram, per token"],
+                                    rescored["word trigram"]))
+    log(f"phase 29 rescore_nbest of the no-LM beam-8 decodes (launches "
+        f"{nolm_counts}) by {list(rescorers)}: card vs CPU max diff "
+        f"{resc_err:.3g} of max(1, |score|), per-token route vs score_chunk "
+        f"{route_err:.3g}")
+    # a Kneser-Ney token trigram from a seeded corpus, fused per frame
+    p = np.arange(1, v) ** -1.0
+    corpus = [[str(t) for t in rng.choice(np.arange(1, v), int(
+        rng.integers(5, 40)), p=p / p.sum())] for _ in range(400)]
+    order, ngrams, vocab = train_ngram_lm(corpus, order=3,
+                                          vocab=[str(i) for i in range(v)])
+    kn, kn_cpu = (HashedNGramLM(order, ngrams, len(vocab), device=d)
+                  for d in (dev, "cpu"))
+    kwx = dict(beam_width=8, prune_k=16, lm_alpha=HLM_ALPHA,
+               lm_beta=HLM_BETA, implementation="xla")
+    t0 = time.perf_counter()
+    got = beam_search_decode(lp0, il0, lm=kn, **kwx)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    kn_err = compare_beams(beam_sets(*got), beam_sets(*beam_search_decode(
+        lp0.cpu(), il0.cpu(), lm=kn_cpu, **kwx)), "phase 29 KN trigram scan")
+    n_grams = sum(len(ngrams[k]) for k in (1, 2, 3))
+    log(f"phase 29 train_ngram_lm trigram ({n_grams} n-grams from 400 "
+        f"sentences) through HashedNGramLM and the "
+        f"per-frame scan on batch 0: card == CPU, max score err "
+        f"{kn_err:.3g}; the scan took {t_card:.2f} s on the card")
+    return {"launches": counts, "err": max(err, kn_err), "lm": lm,
+            "guide": guide, "kw": kw}
+
+
+def hashed_lm_timings(dev, slice29, lps):
+    """Phase 30: bench.py's word-trigram chunked and rescore rows (B=128,
+    T=1000, V=29, beam 8, prune 16, max_symbols 256, chunk 128, no guide),
+    the chunk loop split into its kernels and its boundary (score_chunk
+    alone), score_chunk on one chunk's tokens, phase 29's decode; the
+    plain chunk loop once.  Returns ms entries."""
+    ms = {}
+    brng = np.random.default_rng(1)  # bench.py's draws
+    blm, _ = word_trigram_lm(brng, seeded_lexicon(brng, 29), 29, dev)
+    x = np.random.default_rng(0).standard_normal((1000, 128, 29))
+    lp = torch.log_softmax(torch.from_numpy(x.astype(np.float32) * 2.0)
+                           .to(dev), -1)
+    il = torch.full((128,), 1000, dtype=torch.int32, device=dev)
+    kw = dict(beam_width=8, prune_k=16, max_symbols=256, lm_alpha=HLM_ALPHA,
+              lm_beta=HLM_BETA)
+    ms["decode_word3_chunked_b128"] = time_ms(lambda: beam_search_decode(
+        lp, il, lm=blm, implementation="chunked", lm_chunk_t=CHUNK_T, **kw))
+    inputs = chunked_inputs(lp, il, None, 8, 16)
+    loop_kw = dict(s_cap=256, alpha=HLM_ALPHA, beta=HLM_BETA)
+    ms.update(time_chunk_split(inputs, blm, 8, tag="word3_b128", **loop_kw))
+    ms["chunk_loop_plain_word3_b128"] = time_plain(lambda: run_chunks(
+        inputs, blm, 8, beam_search_cuda.beam_step_plain,
+        walk=beam_search_cuda.lane_walk_plain, **loop_kw))
+
+    def nolm():
+        return beam_search_decode(lp, il, beam_width=8, prune_k=16,
+                                  max_symbols=256)
+
+    nbest = nolm()
+    ms["decode_nolm_b128_s256"] = time_ms(nolm)
+    ms["rescore_word3_b128"] = time_ms(lambda: rescore_nbest(
+        *nbest, blm, HLM_ALPHA, HLM_BETA))
+    ms["decode_word3_rescore_b128"] = time_ms(lambda: rescore_nbest(
+        *nolm(), blm, HLM_ALPHA, HLM_BETA))
+    # score_chunk alone on the first chunk's emitted tokens
+    lpk, ck, lpb = inputs[:3]
+    bp_c = beam_search_cuda.beam_step_cuda(
+        lpk[:CHUNK_T], ck[:CHUNK_T], lpb[:CHUNK_T], il, 8, 16, 256, 0,
+        state_in=beam_search_cuda.beam_state_init(8, 128, dev))[0]
+    toks = beam_search_cuda.lane_walk_cuda(bp_c, ck[:CHUNK_T], 8, 16)[1]
+    toks = compact_rows(toks.transpose(0, 1).reshape(8 * 128, CHUNK_T))
+    st0 = blm.init_state(8 * 128)
+    ms["score_chunk_word3"] = time_both(
+        "score_chunk_word3", lambda: blm.score_chunk(st0, toks))
+    lp0, il0 = lps[0]
+    ms["decode_composite_pipeline_b8"] = time_ms(lambda: beam_search_decode(
+        lp0, il0, lm=slice29["lm"], guide_lm=slice29["guide"],
+        **slice29["kw"]))
+    for k, val in ms.items():
+        log(f"phase 30 time {k}: {val:.3f} ms")
+    log(f"phase 30 score_chunk on one chunk's tokens ({int((toks >= 0).sum())}"
+        f" emitted in {toks.shape[0]} rows of {CHUNK_T}): "
+        f"{DEVICE_MS['score_chunk_word3'][0]:.3f} ms device "
+        f"({DEVICE_MS['score_chunk_word3'][1]}), one call "
+        f"{ms['score_chunk_word3']:.3f}")
+    for k, b in (("decode_word3_chunked_b128", 128),
+                 ("decode_word3_rescore_b128", 128),
+                 ("decode_composite_pipeline_b8", 8)):
+        log(f"phase 30 {k}: {b * 1e3 / ms[k]:.1f} seq/s")
+    return ms
 
 
 def main() -> None:
@@ -3100,6 +3376,16 @@ def main() -> None:
         f"{ms['greedy_confidence_main']:.3f} ms (greedy_decode "
         f"{ms['greedy_main']:.3f}); blank_collapse "
         f"{ms['blank_collapse_main']:.3f} ms")
+    # 29. the hashed-LM serving slice on phase 6's batches; 30. its
+    # timings and bench.py's word-trigram rows
+    with torch.no_grad():
+        hlm_lps = []
+        for wav_b, ns_b in batches:
+            logits_b, len_b = pipe.encode(wav_b, ns_b)
+            hlm_lps.append((torch.log_softmax(logits_b, -1).transpose(
+                0, 1).contiguous(), len_b.to(torch.int32)))
+    slice29 = hashed_lm_slice(hlm_lps, cfg.vocab_size, dev)
+    ms.update(hashed_lm_timings(dev, slice29, hlm_lps))
     log(json.dumps({"card": card, "ms": ms, "device_ms": DEVICE_MS}))
 
     beam_src = "end2end_tpu_torch/csrc/beam_step.cu"

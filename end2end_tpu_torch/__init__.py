@@ -3,8 +3,9 @@
 The Conformer-CTC pipeline's serving and training paths: log-mel frontend,
 Conformer encoder, the CTC loss and its gradient, greedy and prefix
 beam-search CTC decoding, with LM shallow fusion (dense bigram in the
-kernel, class-keyed guides, chunked word-LM decoding, N-best rescoring,
-ARPA loading); CTC forced alignment, decode confidences, blank collapse
+kernel, class-keyed guides, hashed token and word n-gram LMs of any order,
+hotword boosting, composite and neural LMs, chunked decoding, N-best
+rescoring, ARPA loading and Kneser-Ney training); CTC forced alignment, decode confidences, blank collapse
 and the MWER fine-tuning loss.  The Conformer-Transducer's training path
 and greedy decoding: the RNN-T loss and its gradient (from logits,
 log-probs or planes, over a chunked never-materialised joint, and through
@@ -41,6 +42,10 @@ from .ops.greedy import (
     greedy_decode_with_timestamps,
 )
 from .ops.lm import (
+    CompositeLM,
+    HashedNGramLM,
+    HashedWordNGramLM,
+    HotwordBoostLM,
     NGramLM,
     QuantizedBigramGuide,
     UniformLM,
@@ -48,6 +53,7 @@ from .ops.lm import (
     bigram_from_counts,
 )
 from .ops.mwer import mwer_loss, mwer_loss_from_nbest
+from .ops.neural_lm import NeuralLM
 from .ops.rescore import rescore_nbest
 from .ops.rnnt_decode import (FactoredAdditiveJoint, additive_joint,
                               rnnt_beam_decode, rnnt_greedy_decode)
@@ -64,16 +70,23 @@ from .ops.rnnt_loss import (
 )
 from .parallel.vocab_parallel import rnnt_nll_fused_vocab_parallel
 from .utils.arpa import load_arpa, ngram_lm_from_arpa
+from .utils.lm_train import (train_ngram_arpa, train_ngram_lm,
+                             word_lm_from_corpus)
 
 __all__ = [
     "BeamSearchCTCDecoder",
     "CTCLoss",
+    "CompositeLM",
     "ConformerCTCPipeline",
     "ConformerTransducer",
     "FactoredAdditiveJoint",
     "ForcedAlignment",
     "GreedyCTCDecoder",
+    "HashedNGramLM",
+    "HashedWordNGramLM",
+    "HotwordBoostLM",
     "NGramLM",
+    "NeuralLM",
     "PipelineConfig",
     "QuantizedBigramGuide",
     "RNNTLoss",
@@ -110,5 +123,8 @@ __all__ = [
     "rnnt_nll_fused_pallas_vocab_parallel",
     "rnnt_nll_fused_vocab_parallel",
     "token_confidence",
+    "train_ngram_arpa",
+    "train_ngram_lm",
     "word_confidences",
+    "word_lm_from_corpus",
 ]

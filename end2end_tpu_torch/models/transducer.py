@@ -154,10 +154,13 @@ class ConformerTransducer(nn.Module):
         """Greedy decoding (beam_width == 0): tokens (N, S), lengths,
         scores [, encoder-frame times].  ALSD beam search (beam_width > 0)
         and lookahead > 1 are not ported yet and raise."""
-        if beam_width:
-            return rnnt_beam_decode()
         enc, enc_len = self.encode(feats, lengths)
         pred, init_h, joint = self.decoder_fns()
+        if beam_width:
+            return rnnt_beam_decode(
+                enc, enc_len, pred, init_h, joint, beam_width=beam_width,
+                max_symbols=max_symbols, return_timestamps=return_timestamps,
+                lookahead=lookahead)
         return rnnt_greedy_decode(
             enc, enc_len, pred, init_h, joint, blank=0,
             max_symbols=max_symbols, lookahead=lookahead,

@@ -29,6 +29,7 @@ a multiple of chunk_t with frozen frames, which change nothing.
 from __future__ import annotations
 
 import torch
+from torch.utils._pytree import tree_map
 
 from .beam_search_cuda import (
     MAX_BEAM_WIDTH,
@@ -49,14 +50,17 @@ from .topk_cuda import topk
 
 
 def _rehome(state, src):
-    """Rows w*N + n of an LM state (a tensor or a tuple of them) take the
-    values of row src[w, n]*N + n: each lane inherits its ancestor's."""
-    if isinstance(state, tuple):
-        return tuple(_rehome(x, src) for x in state)
+    """Rows w*N + n of an LM state (a tensor or a nest of tuples, lists
+    and dicts of them) take the values of row src[w, n]*N + n: each lane
+    inherits its ancestor's."""
     W, n = src.shape
-    xw = state.reshape(W, n, *state.shape[1:])
-    idx = src.reshape(W, n, *(1,) * (state.dim() - 1)).expand_as(xw)
-    return xw.gather(0, idx).reshape(state.shape)
+
+    def one(x):
+        xw = x.reshape(W, n, *x.shape[1:])
+        idx = src.reshape(W, n, *(1,) * (x.dim() - 1)).expand_as(xw)
+        return xw.gather(0, idx).reshape(x.shape)
+
+    return tree_map(one, state)
 
 
 def _resolve_guide(guide_lm, v: int, W: int, lm_alpha, lm_beta):
@@ -92,11 +96,14 @@ def _resolve_guide(guide_lm, v: int, W: int, lm_alpha, lm_beta):
 
 def decode_chunks(lpk, ck, lpb, il, W: int, s_cap: int, blank: int, lm,
                   lm_alpha: float, lm_beta: float, chunk_t: int, inc=None,
-                  cls_map=None, step=beam_step):
+                  cls_map=None, step=beam_step, walk=None):
     """The chunk loop.  lpk/ck (T, N, K) candidates, lpb (T, N), il (N,)
     int32; inc/cls_map: the guide's kernel inputs; `step` is the beam step
-    (`beam_step` routes by device; the card's checks pass the plain twin).
-    Returns bp (T, W, N) codes, scores (W, N) and the final kernel state."""
+    and `walk` the boundary's lane walk (`beam_step` and, for None,
+    `lane_walk` route by device; the card's checks pass the plain twins).
+    Returns bp (T, W, N) codes, scores (W, N) and the final kernel
+    state."""
+    walk = lane_walk if walk is None else walk
     t_max, n, k = lpk.shape
     state = beam_state_init(W, n, lpk.device)
     lm_state = lm.init_state(W * n)  # row w * N + n
@@ -110,7 +117,7 @@ def decode_chunks(lpk, ck, lpb, il, W: int, s_cap: int, blank: int, lm,
         # each end-of-chunk lane's ancestor lane at the chunk start, its
         # frame-aligned emitted tokens (-1 where it emitted nothing) and
         # their count
-        lane0, toks, n_emit = lane_walk(bp_c, ck[t0:t1], W, k)
+        lane0, toks, n_emit = walk(bp_c, ck[t0:t1], W, k)
         src = lane0.T  # (W, N)
         lm_state = _rehome(lm_state, src)
         toks = compact_rows(toks.transpose(0, 1).reshape(W * n, t1 - t0))
@@ -133,15 +140,21 @@ def beam_search_chunked_lm_from_topk(lpk, ck, lpb, input_lengths, *, v: int,
                                      max_symbols: int | None = None,
                                      lm=None, lm_alpha: float = 0.0,
                                      lm_beta: float = 0.0,
-                                     chunk_t: int = 128,
+                                     chunk_t: int = 128, interpret=None,
                                      return_timestamps: bool = False,
                                      guide_lm=None):
     """`beam_search_chunked_lm` from precomputed candidates: lpk/ck
     (T, N, K) top-K values and ids, lpb (T, N) blank log-probs, `v` the
-    vocabulary size the ids index."""
+    vocabulary size the ids index.  The values are decoded in float32, as
+    in JAX; `interpret` (the JAX package's Pallas switch) is accepted and
+    changes nothing."""
+    del interpret
     if lm is None or not hasattr(lm, "score_chunk"):
         raise ValueError("beam_search_chunked_lm_from_topk requires an lm "
                          "with score_chunk")
+    lpk = torch.as_tensor(lpk).to(torch.float32)
+    lpb = torch.as_tensor(lpb, device=lpk.device).to(torch.float32)
+    ck = torch.as_tensor(ck, device=lpk.device)
     t_max, n, k = lpk.shape
     W = int(beam_width)
     ok, reason = beam_supported(W, k, lpk.dtype)
@@ -165,7 +178,7 @@ def beam_search_chunked_lm(log_probs, input_lengths=None, beam_width: int = 8,
                            blank: int = 0, prune_k: int | None = None,
                            max_symbols: int | None = None, lm=None,
                            lm_alpha: float = 0.0, lm_beta: float = 0.0,
-                           chunk_t: int = 128,
+                           chunk_t: int = 128, interpret=None,
                            return_timestamps: bool = False,
                            token_min_logp: float | None = None,
                            guide_lm=None):
@@ -175,15 +188,19 @@ def beam_search_chunked_lm(log_probs, input_lengths=None, beam_width: int = 8,
     `score_chunk`.  `guide_lm` (optional, steered with the same
     lm_alpha/lm_beta) fuses a dense `NGramLM` (V + 1 <= 64) or a
     `QuantizedBigramGuide` (any V, n_classes + 1 <= 64) in the kernel to
-    steer pruning per frame; scores stay exactly those of `lm`.
+    steer pruning per frame; scores stay exactly those of `lm`.  The
+    lattice is decoded in float32 (float64 log-probs are cast, as in JAX).
+    `interpret`, the JAX package's Pallas switch, stands in its position
+    and changes nothing.
     """
+    del interpret
     if lm is None:
         raise ValueError("beam_search_chunked_lm requires an lm; use "
                          "beam_search_decode for no-LM decoding")
     if not hasattr(lm, "score_chunk"):
         raise ValueError(f"{type(lm).__name__} does not implement "
                          "score_chunk")
-    log_probs = torch.as_tensor(log_probs)
+    log_probs = torch.as_tensor(log_probs).to(torch.float32)
     t_max, n, v = log_probs.shape
     K = min(int(prune_k or v), v)
     ok, reason = beam_supported(int(beam_width), K, log_probs.dtype)

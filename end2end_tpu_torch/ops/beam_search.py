@@ -25,8 +25,8 @@ Routing follows the JAX package:
   * implementation='chunked' runs any LM with `score_chunk` through the
     chunked decode (ops/beam_chunked.py), optionally steered per frame by
     `guide_lm`.
-Not ported yet: the approximate top-k (NotImplementedError naming
-ROADMAP.md queue 1 item 5).
+`approx_topk` selects `lax.approx_max_k` on the TPU, which XLA computes
+exactly off the TPU; the port's top-k is always exact (K3 on the card).
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ import warnings
 import torch
 
 from .beam_chunked import beam_search_chunked_lm
+from .lm import _where_rows
 from .beam_search_cuda import (
     _DEADBASE,
     _M1,
@@ -53,9 +54,6 @@ from .beam_search_cuda import (
 )
 from .semiring import LOG0, LOG0_THRESHOLD, logaddexp2
 from .topk_cuda import topk
-
-_ITEM5 = "ROADMAP.md queue 1 item 5, what is left of LM fusion"
-
 
 def _top_w_iterative(scores, w: int):
     """Exact top-w of each row of scores (N, M) by repeated argmax (the
@@ -91,7 +89,7 @@ def _gather_w(x, idx):
 
 def _beam_search_scan(log_probs, il, W: int, K: int, s_cap: int, blank: int,
                       lm=None, lm_alpha: float = 0.0, lm_beta: float = 0.0,
-                      token_min_logp=None):
+                      token_min_logp=None, candidates=None):
     """Batched CTC prefix beam search as a loop over frames, vectorised
     over the N sequences: JAX's `_beam_search_single` under `vmap`, with
     `_beam_init_state` and `_beam_rank`.
@@ -101,18 +99,28 @@ def _beam_search_scan(log_probs, il, W: int, K: int, s_cap: int, blank: int,
     values), W stay and W*K extension candidates, extensions that recreate
     a live prefix merged into it by hash (logsumexp) and removed, top-W of
     acoustic + LM bonus by repeated argmax.  The stay term reads the full
-    vocabulary row, or with `token_min_logp` the masked candidate set.  The
-    LM scores extensions through its `score`/`select` protocol on N*W
-    rows; `final` adds its end-of-sequence term.  Returns tokens (N, W,
-    s_cap) int32 (-1 pad, best first), lengths (N, W) int32, scores (N, W)
-    (-inf for dead beams) and times (N, W, s_cap) int32 emission frames.
+    vocabulary row, or with `token_min_logp` the masked candidate set.
+    With log_probs None, `candidates` = (lpk, ck, lpb), (T, N, K) top-K
+    values and ids and (T, N) blank log-probs, are decoded alone (JAX's
+    candidate-only mode): the stay term reads the candidates.  The LM
+    scores extensions through its `score`/`select` protocol on N*W rows;
+    `final` adds its end-of-sequence term.  Returns tokens (N, W, s_cap)
+    int32 (-1 pad, best first), lengths (N, W) int32, scores (N, W) (-inf
+    for dead beams) and times (N, W, s_cap) int32 emission frames.
     """
-    t_max, n, v = log_probs.shape
-    dev, dt = log_probs.device, log_probs.dtype
-    lpk_all, ck_all = torch.sort(log_probs, dim=-1, descending=True,
-                                 stable=True)
-    lpk_all, ck_all = apply_token_min_logp(lpk_all[..., :K].contiguous(),
-                                           ck_all[..., :K], token_min_logp)
+    if log_probs is None:
+        lpk_all, ck_all, lpb_all = candidates
+        t_max, n, _ = lpk_all.shape
+        ck_all = ck_all.long()
+    else:
+        t_max, n, v = log_probs.shape
+        lpk_all, ck_all = torch.sort(log_probs, dim=-1, descending=True,
+                                     stable=True)
+        lpk_all, ck_all = apply_token_min_logp(
+            lpk_all[..., :K].contiguous(), ck_all[..., :K], token_min_logp)
+        lpb_all = log_probs[:, :, blank]
+    stay_from_cands = log_probs is None or token_min_logp is not None
+    dev, dt = lpk_all.device, lpk_all.dtype
     il = il.to(dev).long()
     w_idx = torch.arange(W, device=dev)
     rows = torch.arange(n, device=dev)[:, None]
@@ -137,12 +145,12 @@ def _beam_search_scan(log_probs, il, W: int, K: int, s_cap: int, blank: int,
         lpk, ck = lpk_all[t], ck_all[t].long()  # (N, K)
         total = logaddexp2(pb, pnb)
         # stay candidates: the same prefix
-        if token_min_logp is not None:  # a dropped token is no repeat
+        if stay_from_cands:  # a dropped token is no repeat
             lp_last = torch.where(ck[:, None, :] == last[:, :, None],
                                   lpk[:, None, :], log0).amax(-1)
         else:
             lp_last = log_probs[t].gather(1, last.clamp(0, v - 1))
-        pb_stay = total + log_probs[t, :, blank][:, None]
+        pb_stay = total + lpb_all[t][:, None]
         pnb_stay = torch.where(last >= 0, pnb + lp_last, log0)
         # extension candidates: prefix + c
         same = ck[:, None, :] == last[:, :, None]  # (N, W, K)
@@ -205,11 +213,8 @@ def _beam_search_scan(log_probs, il, W: int, K: int, s_cap: int, blank: int,
             new_state = lm.select(lm_state, lm_state_ext,
                                   (rows * W + parent).reshape(-1),
                                   kk.reshape(-1), is_stay.reshape(-1))
-            keep = upd.expand(n, W).reshape(-1)
-            lm_state = (tuple(torch.where(keep, a, b) for a, b in
-                              zip(new_state, lm_state))
-                        if isinstance(lm_state, tuple)
-                        else torch.where(keep, new_state, lm_state))
+            lm_state = _where_rows(upd.expand(n, W).reshape(-1), new_state,
+                                   lm_state)
         tokens = torch.where(upd[..., None], new_tokens, tokens)
         times = torch.where(upd[..., None], new_times, times)
         lens, last, pb, pnb, h1, h2, lm_score = (
@@ -238,15 +243,17 @@ def beam_search_from_topk(lpk, ck, lpb, input_lengths, beam_width: int,
     blank log-probs.  The JAX package's candidate-only semantics: every
     extension and the repeat ("stay") term read the K candidates only,
     so this is exact when they cover the vocabulary and otherwise the beam
-    kernel's documented prune.  It is the beam kernel's contract with its
-    stay window ks = K: all frames' steps (`beam_step`, K4, or K5 with a
-    dense bigram `NGramLM` of at most 63 symbols, its end-of-sequence
-    bonus added after) and the backtrace kernel on CUDA tensors, their
-    plain versions on CPU ones; outside the kernel's envelope (beam_width
-    > 32, K > 128, not float32) the CUDA path raises.  Other LMs are not
-    ported here (NotImplementedError).  Returns (tokens (N, W,
-    max_symbols) int32, lengths (N, W) int32, scores (N, W) and, with
-    return_timestamps, times (N, W, max_symbols) emission frames).
+    kernel's documented prune.  With no LM, or a dense bigram `NGramLM`
+    of at most 63 symbols, it is the beam kernel's contract with its stay
+    window ks = K: all frames' steps (`beam_step`, K4, or K5 with the
+    bigram, its end-of-sequence bonus added after) and the backtrace
+    kernel on CUDA tensors, their plain versions on CPU ones; outside the
+    kernel's envelope (beam_width > 32, K > 128, not float32) the CUDA
+    path raises.  Any other LM of the protocol is fused per frame by the
+    prefix-beam scan over the candidates (JAX's candidate-only scan).
+    Returns (tokens (N, W, max_symbols) int32, lengths (N, W) int32,
+    scores (N, W) and, with return_timestamps, times (N, W, max_symbols)
+    emission frames).
     """
     lpk = torch.as_tensor(lpk)
     dev = lpk.device
@@ -256,13 +263,15 @@ def beam_search_from_topk(lpk, ck, lpb, input_lengths, beam_width: int,
     W, K, s_cap = int(beam_width), lpk.shape[2], int(max_symbols)
     inc = None
     if lm is not None:
-        # the candidates carry no vocabulary size: the LM's own is taken
-        ok, reason = lm_fusion_supported(lm, getattr(lm, "_v", 0), W)
-        if not ok:
-            raise NotImplementedError(
-                f"beam_search_from_topk with this LM ({reason}) is not "
-                f"ported yet: {_ITEM5}")
         check_lm_device(lm, dev)
+        # the candidates carry no vocabulary size: the LM's own is taken
+        ok, _ = lm_fusion_supported(lm, getattr(lm, "_v", 0), W)
+        if not ok:
+            out = _beam_search_scan(
+                None, il, W, K, s_cap, int(blank), lm=lm,
+                lm_alpha=float(lm_alpha), lm_beta=float(lm_beta),
+                candidates=(lpk, ck, lpb))
+            return out if return_timestamps else out[:3]
         inc = lm_alpha * lm._table + lm_beta
     bp, scores, last, _ = beam_step(lpk.contiguous(), ck.contiguous(),
                                     lpb.contiguous(), il, W, K, s_cap,
@@ -306,7 +315,8 @@ def beam_search_decode(
         prefix stops growing there.
       lm / lm_alpha / lm_beta: shallow-fusion LM (ops/lm.py, tables on the
         lattice's device), its weight and per-token insertion bonus.
-      approx_topk: not ported (NotImplementedError).
+      approx_topk: accepted; the top-k is exact (as XLA computes JAX's
+        approximate one off the TPU).
       implementation: 'auto' (the kernel path where its envelope takes
         the configuration, else the scan), 'pallas' (the kernel path;
         ValueError outside its envelope), 'xla' (the scan: any
@@ -333,8 +343,6 @@ def beam_search_decode(
         raise ValueError("guide_lm is only meaningful with "
                          "implementation='chunked' (it steers between "
                          "chunk boundaries)")
-    if approx_topk:
-        raise NotImplementedError(f"approx_topk is not ported yet: {_ITEM5}")
     log_probs = torch.as_tensor(log_probs)
     if batch_first:
         log_probs = log_probs.transpose(0, 1)

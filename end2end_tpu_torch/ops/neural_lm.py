@@ -1,23 +1,136 @@
-"""The functional GRU cell of `end2end_tpu/ops/neural_lm.py`, batched (torch
-port of `gru_step`, `gru_logits` and `random_gru_params`; the transducer's
-predictor).  `NeuralLM`, the LM wrapper around it, is not ported yet
-(ROADMAP.md queue 1, item 5).
+"""Neural-LM shallow fusion (torch port of `end2end_tpu/ops/neural_lm.py`):
+`NeuralLM`, the protocol wrapper around any stateful next-token model, and
+the functional GRU cell (`gru_step`, `gru_logits`, `random_gru_params`;
+also the transducer's predictor).
+
+`NeuralLM`'s state defers each beam's last token: (hidden, pending), the
+hidden state after the prefix less its last token and that token (-1:
+none).  `score` advances every beam by its pending token once and all K
+candidates share the advanced distribution; `select` commits the advanced
+hidden for stay and extend alike.  A consumed token costs one network
+step per surviving beam.  The model's `step_fn` and `logp_fn` are
+unbatched, as in JAX, and batched over the beams with `torch.func.vmap`.
 
 This GRU is not `torch.nn.GRU`'s: the reset gate scales the hidden state
 BEFORE the candidate's matmul, ``cand = tanh([x, r*h] @ wh + bh)``, where
 torch applies it after the hidden matmul.  Parameters are a dict of
 tensors in the JAX layout: emb (V, E); wz, wr, wh (E+H, H) applied to
 concat([x, h]); bz, br, bh (H,); wo (H, V), bo (V,) for `gru_logits`.
+`gru_step` and `gru_logits` take one beam (h (H,), a token scalar) or a
+batch (h (N, H), tokens (N,)).
 """
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
+
+from ..utils.device import resolve_device
+from .lm import _state_device, _where_rows
+
+
+class NeuralLM:
+    """Shallow-fusion adapter for any stateful next-token model.
+
+    step_fn(hidden, token) -> hidden' consumes one token and logp_fn(hidden)
+    -> (V,) scores the next; both take ONE beam (a hidden nest of tensors
+    without the beam axis, a 0-d token) and are vmapped over the beams
+    here.  init_hidden: one beam's initial hidden (condition on <s> by
+    baking it in), moved to `device` (the card by default).  `eos_id`: a
+    token whose log-prob `final` adds once (KenLM's </s>); None = none.
+    normalize: log-softmax logp_fn's output.  The decoder adds
+    `lm_alpha * logp + lm_beta` per emitted token, as for the n-gram LMs.
+    """
+
+    def __init__(self, step_fn, logp_fn, init_hidden, vocab_size,
+                 eos_id=None, normalize=True, *, device=None):
+        dev = resolve_device(device)
+        self._step = step_fn
+        self._raw_logp = logp_fn
+        self._h0 = tree_map(lambda x: torch.as_tensor(x, device=dev),
+                            init_hidden)
+        self._v = int(vocab_size)
+        self._eos = None if eos_id is None else int(eos_id)
+        self._norm = bool(normalize)
+
+    @property
+    def device(self) -> torch.device:
+        return _state_device(self._h0)
+
+    def _logp_rows(self, h):
+        """(W, V) next-token log-probs of batched hidden states."""
+        out = torch.func.vmap(self._raw_logp)(h)
+        return torch.log_softmax(out, dim=-1) if self._norm else out
+
+    def _advance(self, h, pending):
+        """Consume each beam's pending token (none where pending < 0)."""
+        stepped = torch.func.vmap(self._step)(h, pending.clamp(min=0))
+        return _where_rows(pending >= 0, stepped, h)
+
+    def init_state(self, w):
+        h = tree_map(lambda x: x[None].expand(w, *x.shape).clone(), self._h0)
+        return h, torch.full((w,), -1, dtype=torch.long, device=self.device)
+
+    def score(self, state, ck):
+        h, pending = state
+        h_eff = self._advance(h, pending)
+        logp = self._logp_rows(h_eff)  # (W, V)
+        ck = ck.long()
+        ckb = ck.expand(logp.shape[0], ck.shape[-1]) if ck.dim() == 1 else ck
+        return logp.gather(1, ckb.clamp(0, self._v - 1)), (h_eff, ckb)
+
+    def select(self, state, state_ext, parent, kk, is_stay):
+        h_eff, ckb = state_ext
+        # every survivor's prefix holds its parent's pending token, so the
+        # advanced hidden is committed for stay and extend alike
+        return (tree_map(lambda x: x[parent], h_eff),
+                torch.where(is_stay, -1, ckb[parent, kk]))
+
+    def final(self, state):
+        h, pending = state
+        if self._eos is None:
+            return torch.zeros(pending.shape, device=pending.device)
+        return self._logp_rows(self._advance(h, pending))[:, self._eos]
+
+    def score_chunk(self, state, toks):
+        """toks (M, C) in emission order, -1 padded at the end: exactly
+        folding score/select token by token (the same advances, the same
+        gathered rows), over the columns up to the longest row."""
+        h, pending = state
+        toks = toks.long()
+        valid = toks >= 0
+        lp_sum = torch.zeros(toks.shape[0], device=toks.device)
+        for j in range(int(valid.sum(dim=1).max()) if toks.shape[0] else 0):
+            h_eff = self._advance(h, pending)
+            lp = self._logp_rows(h_eff).gather(
+                1, toks[:, j:j + 1].clamp(0, self._v - 1))[:, 0]
+            h = _where_rows(valid[:, j], h_eff, h)
+            pending = torch.where(valid[:, j], toks[:, j], pending)
+            lp_sum = lp_sum + torch.where(valid[:, j], lp, 0.0)
+        return lp_sum, (h, pending)
+
+    @classmethod
+    def gru(cls, params, eos_id=None, normalize=True, precision=None, *,
+            device=None):
+        """A single-layer GRU LM from a dict of arrays (`gru_step`'s
+        layout), hidden0 = zeros(H).  `precision` (the JAX package's MXU
+        pass) is accepted and changes nothing: the port's matmuls are
+        float32 (with TF32 off, torch's default for matmuls)."""
+        del precision
+        dev = resolve_device(device)
+        p = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+             for k, v in params.items()}
+        return cls(partial(gru_step, p), partial(gru_logits, p),
+                   torch.zeros(p["wz"].shape[1], device=dev),
+                   p["emb"].shape[0], eos_id=eos_id, normalize=normalize,
+                   device=dev)
 
 
 def gru_step(params, h: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
-    """One step for a batch: hidden (N, H) consumes token ids (N,)."""
+    """One step: hidden (N, H) consumes token ids (N,), or (H,) one."""
     x = params["emb"][tok.long()]
     xh = torch.cat([x, h], -1)
     z = torch.sigmoid(xh @ params["wz"] + params["bz"])

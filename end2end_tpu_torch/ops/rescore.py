@@ -5,15 +5,35 @@ surviving hypothesis y and re-rank:
 
     alpha * (sum_j log p_LM(y_j | y_<j) + final(y)) + beta * len(y),
 
-the bonus an LM-fused decode attaches to the same prefix.  The whole
-N-best list is replayed in one `score_chunk` call.  The JAX package's
-per-token protocol fallback for LMs without `score_chunk` is not ported:
-every LM of the port has `score_chunk`.
+the bonus an LM-fused decode attaches to the same prefix.  An LM with
+`score_chunk` replays the whole N-best list in one call; any other LM of
+the shallow-fusion protocol (ops/lm.py) is folded through `score` and
+`select` one position at a time, each hypothesis its own single candidate,
+vectorised over the N*W hypotheses (the JAX package's per-token fallback).
 """
 
 from __future__ import annotations
 
 import torch
+
+from .lm import _where_rows
+
+
+def _score_by_protocol(lm, state, toks):
+    """(sum of log p_LM over each row's tokens, the state after them):
+    score/select folded over the positions up to the longest row."""
+    m = toks.shape[0]
+    rows = torch.arange(m, device=toks.device)
+    zero = torch.zeros_like(rows)
+    extend = torch.zeros(m, dtype=torch.bool, device=toks.device)
+    valid = toks >= 0
+    lp_sum = torch.zeros(m, device=toks.device)
+    for j in range(int(valid.sum(dim=1).max()) if m else 0):
+        lm_lp, ext = lm.score(state, toks[:, j:j + 1].clamp(min=0))
+        state = _where_rows(valid[:, j], lm.select(state, ext, rows, zero,
+                                                   extend), state)
+        lp_sum = lp_sum + torch.where(valid[:, j], lm_lp[:, 0], 0.0)
+    return lp_sum, state
 
 
 def rescore_nbest(tokens, lengths, scores, lm, lm_alpha: float = 0.0,
@@ -26,14 +46,13 @@ def rescore_nbest(tokens, lengths, scores, lm, lm_alpha: float = 0.0,
     Returns (tokens, lengths, scores + bonus), re-sorted best first when
     `resort`, plus times when given.
     """
-    if not hasattr(lm, "score_chunk"):
-        raise NotImplementedError(
-            f"{type(lm).__name__} has no score_chunk: the per-token "
-            "rescoring fallback is not ported yet (ROADMAP.md queue 1 "
-            "item 5)")
     n, w, s_cap = tokens.shape
-    lm_sum, state = lm.score_chunk(lm.init_state(n * w),
-                                   tokens.reshape(n * w, s_cap))
+    toks = tokens.reshape(n * w, s_cap).long()
+    state = lm.init_state(n * w)
+    if hasattr(lm, "score_chunk"):
+        lm_sum, state = lm.score_chunk(state, toks)
+    else:
+        lm_sum, state = _score_by_protocol(lm, state, toks)
     bonus = (lm_alpha * (lm_sum + lm.final(state))
              + lm_beta * lengths.reshape(n * w).to(torch.float32))
     flat = scores.reshape(n * w)

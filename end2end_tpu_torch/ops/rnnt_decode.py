@@ -155,6 +155,11 @@ def rnnt_greedy_decode(encoder_out, input_lengths, predictor_step,
     return out if return_timestamps else out[:3]
 
 
-def rnnt_beam_decode(*args, **kwargs):
-    """ALSD beam search: not ported yet."""
+def rnnt_beam_decode(encoder_out, input_lengths, predictor_step, init_hidden,
+                     joint_fn, *, beam_width: int = 4,
+                     prune_k: int | None = None, blank: int = 0,
+                     max_symbols: int | None = None, lookahead: int = 1,
+                     return_timestamps: bool = False, lm=None,
+                     lm_alpha: float = 0.0, lm_beta: float = 0.0):
+    """ALSD beam search (the JAX package's signature): not ported yet."""
     raise _not_ported("rnnt_beam_decode (ALSD beam search)")

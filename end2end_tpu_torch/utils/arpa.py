@@ -1,10 +1,14 @@
-"""ARPA n-gram files -> dense bigram tables for shallow fusion (torch port
-of the bigram part of `end2end_tpu/utils/arpa.py`).
+"""ARPA n-gram files -> LM tables for shallow fusion (torch port of
+`end2end_tpu/utils/arpa.py`).
 
-The model is read once into dense tables (unigram, backoff-completed
-bigram, <s> and </s> rows) that `ops.lm.NGramLM` and `ops.lm.WordNGramLM`
-query with gathers.  Only the pure-Python parser is ported; the JAX
-package's native C parser gives the same output faster.
+`load_arpa` reads a bigram model into dense tables (unigram,
+backoff-completed bigram, <s> and </s> rows) for `ops.lm.NGramLM` and
+`ops.lm.WordNGramLM`; `parse_arpa_order` reads a model of any order into
+the n-gram lists of `ops.lm.HashedNGramLM` and `ops.lm.HashedWordNGramLM`;
+`ArpaScorer` is the float64 host oracle of their backoff semantics.  Only
+the pure-Python parsers are ported; the JAX package's native C parser
+gives the same output (in float32) faster, so `prefer_native` is accepted
+and changes nothing.
 """
 
 from __future__ import annotations
@@ -96,3 +100,84 @@ def ngram_lm_from_arpa(path: str, vocab: list[str],
 
     _, bigram, start, eos = load_arpa(path, vocab, prefer_native)
     return NGramLM(bigram, start_logp=start, eos_logp=eos, device=device)
+
+
+def parse_arpa_order(path: str, vocab: list[str], prefer_native: bool = True):
+    """An ARPA file of any order as (order, ngrams): ngrams[k] (1-based) is
+    a list of (ids_tuple, logp, backoff) with natural-log scores.  Ids are
+    vocab indices, <s> = len(vocab), </s> = len(vocab) + 1; n-grams with
+    <unk> or out-of-vocabulary words are dropped except the <unk> unigram,
+    whose log-prob is ngrams["unk"] (None without one).  `prefer_native`
+    changes nothing (see the module docstring)."""
+    del prefer_native
+    v = len(vocab)
+    word_id = {w: i for i, w in enumerate(vocab)}
+    word_id["<s>"] = v
+    word_id["</s>"] = v + 1
+    ngrams: dict = {"unk": None}
+    order = 0
+    section = 0
+    with open(path) as f:
+        for line in f:
+            s = line.strip()
+            if s.startswith("\\") and s.endswith("-grams:"):
+                section = int(s[1:-7])
+                order = max(order, section)
+                ngrams.setdefault(section, [])
+                continue
+            if s == "\\end\\":
+                break
+            parts = s.split()
+            if section < 1 or len(parts) < section + 1:
+                continue
+            lp = float(parts[0]) * _LN10
+            words = parts[1:1 + section]
+            bo = (float(parts[1 + section]) * _LN10
+                  if len(parts) > section + 1 else 0.0)
+            if section == 1 and words[0] in ("<unk>", "<UNK>"):
+                ngrams["unk"] = lp
+                continue
+            if any(w not in word_id for w in words):
+                continue
+            ngrams[section].append((tuple(word_id[w] for w in words), lp,
+                                    bo))
+    return order, ngrams
+
+
+class ArpaScorer:
+    """Host dict-based backoff scorer: exact ARPA/KenLM semantics in
+    float64, the oracle of the device LMs' tables."""
+
+    def __init__(self, order, ngrams, vocab_size, unk_logp=None):
+        self.order = int(order)
+        self.v = int(vocab_size)
+        self.bos = self.v
+        self.eos = self.v + 1
+        self.tab = {
+            k: {ids: (lp, bo) for ids, lp, bo in ngrams.get(k, [])}
+            for k in range(1, self.order + 1)
+        }
+        u = ngrams.get("unk")
+        self.unk = float(unk_logp if unk_logp is not None
+                         else (u if u is not None else -23.0))
+
+    @classmethod
+    def from_file(cls, path, vocab, **kw):
+        order, ngrams = parse_arpa_order(path, list(vocab))
+        return cls(order, ngrams, len(vocab), **kw)
+
+    def score(self, context, w):
+        """log p(w | context) with full backoff: context a token id
+        sequence (bos first at the start of an utterance), w a token id."""
+        ctx = tuple(context[-(self.order - 1):]) if self.order > 1 else ()
+        acc = 0.0
+        for k in range(self.order, 0, -1):
+            need = k - 1
+            if need <= len(ctx):
+                c = ctx[len(ctx) - need:]
+                g = c + (int(w),)
+                if g in self.tab[k]:
+                    return self.tab[k][g][0] + acc
+                if k > 1 and c in self.tab[k - 1]:
+                    acc += self.tab[k - 1][c][1]
+        return self.unk + acc

@@ -173,9 +173,11 @@ def test_beam_envelope_and_unported_options(rng):
         with pytest.raises(ValueError, match="'pallas' unsupported"):
             beam_search_decode(x, implementation="pallas", **kw)
         assert beam_search_decode(x, **kw)[0].shape[0] == 1
-    # still unported: approx_topk; an object without the LM protocol
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        beam_search_decode(lp, approx_topk=True)
+    # approx_topk is accepted and the top-k stays exact (JAX's approximate
+    # top-k is exact off the TPU); an object without the LM protocol raises
+    for a, b in zip(beam_search_decode(lp, approx_topk=True),
+                    beam_search_decode(lp)):
+        assert torch.equal(a, b)
     with pytest.raises(AttributeError):
         beam_search_decode(lp, lm=object())
     with pytest.raises(ValueError, match="implementation"):

@@ -396,3 +396,198 @@ def test_plain_state_in_out_resumes_exactly(rng):
         for x, y in zip(second[3], whole[3]):
             assert torch.equal(x, y)
         assert torch.equal(second[1], whole[1])
+
+
+# --- the rest of LM fusion: hashed, composite and neural LMs on every
+# decode path; the chunked entry points' API repairs ---
+
+
+def protocol_lm_pair(rng, name):
+    """(JAX LM, port LM) over tokens 1-4 (space 4): a hashed word trigram
+    ('word3'), a hashed token trigram ('token3'), the word trigram plus a
+    hotword booster ('composite') or a GRU ('neural')."""
+    from end2end_tpu.ops import neural_lm as jnl
+    from end2end_tpu_torch.ops import neural_lm as tnl
+
+    from .test_torch_lm_hashed import (composite_pair, rand_ngrams,
+                                       word_lm_pair)
+
+    if name == "word3":
+        return word_lm_pair(rng, 3)
+    if name == "composite":
+        return composite_pair(rng)
+    if name == "token3":
+        ng = rand_ngrams(rng, 6, 3)
+        return (jlm.HashedNGramLM(3, ng, 6),
+                tlm.HashedNGramLM(3, ng, 6, device="cpu"))
+    params = tnl.random_gru_params(rng, 6, emb_dim=6, hidden_dim=10)
+    import jax
+
+    return (jnl.NeuralLM.gru(params, eos_id=2,
+                             precision=jax.lax.Precision.HIGHEST),
+            tnl.NeuralLM.gru(params, eos_id=2, device="cpu"))
+
+
+class ProtocolOnly:
+    """An LM with score/select/final and no score_chunk (rescoring's
+    per-token fallback), wrapping another."""
+
+    def __init__(self, lm):
+        self._lm = lm
+
+    def __getattr__(self, name):
+        if name == "score_chunk":
+            raise AttributeError(name)
+        return getattr(self._lm, name)
+
+
+@pytest.mark.parametrize("name", ["word3", "token3", "composite", "neural"])
+def test_scan_with_protocol_lms_matches_jax(rng, name):
+    B, T, V = 3, 20, 6
+    jl, tl = protocol_lm_pair(rng, name)
+    lp = lsm(rng.standard_normal((T, B, V)) * 1.5).astype(np.float32)
+    il = np.array([20, 14, 9], np.int32)
+    kw = dict(beam_width=6, prune_k=5, lm_alpha=0.7, lm_beta=0.3,
+              return_timestamps=True)
+    got = beam_search_decode(_t(lp), _t(il), lm=tl, implementation="xla",
+                             **kw)
+    _assert_scan(got, jax_beam(lp, il, lm=jl, implementation="xla", **kw))
+
+
+@pytest.mark.parametrize("name", ["word3", "composite", "neural"])
+def test_chunked_with_protocol_lms_matches_jax(rng, name):
+    B, T, V = 3, 26, 6
+    jl, tl = protocol_lm_pair(rng, name)
+    lp = lsm(rng.standard_normal((T, B, V)) * 1.5).astype(np.float32)
+    il = np.array([26, 19, 11], np.int32)
+    _chunked_pair(lp, il, jl, tl, 7, W=6, return_timestamps=True)
+
+
+@pytest.mark.parametrize("name", ["word3", "composite", "neural"])
+def test_rescore_by_both_routes_matches_jax(rng, name):
+    """score_chunk and the per-token fallback (an LM without score_chunk)
+    against JAX's rescore_nbest, and against each other."""
+    B, T, V, W = 3, 15, 6, 4
+    jl, tl = protocol_lm_pair(rng, name)
+    lp = lsm(rng.standard_normal((T, B, V)) * 1.5).astype(np.float32)
+    nt, nl, ns = beam_search_decode(_t(lp), beam_width=W)
+    want = jax_rescore(jnp.asarray(nt.numpy()), jnp.asarray(nl.numpy()),
+                       jnp.asarray(ns.numpy()), jl, lm_alpha=0.7,
+                       lm_beta=0.4)
+    chunk = rescore_nbest(nt, nl, ns, tl, lm_alpha=0.7, lm_beta=0.4)
+    fold = rescore_nbest(nt, nl, ns, ProtocolOnly(tl), lm_alpha=0.7,
+                         lm_beta=0.4)
+    jfold = jax_rescore(jnp.asarray(nt.numpy()), jnp.asarray(nl.numpy()),
+                        jnp.asarray(ns.numpy()), ProtocolOnly(jl),
+                        lm_alpha=0.7, lm_beta=0.4)
+    for got in (chunk, fold):
+        for ref in (want, jfold):
+            np.testing.assert_allclose(got[2].numpy(), np.asarray(ref[2]),
+                                       atol=1e-5, rtol=0)
+            for x, y in zip(got[:2], ref[:2]):
+                np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+
+
+@pytest.mark.parametrize("name", ["word3", "composite", "bigram80"])
+def test_from_topk_with_protocol_lms_matches_jax(rng, name):
+    """beam_search_from_topk with an LM outside the fused kernel: the
+    candidate-only scan, against JAX's."""
+    from end2end_tpu.ops.beam_search import beam_search_from_topk as jft
+    from end2end_tpu_torch.ops.beam_search import beam_search_from_topk
+
+    B, T, V, K, W = 3, 18, 6, 4, 5
+    if name == "bigram80":  # a dense bigram past the kernel's 64 rows
+        V = 80
+        jl, tl = bigram_pair(rng, V)
+    else:
+        jl, tl = protocol_lm_pair(rng, name)
+    lp = lsm(rng.standard_normal((T, B, V)) * 1.5).astype(np.float32)
+    il = np.array([18, 12, 6], np.int32)
+    lpk, ck = torch.sort(_t(lp), dim=-1, descending=True, stable=True)
+    lpk, ck = lpk[..., :K].contiguous(), ck[..., :K].to(torch.int32)
+    lpb = _t(lp[:, :, 0])
+    got = beam_search_from_topk(lpk, ck, lpb, _t(il), W, 0, 12, lm=tl,
+                                lm_alpha=0.6, lm_beta=0.2,
+                                return_timestamps=True)
+    want = jft(jnp.asarray(lpk.numpy()), jnp.asarray(ck.numpy()),
+               jnp.asarray(lp[:, :, 0]), jnp.asarray(il), W, 0, 12, lm=jl,
+               lm_alpha=0.6, lm_beta=0.2, return_timestamps=True)
+    _assert_scan(got, want)
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla"])
+def test_approx_topk_matches_jax(rng, impl):
+    """approx_topk=True: JAX's lax.approx_max_k is exact off the TPU, and
+    the port's top-k is exact: the kernel path against JAX's kernel in
+    interpret mode, the scan against JAX's scan (prune_k < V)."""
+    B, T, V = 3, 18, 12
+    lp = lsm(rng.standard_normal((T, B, V)) * 1.5).astype(np.float32)
+    il = np.array([18, 13, 7], np.int32)
+    kw = dict(beam_width=6, prune_k=5, approx_topk=True,
+              return_timestamps=True)
+    got = beam_search_decode(_t(lp), _t(il), implementation=impl, **kw)
+    if impl == "auto":
+        _assert_same(got, beam_search_pallas(lp, il, interpret=True, **kw))
+    else:
+        _assert_scan(got, jax_beam(lp, il, implementation="xla", **kw))
+    exact = beam_search_decode(_t(lp), _t(il), implementation=impl,
+                               **{**kw, "approx_topk": False})
+    for a, b in zip(got, exact):
+        assert torch.equal(a, b)
+
+
+def test_chunked_float64_matches_jax(rng):
+    """A float64 lattice is decoded in float32, as JAX's chunked entry
+    points do (it raised before); the same from precomputed candidates."""
+    from end2end_tpu.ops.beam_chunked import (
+        beam_search_chunked_lm_from_topk as jax_from_topk)
+    from end2end_tpu_torch.ops.beam_chunked import (
+        beam_search_chunked_lm_from_topk)
+
+    B, T, V = 2, 40, 8
+    jl, tl = bigram_pair(rng, V)
+    lp = lsm(rng.standard_normal((T, B, V)) * 1.5)  # float64
+    il = np.array([40, 27], np.int32)
+    got = _chunked_pair(lp, il, jl, tl, 16)
+    assert got[2].dtype == torch.float32
+    lpk, ck = torch.sort(_t(lp), dim=-1, descending=True, stable=True)
+    lpk, ck = lpk[..., :5], ck[..., :5].to(torch.int32)
+    kw = dict(v=V, beam_width=8, lm_alpha=0.7, lm_beta=0.2, chunk_t=16)
+    got = beam_search_chunked_lm_from_topk(lpk, ck, _t(lp[:, :, 0]),
+                                           _t(il), lm=tl, **kw)
+    want = jax_from_topk(lpk.numpy(), ck.numpy(), lp[:, :, 0], il, lm=jl,
+                         interpret=True, **kw)
+    _assert_same(got, want)
+
+
+def test_chunked_takes_jax_positional_arguments(rng):
+    """`interpret` stands in JAX's 11th position (accepted, ignored), so a
+    positional call in JAX's order binds return_timestamps right."""
+    B, T, V = 2, 20, 5
+    jl, tl = bigram_pair(rng, V)
+    lp = lsm(rng.standard_normal((T, B, V)) * 1.5).astype(np.float32)
+    il = np.array([20, 13], np.int32)
+    args = (8, 0, None, None)  # beam_width, blank, prune_k, max_symbols
+    got = beam_search_chunked_lm(_t(lp), _t(il), *args, tl, 0.7, 0.2, 6,
+                                 None, True)
+    want = jax_chunked(lp, il, *args, jl, 0.7, 0.2, 6, True, True)
+    assert len(got) == len(want) == 4
+    _assert_same(got, want)
+    for flag in (False, True):
+        again = beam_search_chunked_lm(_t(lp), _t(il), lm=tl, lm_alpha=0.7,
+                                       lm_beta=0.2, chunk_t=6,
+                                       interpret=flag,
+                                       return_timestamps=True)
+        for a, b in zip(again, got):
+            assert torch.equal(a, b)
+
+
+def test_init_state_takes_jax_argument_name(rng):
+    """init_state(w=...) as in JAX, for both ported bigram LMs."""
+    jb, tb = bigram_pair(rng, 5)
+    jw, tw = word_pair(rng)
+    for jl, tl in ((jb, tb), (jw, tw)):
+        got, want = tl.init_state(w=3), jl.init_state(w=3)
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
