@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port's serving and training paths (CTC,
 transducer and the fused transducer joint; forced alignment and MWER
-fine-tuning; LM fusion with hashed, composite and neural LMs) once on one
-GPU and check them.
+fine-tuning; LM fusion with hashed, composite and neural LMs; transducer
+beam, streaming and long-form decoding) once on one GPU and check them.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -44,7 +44,8 @@ Phases (every failure raises, so the exit code is nonzero):
      time, in turns (A B B A): K3 against the parent K3 and torch.topk at
      phase 4's four shapes (bit-equal first), the beam step (K4) against
      the parent kernel at the serving slice's shape and at the beam-16 row
-     (also as microseconds a frame); the backtrace kernel equal to
+     (also as microseconds a frame; and one call at the beam-16 row); the
+     backtrace kernel equal to
      backtrace_plain with the host walk (tokens, lengths, scores, times)
      and the lane-walk kernel equal to lane_walk_plain (lane0, the
      frame-aligned tokens, their counts) on the serving slice's, the
@@ -245,7 +246,46 @@ Phases (every failure raises, so the exit code is nonzero):
      boundary, `score_chunk` alone; the plain chunk loop once) and its
      rescore row (the no-LM decode, then `rescore_nbest`), seq/s;
      `score_chunk` on one chunk's tokens (device time and one call);
-     phase 29's decode of one batch.
+     phase 29's decode of one batch;
+ 31. the transducer decoding slice, on a freshly seeded ConformerTransducer
+     of phase 16's configuration, its blank logit biased by 1.7 (phase
+     16's steps teach that model to emit blanks only; unbiased, a fresh
+     one fills its hypotheses on the first frames) and phase 16's first
+     batch (B=8 x 30 s, T'=750,
+     symbol cap 256), and at bench.py's `_rnnt_decoder` shapes (B=16,
+     T=400, V=256, GRU-256, joint 256, s_cap 128): with the counters at 0,
+     the model's ALSD beam-4 decode and with a seeded dense bigram LM
+     (alpha 0.5, beta 0.2), the rnnt_beam4 and rnnt_beam4+bigramLM rows,
+     greedy lookahead 8 at blank bias 1.1, the streaming transducer greedy
+     and beam-4 decoders on 40-frame chunks, and
+     `transcribe_long_form_rnnt` (greedy, beam 4) on 60 s of features; K3
+     must have run.  The long form must equal the one-shot greedy and
+     beam-4 decodes of its chunks' trimmed encoder outputs stitched
+     (tokens and length, a non-empty transcript, the score within 1e-5
+     relative).  Then each ALSD decode with K3 against the same with
+     `topk_plain` on the card (every output bit-equal); greedy lookahead 8
+     equal to lookahead 1; the card against the CPU on the same encoder
+     outputs (the requests whose best hypotheses agree, their scores
+     within 1e-3); the streaming decoders against their one-shot decodes
+     on the card (the transducer's, and the CTC greedy and beam-8 ones on
+     the pipeline's log-probs of phase 29; tokens, lengths, times equal,
+     score differences logged); one `rnnt_mwer_loss` step through the
+     model (beam 4): finite loss and gradients, K8 and K9 launched 4 times
+     each (once a hypothesis); the MWER term after its decode on the
+     card's N-best of 4 requests (the best hypotheses as references) on
+     the card and on the CPU in float32, each against a float64 CPU
+     witness: the loss within 1e-3 relative, each hypothesis's score
+     within 1e-5 relative, the errors equal, and the card's gradients
+     within RNNT_MWER_GRAD_TOL of their norms (the CPU's float32 error
+     logged beside it);
+ 32. timings (CUDA events, median of 5, seq/s): rnnt_beam4 and +bigramLM
+     with their sequential steps and ms a step, rnnt_greedy_rt at
+     lookahead 8 and 1, the model's beam-4 decode, one streamed 40-frame
+     chunk of the blank-dominated bench decoder (greedy and beam 4), the
+     transducer MWER step and its parts (the decode, the four scoring
+     passes forward and backward (`mwer._rnnt_score_nbest`), the edit
+     distances); rnnt_beam4's kernels' device time (K3's apart)
+     under torch.profiler, and the device's idle share of the call.
 Every kernel row and library yardstick is also timed on the device alone
 (`device_ms`: calls captured in a CUDA graph and replayed between one
 pair of events; torch.profiler's kernel time where a call cannot be
@@ -273,6 +313,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -280,21 +321,30 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from end2end_tpu_torch import (ConformerCTCPipeline, ConformerTransducer,
-                               PipelineConfig, TransducerConfig,
+                               PipelineConfig, StreamingBeamDecoder,
+                               StreamingGreedyDecoder,
+                               StreamingRNNTBeamDecoder,
+                               StreamingRNNTGreedyDecoder, TransducerConfig,
                                ctc_forced_alignment, greedy_decode,
                                greedy_decode_with_confidence, mwer_loss,
-                               mwer_loss_from_nbest, word_confidences)
+                               mwer_loss_from_nbest, rnnt_beam_decode,
+                               rnnt_mwer_loss, word_confidences)
 from end2end_tpu_torch.models.frontend import log_mel_spectrogram, num_frames
+from end2end_tpu_torch.models.streaming import (_rnnt_encoded_chunks,
+                                                transcribe_long_form_rnnt)
 from end2end_tpu_torch.ops import (alignment, beam_chunked, beam_search_cuda,
                                    ctc_common, ctc_loss_cuda, ctc_loss_plain,
-                                   mwer, rnnt_joint_cuda, rnnt_joint_plain,
-                                   rnnt_loss_cuda, rnnt_loss_plain, topk_cuda)
+                                   mwer, rnnt_decode, rnnt_joint_cuda,
+                                   rnnt_joint_plain, rnnt_loss_cuda,
+                                   rnnt_loss_plain, topk_cuda)
 from end2end_tpu_torch.ops.beam_search import beam_search_decode
 from end2end_tpu_torch.ops.ctc_loss import ctc_nll
 from end2end_tpu_torch.ops.decode_utils import (blank_collapse,
                                                 collapse_and_bucket)
 from end2end_tpu_torch.ops.mwer import word_id_hashes
-from end2end_tpu_torch.ops.rnnt_decode import rnnt_greedy_decode
+from end2end_tpu_torch.ops.rnnt_decode import (FactoredAdditiveJoint,
+                                               additive_joint,
+                                               rnnt_greedy_decode)
 from end2end_tpu_torch.ops.rnnt_joint import (
     rnnt_nll_fused_pallas, rnnt_nll_fused_pallas_vocab_parallel)
 from end2end_tpu_torch.ops.rnnt_loss import (fused_additive_joint, rnnt_nll,
@@ -305,7 +355,8 @@ from end2end_tpu_torch.ops.lm import (CompositeLM, HashedNGramLM,
                                       HashedWordNGramLM, HotwordBoostLM,
                                       NGramLM, QuantizedBigramGuide,
                                       WordNGramLM, bigram_from_counts)
-from end2end_tpu_torch.ops.neural_lm import NeuralLM, random_gru_params
+from end2end_tpu_torch.ops.neural_lm import (NeuralLM, gru_step,
+                                             random_gru_params)
 from end2end_tpu_torch.ops.rescore import rescore_nbest
 from end2end_tpu_torch.utils.lm_train import train_ngram_lm
 from end2end_tpu_torch.tools import (beam_step_breakdown, ctc_alpha_breakdown,
@@ -2395,6 +2446,558 @@ def hashed_lm_timings(dev, slice29, lps):
     return ms
 
 
+# the transducer decoding slice (phases 31, 32): the ALSD beam's scores
+# card vs CPU where the best hypotheses agree (float32 sums of ~T + S
+# per-step log-probs in other orders); the transducer MWER term on the
+# card and on the CPU in float32, each against a float64 witness on the
+# same N-best: its loss relative, each hypothesis's score relative
+# (well-conditioned float32 sums; also the long form's score against its
+# one-shot decode); the loss's gradient sum_w c_w grad s_w (c = dloss /
+# ds, sum_w c_w = 0) cancels, so float32 errors of the score gradients
+# grow by kappa = |sum_w |c_w| grad s_w| / |gradient| (22 to 4,430 per
+# tensor on an H100 at these seeds: 256-token hypotheses differing in a
+# token or two, T'=750): each gradient's error is measured against
+# |sum_w |c_w| grad s_w| (the witness's; ~1e-6 of it on the card and the
+# CPU there), and that well-conditioned sum itself against its norm
+ALSD_SCORE_TOL = 1e-3
+RNNT_MWER_TOL = 1e-3
+RNNT_MWER_SCORE_RTOL = 1e-5
+RNNT_SCORE_GRAD_TOL = 1e-4
+RNNT_MWER_GRAD_TOL = 1e-3
+STREAM_CHUNK = 40  # encoder frames a streamed transducer chunk (1.6 s)
+S_CAP = 256  # the model decodes' symbol cap (the streaming decoders')
+# the blank logit's bias of phase 31's freshly seeded model: unbiased it
+# emits at nearly every step and fills every hypothesis on its first
+# frames; at 1.7 its greedy and beam-4 decodes emit ~0.2-0.45 tokens a
+# frame across the utterance (on 6 s of noise, the CPU), so a beam-4
+# hypothesis reaches the cap ~3/4 of the way through 30 s
+DECODE_BLANK_BIAS = 1.7
+CTC_STREAM_CHUNK = 64  # frames a streamed CTC lattice chunk
+
+
+def bench_decoder(dev, n=16, t=400, v=256, blank_bias=0.0, seed=0,
+                  h_enc=256, emb=128, hid=256, jdim=256):
+    """bench.py's `_rnnt_decoder` draw: (N, T, 256) encoder outputs, a
+    GRU-256 predictor, a factored 256-wide joint (blank_bias on the blank
+    logit) on `dev`: (enc, lengths, predictor_step, h0, joint)."""
+    rng = np.random.default_rng(seed)
+    enc = rng.normal(size=(n, t, h_enc)).astype(np.float32)
+    p = {k: torch.from_numpy(a).to(dev) for k, a in random_gru_params(
+        rng, v, emb_dim=emb, hidden_dim=hid).items()}
+
+    def w(*shape):
+        return (rng.standard_normal(shape) * 0.5
+                / np.sqrt(shape[0])).astype(np.float32)
+
+    ws = [w(h_enc, jdim), w(hid, jdim), 0.1 * w(jdim), w(jdim, v)]
+    ws.append(0.1 * w(v))
+    ws[4][0] += blank_bias
+    return (torch.from_numpy(enc).to(dev),
+            torch.full((n,), t, dtype=torch.int32, device=dev),
+            partial(gru_step, p), torch.zeros(hid, device=dev),
+            FactoredAdditiveJoint(*(torch.from_numpy(a).to(dev)
+                                    for a in ws)))
+
+
+def bench_bigram(dev, v=256):
+    """bench.py's `bench_rnnt_beam_lm` bigram: a log-normalised random
+    (V, V) table from seed 1."""
+    tbl = np.random.default_rng(1).normal(size=(v, v)).astype(np.float32)
+    tbl = tbl - np.log(np.exp(tbl).sum(1, keepdims=True))
+    return NGramLM(tbl, device=dev)
+
+
+def joint_calls(fn, joint):
+    """(fn(counting joint), how many times the per-step joint ran): the
+    sequential steps of a greedy or ALSD decode (plus one for a blank
+    tail's batched pass)."""
+    calls = [0]
+
+    def counted(f, h):
+        calls[0] += 1
+        return joint.from_projected(f, h)
+
+    counting = copy.copy(joint)
+    counting.from_projected = counted
+    out = fn(counting)
+    return out, calls[0]
+
+
+def same_decode(got, want, what):
+    """Tokens, lengths (and times) equal; the largest score difference
+    among live hypotheses, logged and returned."""
+    for i in ((0, 1, 3) if len(got) == 4 else (0, 1)):
+        if not torch.equal(got[i].cpu(), want[i].cpu()):
+            raise AssertionError(f"{what}: output {i} differs")
+    live = want[2] > -1e29
+    err = float((got[2] - want[2].to(got[2].device))[live].abs().max())
+    log(f"{what}: tokens, lengths and times equal; max score diff "
+        f"{err:.3g}")
+    return err
+
+
+def best_agree(card, cpu, what):
+    """Card vs CPU decodes: requests whose best hypotheses agree and the
+    largest score difference among them (asserted <= ALSD_SCORE_TOL)."""
+    tc, lc, sc = (x.cpu() for x in card[:3])
+    tp, lp, sp = cpu[:3]
+    same = [i for i in range(tc.shape[0])
+            if torch.equal(tc[i, 0, :lc[i, 0]], tp[i, 0, :lp[i, 0]])]
+    err = max((abs(float(sc[i, 0]) - float(sp[i, 0])) for i in same),
+              default=float("nan"))
+    log(f"{what}: {len(same)} of {tc.shape[0]} best hypotheses equal on "
+        f"the card and the CPU, their max score diff {err:.3g}")
+    if not same or err > ALSD_SCORE_TOL:
+        raise AssertionError(f"{what}: card vs CPU {len(same)} equal, "
+                             f"score diff {err}")
+    return len(same), err
+
+
+def kernel_vs_plain_alsd(args, kw, what):
+    """The same ALSD decode with `topk` (K3) and with `topk_plain` on the
+    card: every output bit-equal."""
+    want = rnnt_beam_decode(*args, return_timestamps=True, **kw)
+    rnnt_decode.topk = topk_cuda.topk_plain
+    try:
+        plain = rnnt_beam_decode(*args, return_timestamps=True, **kw)
+    finally:
+        rnnt_decode.topk = topk_cuda.topk
+    if not all(torch.equal(a, b) for a, b in zip(want, plain)):
+        raise AssertionError(f"{what}: K3 and topk_plain beams differ")
+    return want
+
+
+def stream_rnnt(dec, state, enc, il, chunk):
+    """Step a streaming transducer decoder through enc in chunks."""
+    for lo in range(0, enc.shape[1], chunk):
+        hi = min(lo + chunk, enc.shape[1])
+        state = dec.step(state, enc[:, lo:hi], (il - lo).clamp(0, hi - lo))
+    return state
+
+
+def stream_ctc(dec, state, lp, il, chunk):
+    for lo in range(0, lp.shape[0], chunk):
+        hi = min(lo + chunk, lp.shape[0])
+        state = dec.step(state, lp[lo:hi], (il - lo).clamp(0, hi - lo))
+    return state
+
+
+def rnnt_mwer_step(model, enc, enc_len, tgt, tl, max_symbols=None):
+    """The transducer MWER term (beam 4) on `enc`, backward through it
+    and the model's predictor and joint; (loss, aux)."""
+    pred, h0, joint = model.decoder_fns()
+    loss, aux = rnnt_mwer_loss(enc, enc_len, tgt, tl, pred, h0, joint,
+                               beam_width=4, max_symbols=max_symbols,
+                               return_aux=True)
+    loss.backward()
+    return loss, aux
+
+
+def mwer_witness(model, model_cpu, enc, enc_len, pred, h0, joint):
+    """The transducer MWER term after its decode (`_rnnt_mwer_from_nbest`,
+    what `rnnt_mwer_loss` runs on its N-best) on the card, on the CPU in
+    float32 and, as the witness, on the CPU in float64 (a float64 copy of
+    the predictor and the unfactored joint), all three on the card's
+    beam-4 N-best of `enc`, each request's best hypothesis as its
+    reference (errors 0 for it, > 0 for the others, so the gradients are
+    not all 0).  Logs and checks each float32 run against the witness."""
+    hyp = rnnt_beam_decode(enc, enc_len, pred, h0, joint, beam_width=4,
+                           max_symbols=S_CAP)
+    hyp_cpu = rnnt_beam_decode(enc.cpu(), enc_len.cpu(),
+                               *model_cpu.decoder_fns(), beam_width=4,
+                               max_symbols=S_CAP)
+    nbest_same = sum(torch.equal(hyp[0][i].cpu(), hyp_cpu[0][i])
+                     and torch.equal(hyp[1][i].cpu(), hyp_cpu[1][i])
+                     for i in range(enc.shape[0]))
+    valid = torch.isfinite(hyp[2]) & (hyp[2] > -1e29)
+    m64 = copy.deepcopy(model_cpu).double()
+    j64 = m64.joint
+    runs = (("card", model, torch.float32, enc.device,
+             (pred, h0, joint)),
+            ("cpu", model_cpu, torch.float32, "cpu",
+             model_cpu.decoder_fns()),
+            ("float64", m64, torch.float64, "cpu",
+             (partial(gru_step, m64.pred),
+              torch.zeros(m64.config.pred_hidden, dtype=torch.float64),
+              additive_joint(j64["w_enc"], j64["w_pred"], j64["b"],
+                             j64["w_out"], j64["b_out"]))))
+    def leaf_grads(m, e):
+        g = {k: p.grad.cpu().double() for k, p in m.named_parameters()
+             if p.grad is not None}
+        g["encoder_out"] = e.grad.cpu().double()
+        m.zero_grad()
+        e.grad = None
+        return g
+
+    # the float64 witness first: its |dloss/dscore| weight the scores'
+    # gradients of every run
+    out, c64 = {}, None
+    for name, m, dt, d, fns in runs[::-1]:
+        m.zero_grad()
+        e = enc.detach().to(d, dt).requires_grad_()
+        loss, aux = mwer._rnnt_mwer_from_nbest(
+            e, enc_len.to(d).long(), hyp[0].to(d), hyp[1].to(d),
+            valid.to(d), hyp[0][:, 0].to(d), hyp[1][:, 0].to(d), *fns, 0,
+            "token", None, 1.0, "mean", "auto", True)
+        score, vd = aux["scores"], valid.to(d)
+        if c64 is None:
+            c64 = torch.autograd.grad(loss, score, retain_graph=True)[0]
+            c64 = c64.abs().cpu()
+        loss.backward(retain_graph=True)
+        grads = leaf_grads(m, e)
+        (score[vd] * c64.to(d, dt)[vd]).sum().backward()
+        out[name] = (loss.item(), grads, leaf_grads(m, e),
+                     aux["errors"].cpu().double(),
+                     score.detach().cpu().double())
+    l64, g64, wg64, err64, s64 = out["float64"]
+    hl = hyp[1].long()
+    # kappa: how much the loss's gradient cancels, per tensor
+    scale = {k: float(g.norm()) for k, g in wg64.items()}
+    kappa = {k: scale[k] / max(float(g64[k].norm()), 1e-30) for k in g64}
+    log(f"phase 31 rnnt_mwer_loss after its decode, on the card's beam-4 "
+        f"N-best of 4 requests (hypothesis lengths {hl.min().item()}-"
+        f"{hl.max().item()}, T'={enc.shape[1]}; the CPU's N-best equal for "
+        f"{nbest_same} of 4), the best hypotheses as references: errors "
+        f"{err64.tolist()}, float64 loss {l64:.9f}; kappa = |sum |c| grad "
+        f"s| / |grad loss| (float64) per tensor: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in kappa.items()))
+
+    def norm_errs(grads, want, by):
+        return {k: float((grads[k] - g).norm()) / max(by[k], 1e-30)
+                for k, g in want.items()}
+
+    for name in ("card", "cpu"):
+        loss, grads, wgrads, e_cnt, sc = out[name]
+        rel = abs(loss - l64) / max(abs(l64), 1e-12)
+        score_rel = float(((sc - s64).abs() / s64.abs().clamp(min=1.0))[
+            valid.cpu()].max())
+        w_err = norm_errs(wgrads, wg64, scale)
+        c_err = norm_errs(grads, g64, scale)
+        g_err = norm_errs(grads, g64, {k: float(g.norm())
+                                       for k, g in g64.items()})
+        w_top, c_top, g_top = (max(x, key=x.get)
+                               for x in (w_err, c_err, g_err))
+        log(f"phase 31 MWER {name} float32 vs the float64 witness: loss "
+            f"{loss:.9f} (rel err {rel:.3g}); hypothesis scores rel err "
+            f"{score_rel:.3g}; the |c|-weighted score gradient sum |c| "
+            f"grad s: largest error {w_err[w_top]:.3g} of its norm "
+            f"({w_top}); the loss's gradients (the encoder output and "
+            f"{len(g64) - 1} predictor and joint tensors): largest error "
+            f"{c_err[c_top]:.3g} of |sum |c| grad s| ({c_top}), "
+            f"{g_err[g_top]:.3g} of their own norm ({g_top}); each, of "
+            f"|sum |c| grad s|: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in c_err.items()))
+        if (rel > RNNT_MWER_TOL or score_rel > RNNT_MWER_SCORE_RTOL
+                or w_err[w_top] > RNNT_SCORE_GRAD_TOL
+                or c_err[c_top] > RNNT_MWER_GRAD_TOL
+                or set(grads) != set(g64) or not torch.equal(e_cnt, err64)):
+            raise AssertionError(
+                f"phase 31 MWER {name} vs float64: loss {rel}, scores "
+                f"{score_rel}, weighted {w_err}, gradients {c_err}, "
+                f"errors {e_cnt.tolist()}")
+
+
+def rnnt_counts():
+    return {"topk": topk_cuda.launches, **rnnt_loss_cuda.launches}
+
+
+def reset_rnnt_counts():
+    topk_cuda.launches = 0
+    for k in rnnt_loss_cuda.launches:
+        rnnt_loss_cuda.launches[k] = 0
+
+
+def transducer_decode_slice(model, model_cpu, batch, ctc_lps, dev):
+    """Phase 31: the transducer decoding slice at full width (docstring at
+    the top).  Returns (launches of the main path, of the MWER step, the
+    largest kernel-vs-plain and card-vs-CPU errors, the inputs phase 32
+    times)."""
+    feats, lens, tgt, tl = batch
+    model_cpu.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    lm = seeded_bigram(np.random.default_rng(SEED + 31), 32, dev)
+    bench = bench_decoder(dev)
+    bench_rt = bench_decoder(dev, blank_bias=1.1)
+    blm = bench_bigram(dev)
+    long_feats = log_mel_spectrogram(torch.from_numpy(
+        0.1 * np.random.default_rng(SEED + 60).standard_normal(
+            60 * 16000).astype(np.float32)).to(dev)[None])[0]
+    partials = []
+    torch.cuda.synchronize()
+    reset_rnnt_counts()
+    # the main path: the model's beam-4 decodes (and with the bigram), the
+    # bench rows, the streaming transducer decoders, the long form
+    m_out = model.decode(feats, lens, beam_width=4, max_symbols=S_CAP,
+                         return_timestamps=True)
+    m_lm = model.decode(feats, lens, beam_width=4, max_symbols=S_CAP, lm=lm,
+                        lm_alpha=0.5, lm_beta=0.2, return_timestamps=True)
+    b_out = rnnt_beam_decode(*bench, beam_width=4, max_symbols=128,
+                             return_timestamps=True)
+    b_lm = rnnt_beam_decode(*bench, beam_width=4, max_symbols=128, lm=blm,
+                            lm_alpha=0.5, lm_beta=0.2,
+                            return_timestamps=True)
+    g8 = rnnt_greedy_decode(*bench_rt, max_symbols=128, lookahead=8,
+                            return_timestamps=True)
+    with torch.no_grad():
+        enc, enc_len = model.encode(feats, lens)
+    pred, h0, joint = model.decoder_fns()
+    sg = StreamingRNNTGreedyDecoder(pred, h0, joint, max_symbols=S_CAP)
+    sg_out = sg.finish(stream_rnnt(sg, sg.init(8), enc, enc_len,
+                                   STREAM_CHUNK), return_timestamps=True)
+    sb = StreamingRNNTBeamDecoder(pred, h0, joint, beam_width=4,
+                                  max_symbols=S_CAP)
+    sb_out = sb.finish(stream_rnnt(sb, sb.init(8, enc.shape[2]), enc,
+                                   enc_len, STREAM_CHUNK),
+                       return_timestamps=True)
+    lf = {bw: transcribe_long_form_rnnt(
+        model, long_feats.cpu().numpy(), beam_width=bw,
+        partial_cb=lambda t, n, i: partials.append((bw, i)))
+        for bw in (0, 4)}
+    torch.cuda.synchronize()
+    launches = rnnt_counts()
+    log(f"phase 31 the transducer decoding slice: model beam-4 decodes "
+        f"(B=8 x 30 s, T'={enc.shape[1]}; + bigram LM alpha 0.5 beta 0.2), "
+        f"bench rows rnnt_beam4 and +bigramLM (B=16, T=400, V=256, GRU-256, "
+        f"joint 256, s_cap 128), greedy lookahead 8 (blank bias 1.1), the "
+        f"streaming greedy and beam-4 decoders ({STREAM_CHUNK}-frame "
+        f"chunks), transcribe_long_form_rnnt on 60 s ({long_feats.shape[0]}"
+        f" feature frames, greedy and beam 4): launches {launches}")
+    if launches["topk"] < 1:
+        raise AssertionError(f"K3 never ran on the ALSD path: {launches}")
+    for name, out in (("model", m_out), ("model+LM", m_lm),
+                      ("rnnt_beam4", b_out), ("rnnt_beam4+bigramLM", b_lm)):
+        best = out[2][:, 0]
+        if not (torch.isfinite(best).all() and (best > -1e29).all()
+                and (out[1] <= out[0].shape[-1]).all()):
+            raise AssertionError(f"phase 31 {name}: bad beam")
+        log(f"phase 31 {name}: best lengths {out[1][:, 0].tolist()}, best "
+            f"scores {[round(x, 3) for x in best.tolist()]}")
+    # the long form against the one-shot decodes of its chunks' trimmed
+    # encoder outputs stitched along time
+    n_lf = {bw: sum(1 for b, _ in partials if b == bw) for bw in (0, 4)}
+    stitch = torch.cat(list(_rnnt_encoded_chunks(
+        model, long_feats.cpu().numpy())), 1)
+    one_shot = {0: rnnt_greedy_decode(stitch, None, pred, h0, joint,
+                                      max_symbols=512),
+                4: [x[:, 0] for x in rnnt_beam_decode(
+                    stitch, None, pred, h0, joint, beam_width=4,
+                    max_symbols=512)]}
+    for bw, (tok, n, sc) in lf.items():
+        o_tok, o_len, o_score = (x[0].cpu() for x in one_shot[bw])
+        same = n == int(o_len) and torch.equal(tok[:n].cpu(), o_tok[:n])
+        diff = abs(sc - float(o_score))
+        log(f"phase 31 transcribe_long_form_rnnt beam {bw}: length {n}, "
+            f"score {sc:.3f}, {n_lf[bw]} partial results; the one-shot "
+            f"decode of the stitched encoder output ({stitch.shape[1]} "
+            f"frames): tokens and length equal {same}, score diff "
+            f"{diff:.3g}")
+        if not (same and n > 0 and n_lf[bw] > 1
+                and diff <= RNNT_MWER_SCORE_RTOL * max(abs(sc), 1.0)):
+            raise AssertionError(f"phase 31 long form beam {bw}: {n}, "
+                                 f"{int(o_len)}, {same}, {diff}")
+    # K3 against topk_plain on the card, every ALSD output bit-equal
+    kvp = [kernel_vs_plain_alsd((enc, enc_len, pred, h0, joint),
+                                dict(beam_width=4, max_symbols=S_CAP),
+                                "phase 31 model"),
+           kernel_vs_plain_alsd((enc, enc_len, pred, h0, joint),
+                                dict(beam_width=4, max_symbols=S_CAP, lm=lm,
+                                     lm_alpha=0.5, lm_beta=0.2),
+                                "phase 31 model+LM"),
+           kernel_vs_plain_alsd(bench, dict(beam_width=4, max_symbols=128),
+                                "phase 31 rnnt_beam4"),
+           kernel_vs_plain_alsd(bench, dict(beam_width=4, max_symbols=128,
+                                            lm=blm, lm_alpha=0.5,
+                                            lm_beta=0.2),
+                                "phase 31 rnnt_beam4+bigramLM")]
+    log("phase 31 ALSD with K3 == with topk_plain on the card (tokens, "
+        "lengths, scores, times bit-equal) for the model, model+LM and the "
+        "two bench rows")
+    same_decode(kvp[2], b_out, "phase 31 rnnt_beam4 again")
+    log(f"phase 31 model.decode (its own encoder pass) == rnnt_beam_decode "
+        f"on model.encode's output: "
+        f"{all(torch.equal(a, b) for a, b in zip(m_out, kvp[0]))}")
+    # lookahead: the same greedy decode as lookahead 1
+    g1 = rnnt_greedy_decode(*bench_rt, max_symbols=128,
+                            return_timestamps=True)
+    same_decode(g8, g1, "phase 31 greedy lookahead 8 vs 1 (bench, blank "
+                        "bias 1.1)")
+    # the card against the CPU on the same encoder outputs
+    cpu_fns = model_cpu.decoder_fns()
+    enc_c, len_c = enc.cpu(), enc_len.cpu()
+    best_agree(kvp[0], rnnt_beam_decode(
+        enc_c, len_c, *cpu_fns, beam_width=4, max_symbols=S_CAP),
+        "phase 31 model beam-4")
+    best_agree(kvp[2], rnnt_beam_decode(
+        *bench_decoder("cpu"), beam_width=4, max_symbols=128),
+        "phase 31 rnnt_beam4")
+    # streaming against one-shot on the card
+    lp, il = ctc_lps[0]
+    gdec = StreamingGreedyDecoder(max_symbols=lp.shape[0])
+    bdec = StreamingBeamDecoder(beam_width=8, prune_k=16)
+    for got, want, what in (
+            (sg_out, rnnt_greedy_decode(enc, enc_len, pred, h0, joint,
+                                        max_symbols=S_CAP,
+                                        return_timestamps=True),
+             f"streaming greedy ({STREAM_CHUNK}-frame chunks) vs one-shot"),
+            (sb_out, kvp[0],
+             f"streaming beam-4 ({STREAM_CHUNK}-frame chunks) vs one-shot"),
+            (gdec.finish(stream_ctc(gdec, gdec.init(8, device=dev), lp, il,
+                                    CTC_STREAM_CHUNK)),
+             greedy_decode(lp, il),
+             f"CTC streaming greedy ({CTC_STREAM_CHUNK}-frame chunks) vs "
+             "greedy_decode"),
+            (bdec.finish(stream_ctc(bdec, bdec.init(8, device=dev), lp, il,
+                                    CTC_STREAM_CHUNK),
+                         return_timestamps=True),
+             beam_search_decode(lp, il, beam_width=8, prune_k=16,
+                                max_symbols=512, implementation="xla",
+                                return_timestamps=True),
+             "CTC streaming beam-8 vs the one-shot prefix-beam scan")):
+        same_decode(got, want, f"phase 31 {what}")
+    # one transducer MWER step through the model (encoder included)
+    torch.cuda.synchronize()
+    reset_rnnt_counts()
+    model.zero_grad()
+    enc_g, len_g = model.encode(feats, lens)
+    loss, aux = rnnt_mwer_step(model, enc_g, len_g, tgt, tl)
+    torch.cuda.synchronize()
+    mwer_launches = rnnt_counts()
+    grads = {k: p.grad for k, p in model.named_parameters()
+             if p.grad is not None}
+    finite = np.isfinite(loss.item()) and all(
+        bool(torch.isfinite(g).all()) for g in grads.values())
+    log(f"phase 31 rnnt_mwer_loss step (B=8 x 30 s, beam 4, targets of "
+        f"T'/5 labels): loss {loss.item():.6f}, {len(grads)} parameter "
+        f"gradients, all finite: {finite}; launches {mwer_launches}; "
+        f"errors {aux['errors'][0].tolist()}")
+    w = 4
+    if not finite or mwer_launches["rnnt_alpha"] != w or \
+            mwer_launches["rnnt_posteriors"] != w:
+        raise AssertionError(f"phase 31 MWER step: finite {finite}, "
+                             f"launches {mwer_launches}")
+    mwer_witness(model, model_cpu, enc[:4], enc_len[:4], pred, h0, joint)
+    return {"launches": launches, "mwer_launches": mwer_launches,
+            "bench": bench, "bench_rt": bench_rt, "blm": blm,
+            "enc": (enc, enc_len)}
+
+
+def decode_profile(fn):
+    """One call of fn under torch.profiler: the device time of its
+    kernels and of K3's, in ms, and their launch counts."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    k3 = [e for e in rows if "topk_" in e.key]
+    return {"kernels": sum(e.self_device_time_total for e in rows) / 1e3,
+            "launches": sum(e.count for e in rows),
+            "k3": sum(e.self_device_time_total for e in k3) / 1e3,
+            "k3_launches": sum(e.count for e in k3)}
+
+
+def transducer_decode_timings(model, batch, s31):
+    """Phase 32: CUDA-event medians of 5 of the slice's decodes, with
+    seq/s and the sequential steps of the bench rows."""
+    feats, lens, tgt, tl = batch
+    bench, bench_rt, blm = s31["bench"], s31["bench_rt"], s31["blm"]
+    enc, enc_len = s31["enc"]
+    ms, steps = {}, {}
+    b_args, joint = bench[:4], bench[4]
+    for key, kw in (("rnnt_beam4_bench", {}),
+                    ("rnnt_beam4_lm_bench", dict(lm=blm, lm_alpha=0.5,
+                                                 lm_beta=0.2))):
+        ms[key] = time_ms(lambda: rnnt_beam_decode(
+            *b_args, joint, beam_width=4, max_symbols=128, **kw))
+        steps[key] = joint_calls(lambda j: rnnt_beam_decode(
+            *b_args[:4], j, beam_width=4, max_symbols=128, **kw), joint)[1]
+    rt_args, rt_joint = bench_rt[:4], bench_rt[4]
+    for f in (8, 1):
+        key = f"rnnt_greedy_rt{f}_bench"
+        ms[key] = time_ms(lambda: rnnt_greedy_decode(
+            *rt_args, rt_joint, max_symbols=128, lookahead=f))
+        steps[key] = joint_calls(lambda j: rnnt_greedy_decode(
+            *rt_args, j, max_symbols=128, lookahead=f), rt_joint)[1]
+    ms["transducer_beam4_b8_30s"] = time_ms(
+        lambda: model.decode(feats, lens, beam_width=4))
+    pred, h0, j = model.decoder_fns()
+    steps["transducer_beam4_b8_30s"] = joint_calls(
+        lambda jj: rnnt_beam_decode(enc, enc_len, pred, h0, jj,
+                                    beam_width=4), j)[1]
+    # one streamed chunk: the decoders' step on frames 200-239 of the
+    # blank-dominated bench decoder (B=16, ~5% emissions), from the state
+    # after frames 0-199 (a step is pure, so it repeats)
+    rt_enc, rt_len = bench_rt[:2]
+    lo = 200
+    chunk = rt_enc[:, lo:lo + STREAM_CHUNK]
+    cl = (rt_len - lo).clamp(0, STREAM_CHUNK)
+    for key, dec, st in (
+            ("stream_greedy_chunk_bench", StreamingRNNTGreedyDecoder(
+                *bench_rt[2:], max_symbols=128), None),
+            ("stream_beam4_chunk_bench", StreamingRNNTBeamDecoder(
+                *bench_rt[2:], beam_width=4, max_symbols=128),
+             rt_enc.shape[2])):
+        n_rt = rt_enc.shape[0]
+        st = dec.init(n_rt) if st is None else dec.init(n_rt, st)
+        st = stream_rnnt(dec, st, rt_enc[:, :lo], rt_len.clamp(max=lo),
+                         STREAM_CHUNK)
+        ms[key] = time_ms(lambda: dec.step(st, chunk, cl))
+    # where the ALSD bench row's time goes: its kernels' device time (and
+    # K3's) under torch.profiler against the row's CUDA-event time
+    prof_ms = decode_profile(lambda: rnnt_beam_decode(
+        *bench, beam_width=4, max_symbols=128))
+    if prof_ms["launches"]:
+        log(f"phase 32 rnnt_beam4 under torch.profiler: "
+            f"{prof_ms['launches']} kernel launches, {prof_ms['kernels']:.3f}"
+            f" ms of device time (K3 {prof_ms['k3']:.3f} ms in "
+            f"{prof_ms['k3_launches']} launches), against "
+            f"{ms['rnnt_beam4_bench']:.3f} ms a call: the device idle "
+            f"{1 - prof_ms['kernels'] / ms['rnnt_beam4_bench']:.3f} of it")
+    else:
+        log("phase 32 rnnt_beam4 under torch.profiler: no kernel traced, "
+            "its device time not measured")
+    # the MWER step and its parts
+    hyp = rnnt_beam_decode(enc, enc_len, pred, h0, j, beam_width=4)
+    tok, hl = mwer._trim_nbest(hyp[0].long(), hyp[1].long()), hyp[1].long()
+    tgt_t = torch.as_tensor(tgt, device=enc.device).long()
+    tl_t = torch.as_tensor(tl, device=enc.device).long()
+
+    def whole():
+        model.zero_grad()
+        e, el = model.encode(feats, lens)
+        rnnt_mwer_step(model, e, el, tgt, tl)
+
+    def scoring():
+        e = enc.detach().requires_grad_()
+        mwer._rnnt_score_nbest(e, enc_len, tok, hl, pred, h0, j, 0,
+                               "auto").sum().backward()
+
+    ms["rnnt_mwer_step_b8_30s"] = time_ms(whole)
+    ms["rnnt_mwer_decode"] = time_ms(lambda: rnnt_beam_decode(
+        enc, enc_len, pred, h0, j, beam_width=4))
+    ms["rnnt_mwer_scoring_fwd_bwd"] = time_ms(scoring)
+    ms["rnnt_mwer_errors"] = time_ms(lambda: mwer._nbest_errors(
+        tok, hl, tgt_t, tl_t, "token", None))
+    for k, v in ms.items():
+        extra = ""
+        if k in steps:
+            extra = (f", {steps[k]} sequential steps, "
+                     f"{v / steps[k]:.3f} ms each")
+        if "chunk" not in k:
+            extra += f"; {(16 if 'bench' in k else 8) * 1e3 / v:.1f} seq/s"
+        log(f"phase 32 time {k}: {v:.3f} ms{extra}")
+    log(f"phase 32 the MWER step's N-best: hypothesis lengths "
+        f"{hl.min().item()}-{hl.max().item()}, S'={tok.shape[-1]}, "
+        f"S_ref={tgt_t.shape[1]}; lattices (8, {enc.shape[1]}, "
+        f"{tok.shape[-1] + 1}, {model.config.vocab_size}) one hypothesis at "
+        f"a time")
+    return ms
+
+
 def main() -> None:
     # 1. the device
     if not torch.cuda.is_available():
@@ -2584,6 +3187,8 @@ def main() -> None:
                "V=1024, W=16, K=32)", w16_args, {}, beam_ref_lib)
     ms["beam_plain_w16"] = time_plain(
         lambda: beam_search_cuda.beam_step_plain(*w16_args))
+    ms["beam_w16"] = time_ms(
+        lambda: beam_search_cuda.beam_step_cuda(*w16_args))
     w16_b = beam_bound(w16_inputs[0], w16_inputs[3], 16, 32)
     bp16, score16, _, _ = beam_search_cuda.beam_step_cuda(*w16_args)
     bt_err, walk_err = np.maximum((bt_err, walk_err), check_backtrace(
@@ -3386,6 +3991,17 @@ def main() -> None:
                 0, 1).contiguous(), len_b.to(torch.int32)))
     slice29 = hashed_lm_slice(hlm_lps, cfg.vocab_size, dev)
     ms.update(hashed_lm_timings(dev, slice29, hlm_lps))
+    # 31. the transducer decoding slice (ALSD, lookahead, streaming, long
+    # form, MWER) on a freshly seeded model of phase 16's configuration
+    # (phase 16's steps teach it to emit blanks only, which would leave
+    # every decode near empty) and phase 16's requests; 32. its timings
+    dmodel = ConformerTransducer(tcfg, seed=SEED + 31)
+    with torch.no_grad():
+        dmodel.joint["b_out"][0] += DECODE_BLANK_BIAS
+    dmodel_cpu = ConformerTransducer(tcfg, seed=SEED + 31, device="cpu")
+    s31 = transducer_decode_slice(dmodel, dmodel_cpu, xbatches[0], hlm_lps,
+                                  dev)
+    ms.update(transducer_decode_timings(dmodel, xbatches[0], s31))
     log(json.dumps({"card": card, "ms": ms, "device_ms": DEVICE_MS}))
 
     beam_src = "end2end_tpu_torch/csrc/beam_step.cu"
@@ -3398,8 +4014,12 @@ def main() -> None:
     joint_tpu = "end2end_tpu/ops/rnnt_joint_pallas.py"
     rows = [  # name, source, replaces, launches, err, ms key, bound,
         # library key
+        # launches: phase 6's serving path and phase 31's transducer
+        # decoding slice (the ALSD top-K and top-W, the MWER step's decode)
         ("topk", "end2end_tpu_torch/csrc/topk.cu",
-         "end2end_tpu/ops/topk_pallas.py:64", launches["topk"], topk_err,
+         "end2end_tpu/ops/topk_pallas.py:64",
+         launches["topk"] + s31["launches"]["topk"]
+         + s31["mwer_launches"]["topk"], topk_err,
          "topk_main", topk_b, "topk_library_main"),
         ("beam_step", beam_src, f"{beam_tpu}:94", launches["beam_step"],
          beam_err, "beam_main", beam_b, None),
@@ -3425,12 +4045,15 @@ def main() -> None:
         ("lane_walk", walk_src, "end2end_tpu/ops/beam_chunked.py:70",
          chunk_launches["launches_walk"], walk_err, "lane_walk_chunk",
          walk_b, None),
-        # torch has no transducer loss (and torchaudio is not installed)
+        # torch has no transducer loss (and torchaudio is not installed);
+        # launches: phase 16's training and phase 31's MWER step
         ("rnnt_alpha", rnnt_src, f"{rnnt_tpu}:108",
-         rnnt_launches["rnnt_alpha"], rnnt_err[0], "rnnt_alpha_main",
-         rnnt_b[0], None),
+         rnnt_launches["rnnt_alpha"]
+         + s31["mwer_launches"]["rnnt_alpha"], rnnt_err[0],
+         "rnnt_alpha_main", rnnt_b[0], None),
         ("rnnt_posteriors", rnnt_src, f"{rnnt_tpu}:194",
-         rnnt_launches["rnnt_posteriors"], rnnt_err[1],
+         rnnt_launches["rnnt_posteriors"]
+         + s31["mwer_launches"]["rnnt_posteriors"], rnnt_err[1],
          "rnnt_posteriors_main", rnnt_b[1], None),
         ("rnnt_joint_fwd", joint_src, f"{joint_tpu}:78",
          joint_launches["joint_fwd"], joint_err[0], "joint_fwd_bench",

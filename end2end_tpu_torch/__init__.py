@@ -6,8 +6,11 @@ beam-search CTC decoding, with LM shallow fusion (dense bigram in the
 kernel, class-keyed guides, hashed token and word n-gram LMs of any order,
 hotword boosting, composite and neural LMs, chunked decoding, N-best
 rescoring, ARPA loading and Kneser-Ney training); CTC forced alignment, decode confidences, blank collapse
-and the MWER fine-tuning loss.  The Conformer-Transducer's training path
-and greedy decoding: the RNN-T loss and its gradient (from logits,
+and the MWER fine-tuning loss; streaming (chunk-at-a-time) greedy and
+beam decoders and long-form transcription.  The Conformer-Transducer's
+training path and decoding (greedy with lookahead, ALSD beam search with
+LM fusion, their streaming forms, confidences and the transducer MWER
+loss): the RNN-T loss and its gradient (from logits,
 log-probs or planes, over a chunked never-materialised joint, and through
 the online-softmax fused joint `rnnt_nll_fused_pallas`), and the fused
 joint with its output projection vocabulary-sharded over a
@@ -31,6 +34,8 @@ from .ops.confidence import (
     aggregate_confidence,
     frame_confidence,
     greedy_decode_with_confidence,
+    rnnt_greedy_decode_with_confidence,
+    rnnt_token_confidence,
     token_confidence,
     word_confidences,
 )
@@ -52,7 +57,7 @@ from .ops.lm import (
     WordNGramLM,
     bigram_from_counts,
 )
-from .ops.mwer import mwer_loss, mwer_loss_from_nbest
+from .ops.mwer import mwer_loss, mwer_loss_from_nbest, rnnt_mwer_loss
 from .ops.neural_lm import NeuralLM
 from .ops.rescore import rescore_nbest
 from .ops.rnnt_decode import (FactoredAdditiveJoint, additive_joint,
@@ -67,6 +72,12 @@ from .ops.rnnt_loss import (
     rnnt_nll,
     rnnt_nll_from_planes,
     rnnt_nll_fused,
+)
+from .ops.streaming_decode import (
+    StreamingBeamDecoder,
+    StreamingGreedyDecoder,
+    StreamingRNNTBeamDecoder,
+    StreamingRNNTGreedyDecoder,
 )
 from .parallel.vocab_parallel import rnnt_nll_fused_vocab_parallel
 from .utils.arpa import load_arpa, ngram_lm_from_arpa
@@ -90,6 +101,10 @@ __all__ = [
     "PipelineConfig",
     "QuantizedBigramGuide",
     "RNNTLoss",
+    "StreamingBeamDecoder",
+    "StreamingGreedyDecoder",
+    "StreamingRNNTBeamDecoder",
+    "StreamingRNNTGreedyDecoder",
     "TransducerConfig",
     "UniformLM",
     "WordNGramLM",
@@ -114,7 +129,9 @@ __all__ = [
     "rescore_nbest",
     "rnnt_beam_decode",
     "rnnt_greedy_decode",
+    "rnnt_greedy_decode_with_confidence",
     "rnnt_loss",
+    "rnnt_mwer_loss",
     "rnnt_loss_fused",
     "rnnt_nll",
     "rnnt_nll_from_planes",
@@ -122,6 +139,7 @@ __all__ = [
     "rnnt_nll_fused_pallas",
     "rnnt_nll_fused_pallas_vocab_parallel",
     "rnnt_nll_fused_vocab_parallel",
+    "rnnt_token_confidence",
     "token_confidence",
     "train_ngram_arpa",
     "train_ngram_lm",

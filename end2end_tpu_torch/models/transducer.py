@@ -11,8 +11,9 @@ projects to ``enc_dim`` features; ``pred``, the GRU predictor of
 ops/neural_lm.py (its parameters in the JAX layout); ``joint``, the
 additive joint ``W_out tanh(W_enc f + W_pred h + b) + b_out`` with (in,
 out) matrices.  Training builds the (N, T', U+1, V) joint logits and feeds
-`rnnt_loss` (on the card: kernels K8/K9); decoding is greedy
-(ops/rnnt_decode.py).  The predictor and joint weights are drawn from
+`rnnt_loss` (on the card: kernels K8/K9); decoding is greedy or ALSD beam
+search (ops/rnnt_decode.py; the beam's top-k is kernel K3 on the card).
+The predictor and joint weights are drawn from
 ``np.random.default_rng(seed)`` in the JAX model's order, so one seed gives
 JAX's weights; the encoder's from a torch generator seeded the same.  Load
 JAX parameters with `load_jax_params`.  Built on the card unless `device`
@@ -29,8 +30,8 @@ import torch
 from torch import nn
 
 from ..ops.neural_lm import gru_step, random_gru_params
-from ..ops.rnnt_decode import (FactoredAdditiveJoint, rnnt_beam_decode,
-                               rnnt_greedy_decode)
+from ..ops.rnnt_decode import (FactoredAdditiveJoint, _prefix_states,
+                               rnnt_beam_decode, rnnt_greedy_decode)
 from ..ops.rnnt_loss import rnnt_loss
 from ..utils.convert import transducer_state_dict_from_jax
 from ..utils.device import resolve_device
@@ -58,7 +59,7 @@ def _params(arrays, dev):
 
 
 class ConformerTransducer(nn.Module):
-    """Features (N, T, F) + lengths -> transducer loss / greedy decode."""
+    """Features (N, T, F) + lengths -> transducer loss / decode."""
 
     def __init__(self, config: TransducerConfig = TransducerConfig(), *,
                  device=None, seed: int = 0):
@@ -111,14 +112,10 @@ class ConformerTransducer(nn.Module):
 
     def _pred_states(self, targets):
         """(N, U) target ids -> (N, U+1, H) prefix states (h_0 = 0)."""
-        targets = self._tensor(targets).long()
-        h = torch.zeros((targets.shape[0], self.config.pred_hidden),
-                        device=self.device)
-        hs = [h]
-        for col in targets.T:
-            h = gru_step(self.pred, h, col)
-            hs.append(h)
-        return torch.stack(hs, 1)
+        return _prefix_states(
+            partial(gru_step, self.pred),
+            torch.zeros(self.config.pred_hidden, device=self.device),
+            self._tensor(targets).long())
 
     def joint_logits(self, enc, pred_states):
         """(N, T, E) x (N, U+1, H) -> (N, T, U+1, V) joint logits."""
@@ -149,19 +146,30 @@ class ConformerTransducer(nn.Module):
 
     @torch.no_grad()
     def decode(self, feats, lengths, beam_width: int = 0,
-               max_symbols: int | None = None,
-               return_timestamps: bool = False, lookahead: int = 1):
-        """Greedy decoding (beam_width == 0): tokens (N, S), lengths,
-        scores [, encoder-frame times].  ALSD beam search (beam_width > 0)
-        and lookahead > 1 are not ported yet and raise."""
+               prune_k: int | None = None, max_symbols: int | None = None,
+               return_timestamps: bool = False, lm=None,
+               lm_alpha: float = 0.0, lm_beta: float = 0.0,
+               lookahead: int = 1):
+        """Greedy when beam_width == 0, else ALSD beam search (optionally
+        LM-fused: any ops/lm.py protocol LM or a NeuralLM, on the model's
+        device).
+
+        Greedy returns (tokens (N, S), lengths, scores); beam the whole
+        sorted beam (tokens (N, W, S), lengths, scores).  Timestamps, in
+        encoder frames, are appended when asked for.  `lookahead` frames
+        are evaluated a step (greedy, and beam without an LM); tokens,
+        lengths and times are the same for every value.
+        """
         enc, enc_len = self.encode(feats, lengths)
         pred, init_h, joint = self.decoder_fns()
-        if beam_width:
-            return rnnt_beam_decode(
-                enc, enc_len, pred, init_h, joint, beam_width=beam_width,
-                max_symbols=max_symbols, return_timestamps=return_timestamps,
-                lookahead=lookahead)
-        return rnnt_greedy_decode(
+        if beam_width == 0:
+            return rnnt_greedy_decode(
+                enc, enc_len, pred, init_h, joint, blank=0,
+                max_symbols=max_symbols, lookahead=lookahead,
+                return_timestamps=return_timestamps)
+        return rnnt_beam_decode(
             enc, enc_len, pred, init_h, joint, blank=0,
-            max_symbols=max_symbols, lookahead=lookahead,
-            return_timestamps=return_timestamps)
+            beam_width=beam_width, prune_k=prune_k,
+            max_symbols=max_symbols, return_timestamps=return_timestamps,
+            lm=lm, lm_alpha=lm_alpha, lm_beta=lm_beta,
+            lookahead=lookahead if lm is None else 1)

@@ -71,7 +71,8 @@ def _top_w_iterative(scores, w: int):
 
 
 def _masked_logsumexp(x, mask, dims):
-    """logsumexp of x over dims counting only mask; none -> LOG0."""
+    """logsumexp of x (broadcast to mask) over dims counting only mask;
+    none -> LOG0."""
     m = torch.where(mask, x, LOG0).amax(dim=dims)
     m_safe = m.clamp(min=LOG0)
     for d in sorted(dims):
@@ -87,27 +88,47 @@ def _gather_w(x, idx):
                     .expand(idx.shape + x.shape[2:]))
 
 
-def _beam_search_scan(log_probs, il, W: int, K: int, s_cap: int, blank: int,
-                      lm=None, lm_alpha: float = 0.0, lm_beta: float = 0.0,
-                      token_min_logp=None, candidates=None):
-    """Batched CTC prefix beam search as a loop over frames, vectorised
-    over the N sequences: JAX's `_beam_search_single` under `vmap`, with
-    `_beam_init_state` and `_beam_rank`.
+def _beam_scan_state0(n: int, W: int, s_cap: int, lm, dtype, dev):
+    """JAX's `_beam_init_state` for N sequences: (tokens, times, lens,
+    last, pb, pnb, h1, h2, lm_state, lm_score), (N, W, ...) each but the
+    LM state's N*W rows; beam 0 the live empty prefix."""
+    w_idx = torch.arange(W, device=dev)
+    tokens = torch.full((n, W, s_cap), -1, dtype=torch.long, device=dev)
+    live0 = (w_idx == 0).expand(n, W)
+    # the kernel's rolling prefix hashes, held as the signed int32 value of
+    # their bits; dead beams get slot-unique ones
+    dead_h = _wrap32(_DEADBASE + w_idx).expand(n, W)
+    return (tokens, tokens.clone(),
+            torch.zeros((n, W), dtype=torch.long, device=dev),
+            torch.full((n, W), -1, dtype=torch.long, device=dev),
+            torch.where(live0, 0.0, torch.tensor(LOG0, dtype=dtype,
+                                                 device=dev)),
+            torch.full((n, W), LOG0, dtype=dtype, device=dev),
+            torch.where(live0, _SEED1, dead_h),
+            torch.where(live0, _SEED2, dead_h),
+            lm.init_state(n * W) if lm is not None else None,
+            torch.zeros((n, W), dtype=dtype, device=dev))
 
-    log_probs (T, N, V) float32 or float64; il (N,) frame counts.  Per
-    frame: top-K candidates (a stable sort: lax.top_k's order among equal
-    values), W stay and W*K extension candidates, extensions that recreate
-    a live prefix merged into it by hash (logsumexp) and removed, top-W of
-    acoustic + LM bonus by repeated argmax.  The stay term reads the full
-    vocabulary row, or with `token_min_logp` the masked candidate set.
-    With log_probs None, `candidates` = (lpk, ck, lpb), (T, N, K) top-K
-    values and ids and (T, N) blank log-probs, are decoded alone (JAX's
-    candidate-only mode): the stay term reads the candidates.  The LM
-    scores extensions through its `score`/`select` protocol on N*W rows;
-    `final` adds its end-of-sequence term.  Returns tokens (N, W, s_cap)
-    int32 (-1 pad, best first), lengths (N, W) int32, scores (N, W) (-inf
-    for dead beams) and times (N, W, s_cap) int32 emission frames.
-    """
+
+def _beam_scan_steps(log_probs, il, state, W: int, K: int, s_cap: int,
+                     blank: int, lm=None, lm_alpha: float = 0.0,
+                     lm_beta: float = 0.0, token_min_logp=None,
+                     candidates=None, t0=None):
+    """The prefix-beam scan's frames from `state` (`_beam_scan_state0`'s
+    layout), vectorised over the N sequences: JAX's `_beam_search_single`
+    under `vmap`, resumable.  Frames t >= il (N,) leave a sequence's
+    state alone; `t0` (N,) is each sequence's global frame offset, added
+    to the recorded emission frames (streaming chunks); no tensor of the
+    given state is written.  Per frame: top-K candidates (a stable sort:
+    lax.top_k's order among equal values), W stay and W*K extension
+    candidates, extensions that recreate a live prefix merged into it by
+    hash (logsumexp) and removed, top-W of acoustic + LM bonus by repeated
+    argmax.  The stay term reads the full vocabulary row, or with
+    `token_min_logp` the masked candidate set.  With log_probs None,
+    `candidates` = (lpk, ck, lpb), (T, N, K) top-K values and ids and
+    (T, N) blank log-probs, are decoded alone (JAX's candidate-only mode):
+    the stay term reads the candidates.  The LM scores extensions through
+    its `score`/`select` protocol on N*W rows."""
     if log_probs is None:
         lpk_all, ck_all, lpb_all = candidates
         t_max, n, _ = lpk_all.shape
@@ -122,25 +143,13 @@ def _beam_search_scan(log_probs, il, W: int, K: int, s_cap: int, blank: int,
     stay_from_cands = log_probs is None or token_min_logp is not None
     dev, dt = lpk_all.device, lpk_all.dtype
     il = il.to(dev).long()
-    w_idx = torch.arange(W, device=dev)
     rows = torch.arange(n, device=dev)[:, None]
     log0 = torch.tensor(LOG0, dtype=dt, device=dev)
-    # the state of _beam_init_state, (N, W, ...)
-    tokens = torch.full((n, W, s_cap), -1, dtype=torch.long, device=dev)
-    times = torch.full_like(tokens, -1)
-    lens = torch.zeros((n, W), dtype=torch.long, device=dev)
-    last = torch.full_like(lens, -1)
-    live0 = (w_idx == 0).expand(n, W)
-    pb = torch.where(live0, 0.0, log0)
-    pnb = torch.full((n, W), LOG0, dtype=dt, device=dev)
-    # the kernel's rolling prefix hashes, held as the signed int32 value of
-    # their bits; dead beams get slot-unique ones
-    dead_h = _wrap32(_DEADBASE + w_idx).expand(n, W)
-    h1 = torch.where(live0, _SEED1, dead_h)
-    h2 = torch.where(live0, _SEED2, dead_h)
-    lm_state = lm.init_state(n * W) if lm is not None else None
-    lm_score = torch.zeros((n, W), dtype=dt, device=dev)
+    tokens, times, lens, last, pb, pnb, h1, h2, lm_state, lm_score = state
+    dead_h = _wrap32(_DEADBASE + torch.arange(W, device=dev)).expand(n, W)
     pos = torch.arange(s_cap, device=dev)
+    t_glob = (torch.zeros((n, 1, 1), dtype=torch.long, device=dev)
+              if t0 is None else t0.to(dev).long()[:, None, None])
     for t in range(t_max):
         lpk, ck = lpk_all[t], ck_all[t].long()  # (N, K)
         total = logaddexp2(pb, pnb)
@@ -193,7 +202,8 @@ def _beam_search_scan(log_probs, il, W: int, K: int, s_cap: int, blank: int,
         emit_slot = (pos == parent_len[..., None]) & ~is_stay[..., None]
         new_tokens = torch.where(emit_slot, c_sel[..., None],
                                  _gather_w(tokens, parent))
-        new_times = torch.where(emit_slot, t, _gather_w(times, parent))
+        new_times = torch.where(emit_slot, t + t_glob,
+                                _gather_w(times, parent))
         new_lens = torch.where(alive, torch.where(
             is_stay, parent_len, parent_len + 1).clamp(max=s_cap), 0)
         new_last = torch.where(alive & ~is_stay, c_sel, torch.where(
@@ -222,15 +232,41 @@ def _beam_search_scan(log_probs, il, W: int, K: int, s_cap: int, blank: int,
                 (new_lens, lens), (new_last, last), (new_pb, pb),
                 (new_pnb, pnb), (new_h1, h1), (new_h2, h2),
                 (new_lm_score, lm_score)))
-    # _beam_rank: best first, dead beams at -inf
+    return tokens, times, lens, last, pb, pnb, h1, h2, lm_state, lm_score
+
+
+def _beam_scan_rank(state, lm=None, lm_alpha: float = 0.0):
+    """JAX's `_beam_rank` (pure): tokens (N, W, s_cap) int32 (-1 pad, best
+    first), lengths (N, W) int32, scores (N, W) (-inf for dead beams) and
+    times (N, W, s_cap) int32 emission frames."""
+    tokens, times, lens, last, pb, pnb, h1, h2, lm_state, lm_score = state
     scores = logaddexp2(pb, pnb) + lm_score
     if lm is not None:
-        scores = scores + (lm_alpha * lm.final(lm_state)).to(dt).reshape(n, W)
+        scores = scores + (lm_alpha * lm.final(lm_state)).to(
+            scores.dtype).reshape(scores.shape)
     scores, order = torch.sort(scores, dim=1, descending=True, stable=True)
     scores = torch.where(scores > LOG0_THRESHOLD, scores, float("-inf"))
     return (_gather_w(tokens, order).to(torch.int32),
             lens.gather(1, order).to(torch.int32), scores,
             _gather_w(times, order).to(torch.int32))
+
+
+def _beam_search_scan(log_probs, il, W: int, K: int, s_cap: int, blank: int,
+                      lm=None, lm_alpha: float = 0.0, lm_beta: float = 0.0,
+                      token_min_logp=None, candidates=None):
+    """Batched CTC prefix beam search as a loop over frames (log_probs
+    (T, N, V) float32 or float64, il (N,) frame counts; see
+    `_beam_scan_steps`), from the empty state to the ranked beams:
+    tokens, lengths, scores and times as `_beam_scan_rank` returns them.
+    The LM's `final` adds its end-of-sequence term."""
+    ref = log_probs if log_probs is not None else candidates[0]
+    state = _beam_scan_state0(ref.shape[1], W, s_cap, lm, ref.dtype,
+                              ref.device)
+    state = _beam_scan_steps(log_probs, il, state, W, K, s_cap, blank, lm=lm,
+                             lm_alpha=lm_alpha, lm_beta=lm_beta,
+                             token_min_logp=token_min_logp,
+                             candidates=candidates)
+    return _beam_scan_rank(state, lm=lm, lm_alpha=lm_alpha)
 
 
 def beam_search_from_topk(lpk, ck, lpb, input_lengths, beam_width: int,

@@ -1,9 +1,10 @@
-"""Confidence estimation for CTC decodes (torch port of the CTC part of
+"""Confidence estimation for CTC and transducer decodes (torch port of
 `end2end_tpu/ops/confidence.py`).
 
 Entropy-family frame confidences computed from the log-probability
-lattice, gathered per emitted token at its emission frame, and aggregated
-per word and utterance, on the lattice's device.
+lattice (for a transducer, from the joint's rows at each token's frame and
+prefix state), gathered per emitted token, and aggregated per word and
+utterance, on the lattice's device.
 
 Methods (all map a frame's distribution to [0, 1]; 1 = fully peaked):
 
@@ -20,8 +21,7 @@ separately.
 
 The JAX package's float32 `exp32`/`log32` polynomials (written because the
 TPU's native exp and log are ~1e-5 off) become libm's `torch.exp` and
-`torch.log`; ln V stays a float64 constant from the host.  The transducer
-confidences are not ported yet (they raise NotImplementedError).
+`torch.log`; ln V stays a float64 constant from the host.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .greedy import greedy_decode_with_timestamps
+from .rnnt_decode import _prefix_states, rnnt_greedy_decode
 
 _METHODS = ("max_prob", "shannon", "tsallis", "renyi")
 _AGGREGATIONS = ("mean", "min", "prod")
@@ -186,17 +187,70 @@ def word_confidences(ids, times, token_conf, space_id=None, alphabet=None,
     return out
 
 
-def _not_ported(what):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1 item 7, the rest "
-        f"of the RNN-T family)")
+def rnnt_token_confidence(encoder_out, tokens, lengths, times,
+                          predictor_step, init_hidden, joint_fn,
+                          method: str = "tsallis", alpha: float = 1 / 3,
+                          blank: int = 0, exclude_blank: bool = True,
+                          aggregation: str = "mean"):
+    """Entropy-family confidence of decoded transducer hypotheses.
+
+    The distribution that emitted token u is the joint's softmax at frame
+    times[u] and the predictor state after tokens[:u], both functions of
+    the decode's outputs, so the rows are recomputed here as the decoder
+    saw them: one batched predictor sweep over the hypotheses, then one
+    joint call on every (frame, prefix state) pair.  `predictor_step`,
+    `init_hidden` and `joint_fn` are ops/rnnt_decode.py's batched
+    protocol.  Greedy shapes (tokens, times (N, S), lengths (N,)) and beam
+    shapes ((N, W, S), (N, W)) both work.
+
+    Returns (token_conf, utterance_conf): token_conf shaped as tokens (0
+    where padded), utterance_conf (N,) or (N, W).
+    """
+    enc = torch.as_tensor(encoder_out).to(torch.float32)
+    dev = enc.device
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    lengths = torch.as_tensor(lengths, device=dev).long()
+    times = torch.as_tensor(times, device=dev).long()
+    n, t_max, _ = enc.shape
+    lead, s = tokens.shape[:-1], tokens.shape[-1]
+    m = int(np.prod(lead))
+    toks = tokens.reshape(m, s).clamp(min=0)
+    lens = lengths.reshape(m)
+    tms = times.reshape(m, s).clamp(0, t_max - 1)
+    # the prefix state before token u, u = 0 .. S-1
+    states = _prefix_states(predictor_step, init_hidden, toks)[:, :s]
+    samp = torch.arange(m, device=dev)[:, None] // max(m // n, 1)
+    lp = torch.log_softmax(joint_fn(enc[samp, tms], states),
+                           dim=-1)                               # (M, S, V)
+    fc = frame_confidence(lp, method=method, alpha=alpha, blank=blank,
+                          exclude_blank=exclude_blank)
+    valid = torch.arange(s, device=dev)[None] < lens[:, None]
+    tc = torch.where(valid, fc, 0.0)
+    utt = aggregate_confidence(tc, lens, aggregation)
+    return tc.reshape(*lead, s), utt.reshape(lead)
 
 
-def rnnt_token_confidence(*args, **kwargs):
-    """Transducer token confidence: not ported yet."""
-    raise _not_ported("rnnt_token_confidence")
+def rnnt_greedy_decode_with_confidence(encoder_out, input_lengths,
+                                       predictor_step, init_hidden,
+                                       joint_fn, blank: int = 0,
+                                       max_symbols=None,
+                                       max_symbols_per_frame: int = 4,
+                                       method: str = "tsallis",
+                                       alpha: float = 1 / 3,
+                                       exclude_blank: bool = True,
+                                       aggregation: str = "mean"):
+    """`rnnt_greedy_decode` plus per-token and per-utterance confidences
+    (the transducer twin of `greedy_decode_with_confidence`).
 
-
-def rnnt_greedy_decode_with_confidence(*args, **kwargs):
-    """Transducer greedy decode with confidence: not ported yet."""
-    raise _not_ported("rnnt_greedy_decode_with_confidence")
+    Returns (tokens, lengths, scores, times, token_conf, utt_conf).
+    """
+    tokens, lengths, scores, times = rnnt_greedy_decode(
+        encoder_out, input_lengths, predictor_step, init_hidden, joint_fn,
+        blank=blank, max_symbols=max_symbols,
+        max_symbols_per_frame=max_symbols_per_frame, return_timestamps=True)
+    with torch.no_grad():
+        tc, utt = rnnt_token_confidence(
+            encoder_out, tokens, lengths, times.clamp(min=0), predictor_step,
+            init_hidden, joint_fn, method=method, alpha=alpha, blank=blank,
+            exclude_blank=exclude_blank, aggregation=aggregation)
+    return tokens, lengths, scores, times, tc, utt

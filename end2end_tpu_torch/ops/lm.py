@@ -87,10 +87,11 @@ def _at_last_flag(flag: torch.Tensor, vals):
 
 def _where_rows(mask, a, b):
     """`torch.where` of two states (tensors or nests of tuples, lists and
-    dicts of them) by a (M,) row mask, broadcast over each leaf's trailing
-    dimensions."""
+    dicts of them) by a row mask, (M,) or (N, W), broadcast over each
+    leaf's trailing dimensions."""
     return tree_map(lambda x, y: torch.where(
-        mask.reshape(mask.shape + (1,) * (x.dim() - 1)), x, y), a, b)
+        mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim())), x, y), a,
+        b)
 
 
 def _state_device(state) -> torch.device:

@@ -1,8 +1,8 @@
 """Minimum expected word/token error rate (MWER / MBR) training loss (torch
-port of the CTC part of `end2end_tpu/ops/mwer.py`).
+port of `end2end_tpu/ops/mwer.py`).
 
-Sequence-discriminative fine-tuning for CTC models, from the port's own
-primitives:
+Sequence-discriminative fine-tuning for CTC models (and, in
+`rnnt_mwer_loss`, transducers), from the port's own primitives:
 
   1. decode an N-best list with the (non-differentiable) beam search,
   2. score each hypothesis exactly under the model: the CTC negative log
@@ -26,8 +26,9 @@ combine on N*W rows: the hypotheses are flattened to (N*W, S') rows,
 trimmed to the longest hypothesis (exact: the kernels never read a target
 past its length, and a lattice of 2 S' + 1 states replaces one of
 2 max_symbols + 1), against log-probs copied W times, (T, N*W, V)
-(autograd sums the copies back).  The transducer loss `rnnt_mwer_loss`
-needs the ALSD beam search and is not ported yet.
+(autograd sums the copies back).  The transducer's `rnnt_mwer_loss`
+decodes with the ALSD beam search (K3 on the card) and scores with
+`rnnt_nll` (K8, K9).
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ import torch.nn.functional as F
 from ..utils.metrics import batch_edit_distance
 from .beam_search import beam_search_decode
 from .ctc_loss import ctc_nll
+from .rnnt_decode import _prefix_states, rnnt_beam_decode
+from .rnnt_loss import rnnt_nll
 
 _FNV_OFFSET = 2166136261
 _FNV_PRIME = 16777619
@@ -285,9 +288,93 @@ def mwer_loss(
         score_implementation=score_implementation, return_aux=return_aux)
 
 
-def rnnt_mwer_loss(*args, **kwargs):
-    """The transducer MWER loss: not ported yet (it decodes its N-best with
-    the ALSD beam search, `rnnt_beam_decode`, which is not ported)."""
-    raise NotImplementedError(
-        "rnnt_mwer_loss is not ported yet (ROADMAP.md queue 1 item 7, the "
-        "rest of the RNN-T family: it needs rnnt_beam_decode)")
+def rnnt_mwer_loss(
+    encoder_out,
+    input_lengths,
+    targets,
+    target_lengths,
+    predictor_step,
+    init_hidden,
+    joint_fn,
+    beam_width: int = 4,
+    blank: int = 0,
+    prune_k: int | None = None,
+    max_symbols: int | None = None,
+    lm=None,
+    lm_alpha: float = 0.0,
+    lm_beta: float = 0.0,
+    err: str = "token",
+    space_id: int | None = None,
+    scale: float = 1.0,
+    reduction: str = "mean",
+    score_implementation: str = "auto",
+    return_aux: bool = False,
+):
+    """MWER / MBR loss for the transducer: `mwer_loss` with an ALSD N-best
+    and each hypothesis scored exactly by `rnnt_nll`.
+
+    The N-best list comes from `rnnt_beam_decode` under `torch.no_grad`
+    (a constant of the gradient; an LM only shapes it).  Each hypothesis
+    is scored by its sequence log-probability: the predictor unrolled over
+    its tokens, the joint lattice (N, T, S'+1, V) built for one hypothesis
+    at a time (a loop over the W beams; S' the longest hypothesis), and
+    `rnnt_nll(implementation=score_implementation)`: on the card, K8
+    forward and K9 in the backward, once each per hypothesis.  Gradients
+    flow through `encoder_out` and whatever predictor and joint parameters
+    the protocol functions close over.  Posterior-weighted regret as in
+    `mwer_loss`.
+
+    Args mirror `rnnt_beam_decode`'s and `mwer_loss`'s.  Returns loss
+    (scalar or (N,)), or (loss, aux) with return_aux.
+    """
+    if reduction not in ("none", "mean", "sum"):
+        raise ValueError(f"invalid reduction {reduction!r}")
+    enc = torch.as_tensor(encoder_out).to(torch.float32)
+    il = torch.as_tensor(input_lengths, device=enc.device).long()
+    hyp_tokens, hyp_lengths, dec_scores = rnnt_beam_decode(
+        enc.detach(), il, predictor_step, init_hidden, joint_fn,
+        beam_width=beam_width, prune_k=prune_k, blank=blank,
+        max_symbols=max_symbols, lm=lm, lm_alpha=lm_alpha, lm_beta=lm_beta)
+    return _rnnt_mwer_from_nbest(
+        enc, il, hyp_tokens, hyp_lengths,
+        torch.isfinite(dec_scores) & (dec_scores > -1e29), targets,
+        target_lengths, predictor_step, init_hidden, joint_fn, blank, err,
+        space_id, scale, reduction, score_implementation, return_aux)
+
+
+def _rnnt_mwer_from_nbest(enc, il, hyp_tokens, hyp_lengths, hyp_valid,
+                          targets, target_lengths, predictor_step,
+                          init_hidden, joint_fn, blank, err, space_id, scale,
+                          reduction, score_implementation, return_aux):
+    """`rnnt_mwer_loss` after its decode, in the encoder output's dtype:
+    the N-best scored, its errors counted and the regret combined."""
+    dev = enc.device
+    hyp_lengths = hyp_lengths.long()
+    hyp_tokens = _trim_nbest(hyp_tokens.long(), hyp_lengths)
+    score = _rnnt_score_nbest(enc, il, hyp_tokens, hyp_lengths,
+                              predictor_step, init_hidden, joint_fn, blank,
+                              score_implementation)
+    with torch.no_grad():
+        errors = _nbest_errors(
+            hyp_tokens, hyp_lengths,
+            torch.as_tensor(targets, device=dev).long(),
+            torch.as_tensor(target_lengths, device=dev).long(), err,
+            space_id).to(score.dtype)
+    return _combine_mwer(score, errors, hyp_valid, scale, reduction,
+                         return_aux)
+
+
+def _rnnt_score_nbest(enc, il, hyp_tokens, hyp_lengths, predictor_step,
+                      init_hidden, joint_fn, blank, score_implementation):
+    """(N, W) transducer log-likelihoods of the trimmed (N, W, S')
+    hypotheses: for each beam in turn, the predictor's prefix states over
+    its tokens, the joint lattice (N, T, S'+1, V) and `rnnt_nll`."""
+    scores = []
+    for w in range(hyp_tokens.shape[1]):
+        toks = hyp_tokens[:, w].clamp(min=0)                     # (N, S')
+        hs = _prefix_states(predictor_step, init_hidden, toks)
+        logits = joint_fn(enc[:, :, None], hs[:, None])
+        scores.append(-rnnt_nll(logits, toks, il, hyp_lengths[:, w],
+                                blank=blank,
+                                implementation=score_implementation))
+    return torch.stack(scores, 1)

@@ -3,21 +3,20 @@ holds the JAX package's `__all__` less an explicit list of names not
 ported yet, each with its ROADMAP.md queue 1 item, so the remaining gap
 stays visible (the test prints it); and every shared name, and each
 public method of a shared class, takes JAX's parameters in JAX's order
-with JAX's defaults, but for the documented extras."""
+with JAX's defaults, but for the documented extras.  So do the ported
+models' public methods and the long-form transcribers, less JAX's
+`params`: the port's `nn.Module` holds its parameters itself."""
 
 import inspect
 
 import end2end_tpu
+import end2end_tpu.models.pipeline
+import end2end_tpu.models.streaming
+import end2end_tpu.models.transducer
 import end2end_tpu_torch
+import end2end_tpu_torch.models.streaming
 
 NOT_YET_PORTED = {  # name: ROADMAP.md queue 1 item
-    "StreamingBeamDecoder": 5,
-    "StreamingGreedyDecoder": 5,
-    "StreamingRNNTBeamDecoder": 7,
-    "StreamingRNNTGreedyDecoder": 7,
-    "rnnt_greedy_decode_with_confidence": 7,
-    "rnnt_mwer_loss": 7,
-    "rnnt_token_confidence": 7,
     "__version__": 10,
 }
 
@@ -27,7 +26,12 @@ EXTRAS = {
     ("*", "device"): (inspect.Parameter.KEYWORD_ONLY, None),
     ("RNNTLoss", "implementation"): (
         inspect.Parameter.POSITIONAL_OR_KEYWORD, "auto"),
+    ("ConformerTransducer", "implementation"): (
+        inspect.Parameter.POSITIONAL_OR_KEYWORD, "auto"),
 }
+# the models' JAX `init` builds a params pytree; the port's nn.Module
+# builds its parameters when it is constructed, so `init` has no twin
+MODEL_METHODS_WITHOUT_TWIN = {"init"}
 # documented defaults that differ: (name, parameter) -> (JAX's, the port's)
 DEFAULTS = {
     ("mwer_loss", "score_implementation"): ("xla", "auto"),
@@ -75,9 +79,12 @@ def _params(fn, owner):
     return out
 
 
-def _jax_params(fn):
+def _jax_params(fn, drop_params=False):
+    """JAX's [(name, kind, default)]; `drop_params` leaves out its
+    `params` argument, which the port's modules hold themselves."""
     return [(p.name, p.kind, _plain(p.default))
-            for p in inspect.signature(fn).parameters.values()]
+            for p in inspect.signature(fn).parameters.values()
+            if not (drop_params and p.name == "params")]
 
 
 def _shared_callables():
@@ -107,4 +114,36 @@ def test_signatures_match_jax():
             continue
         if _params(t, owner) != want:
             mismatched.append(label)
+    assert not mismatched, mismatched
+
+
+def _model_callables():
+    """(label, owner, JAX callable, port callable) for each public method
+    of the ported models and the long-form transcribers."""
+    for jmod, tcls in ((end2end_tpu.models.pipeline,
+                        end2end_tpu_torch.ConformerCTCPipeline),
+                       (end2end_tpu.models.transducer,
+                        end2end_tpu_torch.ConformerTransducer)):
+        jcls = getattr(jmod, tcls.__name__)
+        for m, fj in inspect.getmembers(jcls, callable):
+            if m.startswith("_") or m in MODEL_METHODS_WITHOUT_TWIN:
+                continue
+            ft = getattr(tcls, m, None)
+            assert ft is not None, f"{tcls.__name__}.{m} is missing"
+            yield f"{tcls.__name__}.{m}", tcls.__name__, fj, ft
+    for name in ("transcribe_long_form", "transcribe_long_form_streaming",
+                 "transcribe_long_form_rnnt"):
+        yield (name, name, getattr(end2end_tpu.models.streaming, name),
+               getattr(end2end_tpu_torch.models.streaming, name))
+
+
+def test_model_and_long_form_signatures_match_jax_less_params():
+    labels = []
+    mismatched = []
+    for label, owner, j, t in _model_callables():
+        labels.append(label)
+        if _params(t, owner) != _jax_params(j, drop_params=True):
+            mismatched.append(label)
+    assert "ConformerTransducer.decode" in labels
+    assert "transcribe_long_form_rnnt" in labels
     assert not mismatched, mismatched

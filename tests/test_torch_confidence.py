@@ -15,7 +15,6 @@ from end2end_tpu.utils.text import asr_alphabet as jax_alphabet
 from end2end_tpu_torch import (aggregate_confidence, frame_confidence,
                                greedy_decode_with_confidence,
                                token_confidence, word_confidences)
-from end2end_tpu_torch.ops import confidence as tconf
 from end2end_tpu_torch.utils.text import asr_alphabet
 
 torch.set_num_threads(1)
@@ -131,10 +130,3 @@ def test_word_confidences_match_jax(how):
         jconf.word_confidences(ids, times, conf, boundary_ids=bnd, how=how))
     with pytest.raises(ValueError, match="exactly one"):
         word_confidences(ids, times, conf)
-
-
-def test_transducer_confidences_are_not_ported_yet():
-    for fn in (tconf.rnnt_token_confidence,
-               tconf.rnnt_greedy_decode_with_confidence):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            fn(None)

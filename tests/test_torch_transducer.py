@@ -11,7 +11,8 @@ bias's gradient is zero in exact arithmetic, and the two frameworks return
 rounding noise of up to ~3e-8 there (the transducer loss is ~10x the CTC
 test's); greedy tokens and lengths equal, scores within
 1e-5 (the per-step logsumexp and the capped tail's frame sum in another
-order).
+order); ALSD beams' tokens, lengths and times equal, scores rtol 1e-5,
+atol 1e-4 (tests/test_torch_rnnt_beam.py's).
 """
 
 import jax
@@ -197,12 +198,45 @@ def test_predictor_and_joint_weights_from_the_seed(setup):
                                           np.asarray(v))
 
 
-def test_unported_decoders_raise(setup):
-    _, tmodel, _, feats, lens = setup
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tmodel.decode(feats, lens, beam_width=4)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tmodel.decode(feats, lens, lookahead=4)
+def _model_lm(lm_kind):
+    """A dense bigram over the model's 8 symbols in both packages."""
+    if lm_kind is None:
+        return None, None
+    from end2end_tpu.ops.lm import NGramLM as JaxNGramLM
+    from end2end_tpu_torch.ops.lm import NGramLM
+
+    x = np.random.default_rng(3).standard_normal((8, 8))
+    tbl = (x - np.log(np.exp(x).sum(1, keepdims=True))).astype(np.float32)
+    return JaxNGramLM(jnp.asarray(tbl)), NGramLM(tbl, device="cpu")
+
+
+@pytest.mark.parametrize("lm_kind,lookahead", [(None, 1), (None, 4),
+                                               ("bigram", 4)])
+def test_beam_decode_matches_jax(setup, lm_kind, lookahead):
+    """ALSD through the model; with an LM the lookahead is dropped, as
+    JAX drops it."""
+    jmodel, tmodel, params, feats, lens = setup
+    jl, tl = _model_lm(lm_kind)
+    kw = dict(beam_width=4, prune_k=5, max_symbols=6, return_timestamps=True,
+              lm_alpha=0.5, lm_beta=0.2, lookahead=lookahead)
+    want = jmodel.decode(params, feats, lens, lm=jl, **kw)
+    got = tmodel.decode(feats, lens, lm=tl, **kw)
+    for i in (0, 1, 3):
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(want[i]))
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_decode_takes_jax_positional_order(setup):
+    """decode(feats, lengths, beam_width, prune_k, max_symbols): the
+    fourth argument is prune_k, as in JAX's decode less `params`."""
+    jmodel, tmodel, params, feats, lens = setup
+    got = tmodel.decode(feats, lens, 3, 1, 5)
+    want = jmodel.decode(params, feats, lens, 3, 1, 5)
+    assert got[0].shape == (2, 3, 5)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    greedy = tmodel.decode(feats, lens, 0, None, 5, True, None, 0.0, 0.0, 2)
+    assert len(greedy) == 4 and greedy[0].shape == (2, 5)
 
 
 def test_default_device_is_the_card(monkeypatch):
