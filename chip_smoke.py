@@ -1,7 +1,10 @@
 """Drive the PyTorch/CUDA port's serving and training paths (CTC,
 transducer and the fused transducer joint; forced alignment and MWER
 fine-tuning; LM fusion with hashed, composite and neural LMs; transducer
-beam, streaming and long-form decoding) once on one GPU and check them.
+beam, streaming and long-form decoding; the OCR recognizer and the
+Dense-front-end transducer; data-, vocabulary- and time-parallel losses
+and decoders over processes sharing the card) once on one GPU and check
+them.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -285,7 +288,53 @@ Phases (every failure raises, so the exit code is nonzero):
      transducer MWER step and its parts (the decode, the four scoring
      passes forward and backward (`mwer._rnnt_score_nbest`), the edit
      distances); rnnt_beam4's kernels' device time (K3's apart)
-     under torch.profiler, and the device's idle share of the call.
+     under torch.profiler, and the device's idle share of the call;
+ 33. the OCR recognizer and the Dense front end: `OCRRecognizer` at JAX's
+     default widths (d 128, 2 layers, 4 heads), V=96, built on the card by
+     default, on BASELINE config 3's batch (B=64 seeded glyph text lines of
+     H=32, widths up to 1024 (T'=256), targets of 16-64 characters) takes
+     3 AdamW steps on `ctc_loss` (K1, K2 and the combine each step; step
+     1's loss within 1e-3 of the same model's on the CPU), then, the
+     blank's bias lowered by its median lead over the best character,
+     `beam_search_decode(beam_width=10, prune_k=16)` (K3, K4 and the
+     backtrace once; no line's best hypothesis empty); K4 at W=10
+     bit-equal to its plain twin (codes, scores, state), the backtrace and
+     lane-walk kernels to theirs, on the decode's candidates (its
+     hypotheses equal to the plain twins') and on a peaked lattice of the
+     row's shape, the beam sets' scores within 1e-4.  Then
+     `ConformerTransducer(TransducerConfig(subsample=False))` at its
+     default widths on B=8 requests of 10 s (T = T' = 998): phase 16's
+     checks on the batch (the loss against the CPU, the gradients through
+     K8/K9 against the plain scan's, K8/K9 against their twins and the
+     parent kernels), one AdamW step (K8 and K9 once) and the greedy
+     decode card against CPU (some request emitting and agreeing, scores
+     within 1e-3 where the tokens agree);
+ 34. the multi-GPU slice: 4 gloo ranks on the one card (phase 24's
+     spawn), each with its counters: the data-parallel CTC loss at config
+     2 (B=32, T=1000, S=200, V=29; 8 rows a rank: the NLL and the gradient
+     bit-equal to the unsharded loss's rows), the data-parallel RNN-T loss
+     at the bench row (B=8, T=400, U=80, V=256), the data-parallel CTC
+     greedy, transducer greedy, ALSD beam-4 and streaming (40-frame
+     chunks) decodes at bench.py's `_rnnt_decoder` shapes (B=16; equal to
+     the unsharded decodes), the vocabulary-parallel CTC loss at the
+     large-vocab row (B=16, T=1000, S=100, V=32768; 8192 columns a rank:
+     the NLL and the rank's gradient columns bit-equal to the unsharded
+     K1/K2's, zero elsewhere), the vocabulary-parallel greedy decode and
+     beam-16 at the beam-16 row (B=32, T=1000, V=1024, K=32: the merged
+     top-K bit-equal to the global K3 top-K, the decode to
+     `beam_search_from_topk` on it), and the time-parallel loss at B=4,
+     T=8000, S=20, V=29 (2000 frames a rank: the NLL within 1e-4
+     relative of the unsharded K1's and within 1e-4 of a float64 scan's,
+     the gradient within 1e-4 of the float64 scan's max; the float32 K1/K2
+     gradient's distance to that scan logged beside it); every rank
+     JAX-free; then `dryrun_multichip(4)` on the card.  It runs right
+     after phase 3, before the other phases' tensors fill the card (its
+     four ranks hold ~25 GB at the large-vocabulary row);
+ 35. timings: the OCR train step and beam-10 decode at bench.py's OCR row
+     (ms, seq/s), K4 and the backtrace at W=10 in device time with their
+     bounds, the Dense-front-end transducer step, and each phase-34 path's
+     run (the slowest rank, the median of 3 or one run) with the share of
+     it spent in collectives (all-reduces and all-gathers).
 Every kernel row and library yardstick is also timed on the device alone
 (`device_ms`: calls captured in a CUDA graph and replayed between one
 pair of events; torch.profiler's kernel time where a call cannot be
@@ -330,6 +379,7 @@ from end2end_tpu_torch import (ConformerCTCPipeline, ConformerTransducer,
                                mwer_loss_from_nbest, rnnt_beam_decode,
                                rnnt_mwer_loss, word_confidences)
 from end2end_tpu_torch.models.frontend import log_mel_spectrogram, num_frames
+from end2end_tpu_torch.models.ocr import OCRRecognizer
 from end2end_tpu_torch.models.streaming import (_rnnt_encoded_chunks,
                                                 transcribe_long_form_rnnt)
 from end2end_tpu_torch.ops import (alignment, beam_chunked, beam_search_cuda,
@@ -337,8 +387,9 @@ from end2end_tpu_torch.ops import (alignment, beam_chunked, beam_search_cuda,
                                    mwer, rnnt_decode, rnnt_joint_cuda,
                                    rnnt_joint_plain, rnnt_loss_cuda,
                                    rnnt_loss_plain, topk_cuda)
-from end2end_tpu_torch.ops.beam_search import beam_search_decode
-from end2end_tpu_torch.ops.ctc_loss import ctc_nll
+from end2end_tpu_torch.ops.beam_search import (beam_search_decode,
+                                               beam_search_from_topk)
+from end2end_tpu_torch.ops.ctc_loss import ctc_loss, ctc_nll
 from end2end_tpu_torch.ops.decode_utils import (blank_collapse,
                                                 collapse_and_bucket)
 from end2end_tpu_torch.ops.mwer import word_id_hashes
@@ -347,8 +398,8 @@ from end2end_tpu_torch.ops.rnnt_decode import (FactoredAdditiveJoint,
                                                rnnt_greedy_decode)
 from end2end_tpu_torch.ops.rnnt_joint import (
     rnnt_nll_fused_pallas, rnnt_nll_fused_pallas_vocab_parallel)
-from end2end_tpu_torch.ops.rnnt_loss import (fused_additive_joint, rnnt_nll,
-                                             rnnt_nll_from_planes,
+from end2end_tpu_torch.ops.rnnt_loss import (fused_additive_joint, rnnt_loss,
+                                             rnnt_nll, rnnt_nll_from_planes,
                                              rnnt_nll_fused)
 from end2end_tpu_torch.ops.indexing import compact_rows
 from end2end_tpu_torch.ops.lm import (CompositeLM, HashedNGramLM,
@@ -364,6 +415,19 @@ from end2end_tpu_torch.tools import (beam_step_breakdown, ctc_alpha_breakdown,
                                      rnnt_wavefront_breakdown, topk_breakdown)
 from end2end_tpu_torch.tools.joint_dw_breakdown import (
     N_SMS, device_ms, max_sm_mhz, tensor_ops_per_s, under_load)
+from end2end_tpu_torch.parallel import (DataParallelStreamingRNNT,
+                                        beam_search_decode_vocab_parallel,
+                                        beam_topk_prep_vocab_parallel,
+                                        ctc_loss_data_parallel,
+                                        ctc_nll_time_parallel,
+                                        ctc_nll_vocab_parallel,
+                                        greedy_decode_data_parallel,
+                                        greedy_decode_vocab_parallel,
+                                        group_rank,
+                                        rnnt_beam_decode_data_parallel,
+                                        rnnt_greedy_decode_data_parallel,
+                                        rnnt_loss_data_parallel, shard_batch)
+from end2end_tpu_torch.parallel.dryrun import dryrun_multichip
 from end2end_tpu_torch.utils import cuda_build
 from end2end_tpu_torch.utils.metrics import batch_edit_distance
 from end2end_tpu_torch.utils.subtitles import group_word_spans, to_srt
@@ -1531,17 +1595,17 @@ def transducer_grads(model, batch, implementation):
                            if p.grad is not None}
 
 
-def check_transducer_batch(model, batch, ref_lib):
+def check_transducer_batch(model, batch, ref_lib, what="phase 16"):
     """First batch: CUDA vs CPU loss, kernel vs plain gradients of every
     parameter, and K8/K9 vs plain at this shape.  Returns (nll err,
-    posterior err, the DP inputs of this batch)."""
+    posterior err, the DP inputs of this batch, the model on the CPU)."""
     k_loss, k_grads = transducer_grads(model, batch, "auto")
     p_loss, p_grads = transducer_grads(model, batch, "xla")
     cpu = copy.deepcopy(model).cpu()
     with torch.no_grad():
         c_loss = cpu.loss(*batch).item()
     rel = abs(k_loss.item() - c_loss) / abs(c_loss)
-    log(f"phase 16 first batch: CUDA loss {k_loss.item():.6f}, CPU loss "
+    log(f"{what} first batch: CUDA loss {k_loss.item():.6f}, CPU loss "
         f"{c_loss:.6f} (rel err {rel:.3g}), plain-path loss "
         f"{p_loss.item():.6f}")
     if rel > TRAIN_LOSS_RTOL:
@@ -1552,7 +1616,7 @@ def check_transducer_batch(model, batch, ref_lib):
         # arithmetic and rounding noise on both paths
         scale = max(float(p_grads[name].abs().max()), 1e-3)
         worst = max(worst, float((kg - p_grads[name]).abs().max()) / scale)
-    log(f"phase 16 gradients of {len(k_grads)} tensors, kernels vs plain: "
+    log(f"{what} gradients of {len(k_grads)} tensors, kernels vs plain: "
         f"max err {worst:.3g} of each tensor's max")
     if worst > TRAIN_GRAD_RTOL or set(k_grads) != set(p_grads):
         raise AssertionError(f"transducer grads differ: {worst}")
@@ -1561,7 +1625,7 @@ def check_transducer_batch(model, batch, ref_lib):
         x = model.joint_logits(enc, model._pred_states(batch[2]))
     tgt, tl = (torch.as_tensor(a, device=x.device) for a in batch[2:])
     errs = check_rnnt(x, tgt, enc_len, tl, 0,
-                      f"phase 16 K8/K9 at the training shape {tuple(x.shape)}",
+                      f"{what} K8/K9 at the training shape {tuple(x.shape)}",
                       ref_lib)
     return (*errs, rnnt_dp_inputs(x, tgt, enc_len, tl, 0), cpu)
 
@@ -2998,6 +3062,735 @@ def transducer_decode_timings(model, batch, s31):
     return ms
 
 
+
+# --------------------------------------------------------------------------
+# 33-35: the OCR recognizer, the Dense-front-end transducer and the
+# multi-GPU slice
+# --------------------------------------------------------------------------
+
+# BASELINE config 3 (bench.py's OCR row): B, image height, the widest
+# line (T' = W/4 = 256 columns), S, V; beam 10, prune 16
+OCR_ROW = (64, 32, 1024, 64, 96)
+OCR_BEAM, OCR_PRUNE = 10, 16
+GLYPH_W = 16  # pixels a character (examples/ocr_demo.py's glyphs)
+DENSE_SECS = 10  # the Dense-front-end transducer's requests (T = 1000)
+MG_RANKS = 4
+# the multi-GPU slice's problems: config 2 (B, T, S, V); bench.py's RNN-T
+# row (B, T, U, V); its large-vocab row (B, T, S, V); its beam-16 row
+# (B, T, V, W, K); the time-parallel loss (B, T, S, V)
+MG_DP_CTC = (32, 1000, 200, 29)
+MG_DP_RNNT = (8, 400, 80, 256)
+MG_VP_CTC = (16, 1000, 100, 32768)
+MG_VP_BEAM = (32, 1000, 1024, 16, 32)
+MG_TP_CTC = (4, 8000, 20, 29)
+# the time-parallel loss (float64 inside) against the float64 plain scan,
+# and its NLL against the unsharded float32 K1's: the NLL relative, the
+# gradient of the witness's max (JAX's bound at T=64; the float32 scan's
+# own log-domain rounding grows with T, so the float32 K1/K2 gradient is
+# held to the witness beside it, not the time-parallel one to it)
+TP_CTC_TOL = 1e-4
+# the data-parallel greedy scores against the unsharded decode's: float32
+# sums of up to 1000 frames' maxima, reduced over rows of another batch
+# size and so in another order
+DP_SCORE_RTOL = 1e-5
+
+
+def ocr_batch(rng, dev):
+    """B seeded text lines: targets of S/4..S characters, each drawn as
+    examples/ocr_demo.py's glyph (a sine pattern keyed by its id) GLYPH_W
+    pixels wide, plus noise; the line's width is its text's, the padding
+    zero.  Returns images (N, H, W) on the card, widths, targets and
+    target lengths."""
+    b, h, w_max, s_max, v = OCR_ROW
+    tl = rng.integers(s_max // 4, s_max + 1, b).astype(np.int32)
+    tl[0] = s_max  # one line fills the bucket: T' = 256
+    tgt = rng.integers(1, v, (b, s_max)).astype(np.int32)
+    gy, gx = np.mgrid[0:h, 0:GLYPH_W]
+    cid = np.arange(v)[:, None, None]
+    glyphs = np.sin(0.7 * cid * gx + gy * 0.31 * (cid % 5 + 1))
+    img = glyphs[tgt].transpose(0, 2, 1, 3).reshape(b, h, w_max)
+    img = img + 0.05 * rng.standard_normal(img.shape)
+    widths = tl * GLYPH_W
+    img = np.where(np.arange(w_max) < widths[:, None, None], img, 0.0)
+    return (torch.from_numpy(img.astype(np.float32)).to(dev),
+            torch.from_numpy(widths).to(dev), tgt, tl)
+
+
+def zero_ctc_counts():
+    for k in ctc_loss_cuda.launches:
+        ctc_loss_cuda.launches[k] = 0
+
+
+def ocr_log_probs(model, images, widths):
+    logits, ow = model(images, widths)
+    return torch.log_softmax(logits, -1).transpose(0, 1).contiguous(), ow
+
+
+def blank_shift(lp, ow):
+    """The median margin by which the blank leads the best other label over
+    the valid frames: taking it off the blank's bias leaves about half the
+    frames' best label a character (a freshly stepped recognizer's blank
+    leads everywhere, and its beams would be empty)."""
+    valid = torch.arange(lp.shape[0], device=lp.device)[:, None] < ow[None]
+    margin = lp[:, :, 0] - lp[:, :, 1:].amax(-1)
+    return float(margin[valid].median())
+
+
+def check_beam_w10(args, what):
+    """K4 at W=10 against its plain twin on the card (codes, scores and
+    state bit for bit), and the backtrace kernel and the lane walk on its
+    codes against theirs.  Returns (the kernel's output, the plain twin's,
+    the number of codes, the largest |kernel - plain| of the beam scores,
+    of the backtrace)."""
+    lpk, ck, _, _, W, K, s_cap, _ = args
+    kern = beam_search_cuda.beam_step_cuda(*args)
+    plain = beam_search_cuda.beam_step_plain(*args)
+    torch.cuda.synchronize()
+    n_codes = assert_same_bits(kern, plain, f"{what}: K4 at W=10 vs plain")
+    score_err = float((kern[1] - plain[1]).nan_to_num().abs().max())
+    bt_err, walk_err = check_backtrace(kern[0], ck, kern[1], W, K, s_cap,
+                                       f"{what}: the backtrace at W=10")
+    got = beam_sets(*beam_search_cuda.backtrace(kern[0], ck, kern[1], W, K,
+                                                s_cap)[:3])
+    want = beam_sets(*beam_search_cuda.backtrace_plain(
+        plain[0], ck, plain[1], W, K, s_cap)[:3])
+    set_err = compare_beams(got, want, f"{what}: beam sets at W=10")
+    return (kern, plain, n_codes, max(score_err, set_err),
+            max(bt_err, walk_err))
+
+
+def ocr_slice(rng, dev):
+    """Phase 33's OCR part: the recognizer built on the card by default, 3
+    AdamW steps on the CTC loss (K1, K2 and the combine each step; step
+    1's loss against the same model on the CPU), the beam-10 decode of the
+    stepped model with its blank's bias lowered by `blank_shift` (K3, K4
+    and the backtrace once; every line's best hypothesis non-empty), and
+    K4 and the backtrace at W=10 against their plain twins on the card, on
+    that decode's candidates and on a peaked lattice of the OCR row.
+    Returns what phase 35 times and the kernels line reads."""
+    b, h, w_max, s_max, v = OCR_ROW
+    model = OCRRecognizer(v, generator=torch.Generator().manual_seed(SEED))
+    if model.device != dev:
+        raise AssertionError(f"the OCR model was built on {model.device}")
+    images, widths, tgt, tl = ocr_batch(rng, dev)
+    cpu = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        lp_c, ow_c = ocr_log_probs(cpu, images.cpu(), widths.cpu())
+        c_loss = ctc_loss(lp_c, tgt, ow_c, tl).item()
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
+
+    def step():
+        opt.zero_grad()
+        lp, ow = ocr_log_probs(model, images, widths)
+        loss = ctc_loss(lp, tgt, ow, tl)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    zero_ctc_counts()
+    losses = [step().item() for _ in range(3)]
+    train = dict(ctc_loss_cuda.launches)
+    rel = abs(losses[0] - c_loss) / abs(c_loss)
+    log(f"phase 33 OCR training: OCRRecognizer(V={v}, d 128, 2 layers, 4 "
+        f"heads) built on {model.device} by default, B={b} lines of H={h}, "
+        f"widths {int(widths.min())}-{int(widths.max())} (T' up to "
+        f"{w_max // 4}), targets of {int(tl.min())}-{int(tl.max())}; 3 AdamW "
+        f"steps, losses {[round(x, 6) for x in losses]}, launches {train}; "
+        f"step 1 CUDA {losses[0]:.6f} vs CPU {c_loss:.6f} (rel err "
+        f"{rel:.3g})")
+    if train != {"ctc_alpha": 3, "ctc_beta": 3, "ctc_grad": 3}:
+        raise AssertionError(f"kernels missed on the OCR training path: "
+                             f"{train}")
+    if not all(np.isfinite(x) and x > 0 for x in losses):
+        raise AssertionError(f"bad OCR loss: {losses}")
+    if rel > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"OCR CUDA loss vs CPU: rel err {rel}")
+    with torch.no_grad():
+        lp, ow = ocr_log_probs(model, images, widths)
+        shift = blank_shift(lp, ow)
+        model.out.bias[0] -= shift
+        lp, ow = ocr_log_probs(model, images, widths)
+    torch.cuda.synchronize()
+    reset_counts()
+    out = beam_search_decode(lp, ow, beam_width=OCR_BEAM, prune_k=OCR_PRUNE)
+    torch.cuda.synchronize()
+    decode = {"topk": topk_cuda.launches,
+              "beam_step": beam_search_cuda.launches,
+              "backtrace": beam_search_cuda.launches_backtrace}
+    if decode != {"topk": 1, "beam_step": 1, "backtrace": 1}:
+        raise AssertionError(f"kernels missed on the OCR decode: {decode}")
+    if not torch.isfinite(out[2][:, 0]).all():
+        raise AssertionError("OCR beam-10: a best score is not finite")
+    lens = out[1][:, 0]
+    if not (lens > 0).all():
+        raise AssertionError(f"OCR beam-10: {int((lens == 0).sum())} of {b} "
+                             "best hypotheses are empty")
+    # K4 and the backtrace at W=10 against their plain twins on the card:
+    # on the decode's own candidates, then on a peaked lattice of the row
+    W, K = OCR_BEAM, min(OCR_PRUNE, v)
+    s_cap = min(lp.shape[0], 512)
+    il = ow.to(torch.int32)
+    lpk, ck = topk_cuda.topk_plain(lp, min(K + 8, v))
+    args = (lpk, ck, lp[:, :, 0].contiguous(), il, W, K, s_cap, 0)
+    kern, plain, n_codes, score_err, bt_err = check_beam_w10(
+        args, "phase 33 OCR")
+    hyps = beam_search_cuda.backtrace_plain(plain[0], ck, plain[1], W, K,
+                                            s_cap)[:3]
+    if not all(torch.equal(a, c) for a, c in zip(out, hyps)):
+        raise AssertionError("phase 33: the OCR decode differs from the "
+                             "plain twins' hypotheses")
+    lp_pk = torch.from_numpy(peaked_lattice(rng, lp.shape[0], b, v)).to(dev)
+    lpk_pk, ck_pk = topk_cuda.topk_plain(lp_pk, min(K + 8, v))
+    pk = check_beam_w10((lpk_pk, ck_pk, lp_pk[:, :, 0].contiguous(), il, W,
+                         K, s_cap, 0), "phase 33 peaked lattice")
+    pk_lens = beam_search_cuda.backtrace_plain(pk[1][0], ck_pk, pk[1][1], W,
+                                               K, s_cap)[1][:, 0]
+    score_err, bt_err = max(score_err, pk[3]), max(bt_err, pk[4])
+    log(f"phase 33 OCR beam-10 / prune 16 (T'={lp.shape[0]}, B={b}): the "
+        f"blank's bias lowered by {shift:.4f}; launches {decode}; best "
+        f"lengths {int(lens.min())}-{int(lens.max())} (targets "
+        f"{int(tl.min())}-{int(tl.max())}), the decode's hypotheses equal to "
+        f"the plain twins'; K4 at W=10: 0 of {n_codes} codes differ from the "
+        f"plain twin's (0 of {pk[2]} on a peaked lattice, best lengths "
+        f"{int(pk_lens.min())}-{int(pk_lens.max())}), scores and state "
+        f"bit-identical, max score err {score_err:.3g}")
+    return {"step": step, "lp": lp, "ow": ow, "train": train,
+            "decode": decode, "args": args, "kern": kern, "ck": ck,
+            "beam_err": score_err, "err": bt_err}
+
+
+def dense_batch(rng, dev, vocab):
+    """8 requests of DENSE_SECS s (T = 1000 log-mel frames, which the
+    model does not subsample) with random targets of T/5 labels."""
+    n = DENSE_SECS * 16000
+    wav = 0.1 * rng.standard_normal((8, n)).astype(np.float32)
+    feats = log_mel_spectrogram(torch.from_numpy(wav).to(dev))
+    lens = num_frames(torch.from_numpy(np.full(8, n, np.int64)))
+    tl = (lens // 5).numpy().astype(np.int32)
+    tgt = rng.integers(1, vocab, (8, int(tl.max()))).astype(np.int32)
+    return feats, lens, tgt, tl
+
+
+def dense_transducer_slice(rng, dev, ref_lib):
+    """Phase 33's Dense-front-end transducer: ConformerTransducer(
+    subsample=False) at its default widths on B=8 x 10 s (T = T' =
+    1000): phase 16's checks on one batch (the loss against the CPU, the
+    gradients through K8/K9 against the plain scan's, K8/K9 against their
+    plain twins and the parent kernels at this shape), one AdamW step (K8
+    and K9 once), and the greedy decode (the fresh weights, the blank
+    biased by DECODE_BLANK_BIAS) on the card against the CPU.
+    Returns what phase 35 times and the kernels line reads."""
+    cfg = TransducerConfig(subsample=False)
+    model = ConformerTransducer(cfg, seed=SEED + 33)
+    if model.device != dev:
+        raise AssertionError(f"the transducer was built on {model.device}")
+    batch = dense_batch(rng, dev, cfg.vocab_size)
+    *errs, dp, cpu = check_transducer_batch(model, batch, ref_lib,
+                                            "phase 33 Dense front end")
+    # the decode, on the fresh weights with the blank biased as phase 31's
+    # (the trained step's model emits blanks only), card against CPU
+    dmodel = copy.deepcopy(model)
+    with torch.no_grad():
+        dmodel.joint["b_out"][0] += DECODE_BLANK_BIAS
+        cpu.load_state_dict({k: x.cpu() for k, x in
+                             dmodel.state_dict().items()})
+        feats, lens = batch[:2]
+        tok, tlen, tsc = dmodel.decode(feats, lens)
+        c_tok, c_len, c_sc = cpu.decode(feats.cpu(), lens)
+    del dmodel
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
+
+    def step():
+        opt.zero_grad()
+        loss = model.loss(*batch)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    for k in rnnt_loss_cuda.launches:
+        rnnt_loss_cuda.launches[k] = 0
+    loss = step().item()
+    torch.cuda.synchronize()
+    launches = dict(rnnt_loss_cuda.launches)
+    if launches != {"rnnt_alpha": 1, "rnnt_posteriors": 1}:
+        raise AssertionError(f"kernels missed on the Dense transducer step: "
+                             f"{launches}")
+    if not (np.isfinite(loss) and loss > 0):
+        raise AssertionError(f"bad Dense transducer loss {loss}")
+    same = [i for i in range(8)
+            if torch.equal(tok[i, :int(tlen[i])].cpu(),
+                           c_tok[i, :int(c_len[i])])]
+    if not same or int(tlen.max()) == 0:
+        raise AssertionError(f"Dense transducer greedy decode: {len(same)} "
+                             f"of 8 alike card vs CPU, lengths "
+                             f"{tlen.tolist()}")
+    sc_err = max(abs(float(tsc[i]) - float(c_sc[i]))
+                 / max(abs(float(c_sc[i])), 1.0) for i in same)
+    log(f"phase 33 Dense-front-end transducer (d 144, 2 layers, 80 mels, "
+        f"subsample=False): lattice {tuple(dp[0].shape)} x "
+        f"V={cfg.vocab_size}; one AdamW step, loss {loss:.6f}, launches "
+        f"{launches}; greedy decode (blank bias {DECODE_BLANK_BIAS}) "
+        f"lengths {tlen.tolist()}, {len(same)} of "
+        f"8 requests decode alike on the card and the CPU, their scores "
+        f"within {sc_err:.3g} relative")
+    if sc_err > ALSD_SCORE_TOL or not torch.isfinite(tsc).all():
+        raise AssertionError(f"Dense transducer greedy decode card vs CPU: "
+                             f"score err {sc_err}")
+    return {"step": step, "launches": launches, "errs": errs}
+
+
+class CollectiveClock:
+    """Inside the block every `dist.all_reduce` and `dist.all_gather` is
+    timed (the card synchronised before and after), the seconds summed in
+    `seconds`."""
+
+    NAMES = ("all_reduce", "all_gather")
+
+    def __enter__(self):
+        self.seconds = 0.0
+        self._orig = {k: getattr(dist, k) for k in self.NAMES}
+
+        def timer(fn):
+            def timed(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                return out
+            return timed
+
+        for k, fn in self._orig.items():
+            setattr(dist, k, timer(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self._orig.items():
+            setattr(dist, k, fn)
+
+
+def mg_time(fn, reps=3):
+    """(median ms of fn over reps, the share of that run spent in
+    collectives); the ranks start each run together."""
+    runs = []
+    for _ in range(reps):
+        dist.barrier()
+        torch.cuda.synchronize()
+        with CollectiveClock() as clock:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        runs.append((1e3 * wall, clock.seconds / wall))
+    return sorted(runs)[len(runs) // 2]
+
+
+def kernel_counts():
+    return {**ctc_loss_cuda.launches, **rnnt_loss_cuda.launches,
+            "topk": topk_cuda.launches, "beam_step": beam_search_cuda.launches,
+            "backtrace": beam_search_cuda.launches_backtrace}
+
+
+def counted(fn):
+    """(fn(), the kernels it launched, those that ran)."""
+    torch.cuda.synchronize()
+    zero_ctc_counts()
+    for k in rnnt_loss_cuda.launches:
+        rnnt_loss_cuda.launches[k] = 0
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: n for k, n in kernel_counts().items() if n}
+
+
+def mg_ctc_problem(seed, shape, dev, min_frac=0.5):
+    """tests/conftest.py's CTC draw on the card: log-softmaxed 2x normal
+    logits, lengths from min_frac T (sample 0 all T), targets of S/2..S
+    labels and at most a third of the frames (sample 0 S)."""
+    b, t, s, v = shape
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((t, b, v)).astype(np.float32))
+    lp = torch.log_softmax(2.0 * x.to(dev), -1)
+    il = rng.integers(int(t * min_frac), t + 1, b).astype(np.int32)
+    il[0] = t
+    tl = np.minimum(rng.integers(s // 2, s + 1, b), il // 3).astype(np.int32)
+    tl[0] = s
+    tgt = rng.integers(1, v, (b, s)).astype(np.int32)
+    return (lp, *(torch.from_numpy(a).to(dev) for a in (tgt, il, tl)))
+
+
+def mg_dp(rank, dev):
+    """The data-parallel paths on this rank's rows, each against the
+    unsharded call on the whole batch (computed here, not counted)."""
+    res = {}
+    lp, tgt, il, tl = mg_ctc_problem(SEED + 341, MG_DP_CTC, dev)
+    x, t_, i_, l_ = shard_batch(None, lp, tgt, il, tl)
+    x = x.detach().clone().requires_grad_()
+
+    def ctc_step():
+        x.grad = None
+        nll = ctc_loss_data_parallel(x.detach(), t_, i_, l_,
+                                     reduction="none")
+        ctc_loss_data_parallel(x, t_, i_, l_).backward()
+        return nll
+
+    nll, res["dp_ctc_launches"] = counted(ctc_step)
+    y = lp.detach().clone().requires_grad_()
+    ctc_loss(y, tgt, il, tl).backward()
+    ref = ctc_nll(lp, tgt, il, tl)
+    n = lp.shape[1] // MG_RANKS
+    rows = slice(rank * n, (rank + 1) * n)
+    res["dp_ctc"] = (torch.equal(nll, ref[rows]),
+                     torch.equal(x.grad, y.grad[:, rows]),
+                     float((nll - ref[rows]).abs().max()),
+                     float((x.grad - y.grad[:, rows]).abs().max()))
+    greedy, res["dp_greedy_launches"] = counted(
+        lambda: greedy_decode_data_parallel(x.detach(), i_))
+    want = [w[rows] for w in greedy_decode(lp, il)]
+    # the scores' frame sums reduce (N, T) rows of another batch size, in
+    # another order: their last bits may differ
+    res["dp_greedy"] = (torch.equal(greedy[0], want[0])
+                        and torch.equal(greedy[1], want[1]),
+                        float(((greedy[2] - want[2]).abs()
+                               / want[2].abs()).max()))
+    res["dp_ctc_ms"] = mg_time(ctc_step)
+    res["dp_greedy_ms"] = mg_time(
+        lambda: greedy_decode_data_parallel(x.detach(), i_))
+    del lp, x, y
+    b, t, u, v = MG_DP_RNNT
+    xr, tgt, il, ul = rnnt_problem(np.random.default_rng(SEED + 342), dev,
+                                   b, t, u, v)
+    n = b // MG_RANKS
+    rows = slice(rank * n, (rank + 1) * n)
+    mine = xr[rows].clone().requires_grad_()
+
+    def rnnt_step():
+        mine.grad = None
+        nll = rnnt_loss_data_parallel(mine.detach(), tgt[rows], il[rows],
+                                      ul[rows], reduction="none")
+        rnnt_loss_data_parallel(mine, tgt[rows], il[rows],
+                                ul[rows]).backward()
+        return nll
+
+    nll, res["dp_rnnt_launches"] = counted(rnnt_step)
+    y = xr.clone().requires_grad_()
+    rnnt_loss(y, tgt, il, ul).backward()
+    ref = rnnt_nll(xr, tgt, il, ul)
+    res["dp_rnnt"] = (torch.equal(nll, ref[rows]),
+                      torch.equal(mine.grad, y.grad[rows]),
+                      float((nll - ref[rows]).abs().max()),
+                      float((mine.grad - y.grad[rows]).abs().max()))
+    res["dp_rnnt_ms"] = mg_time(rnnt_step)
+    del xr, mine, y
+    enc, il, pred, h0, joint = bench_decoder(dev)
+    n = enc.shape[0] // MG_RANKS
+    enc_r, il_r = enc[rank * n:(rank + 1) * n], il[rank * n:(rank + 1) * n]
+
+    def stream():
+        dp = DataParallelStreamingRNNT(StreamingRNNTBeamDecoder(
+            pred, h0, joint, beam_width=4, max_symbols=S_CAP))
+        st = dp.init(enc.shape[0], enc.shape[2])
+        st = stream_rnnt(dp, st, enc_r, il_r, STREAM_CHUNK)
+        return dp.finish(st, return_timestamps=True)
+
+    calls = {
+        "dp_rnnt_greedy": lambda: rnnt_greedy_decode_data_parallel(
+            enc_r, il_r, pred, h0, joint, max_symbols=S_CAP,
+            return_timestamps=True),
+        "dp_rnnt_beam4": lambda: rnnt_beam_decode_data_parallel(
+            enc_r, il_r, pred, h0, joint, beam_width=4, max_symbols=S_CAP,
+            return_timestamps=True),
+        "dp_rnnt_stream": stream}
+    for key, fn in calls.items():
+        out, res[f"{key}_launches"] = counted(fn)
+        res[key] = [o.cpu() for o in out]
+        res[f"{key}_ms"] = mg_time(fn, reps=3 if key == "dp_rnnt_greedy"
+                                   else 1)
+    return res
+
+
+def mg_vp(rank, dev):
+    """The vocabulary-parallel paths (every rank the global values, its
+    8192 or 256 columns), each against the unsharded call."""
+    res = {}
+    v = MG_VP_CTC[3]
+    lp, tgt, il, tl = mg_ctc_problem(SEED + 343, MG_VP_CTC, dev)
+    lp.requires_grad_()
+    vl = v // MG_RANKS
+    own = slice(rank * vl, (rank + 1) * vl)
+
+    def vp_step():
+        lp.grad = None
+        nll = ctc_nll_vocab_parallel(lp, tgt, il, tl)
+        nll.sum().backward()
+        return nll.detach()
+
+    nll, res["vp_ctc_launches"] = counted(vp_step)
+    outside = (not lp.grad[:, :, :own.start].any()
+               and not lp.grad[:, :, own.stop:].any())
+    g_vp = lp.grad[:, :, own].clone()  # the rest freed before the reference
+    lp.grad = None
+    ref = ctc_nll(lp, tgt, il, tl)
+    ref.sum().backward()
+    g_ref = lp.grad[:, :, own]
+    res["vp_ctc"] = (torch.equal(nll, ref.detach()), torch.equal(g_vp, g_ref),
+                     outside, float((nll - ref.detach()).abs().max()),
+                     float((g_vp - g_ref).abs().max()))
+    del g_vp, g_ref
+    lp.grad = None
+    res["vp_ctc_ms"] = mg_time(vp_step)
+    del lp
+    torch.cuda.empty_cache()
+    b, t, v, W, K = MG_VP_BEAM
+    rng = np.random.default_rng(SEED + 344)
+    lp = torch.from_numpy(peaked_lattice(rng, t, b, v)).to(dev)
+    il = torch.from_numpy(rng.integers(t // 2, t + 1, b).astype(np.int32)
+                          ).to(dev)
+    prep, res["vp_prep_launches"] = counted(
+        lambda: beam_topk_prep_vocab_parallel(lp, None, K))
+    g_k = topk_cuda.topk(lp, K)
+    res["vp_prep"] = (topk_breakdown.same_bits(prep[:2], g_k)
+                      and torch.equal(prep[2], lp[:, :, 0]))
+    out, res["vp_beam_launches"] = counted(
+        lambda: beam_search_decode_vocab_parallel(lp, il, beam_width=W,
+                                                  prune_k=K))
+    want = beam_search_from_topk(g_k[0], g_k[1], lp[:, :, 0].contiguous(),
+                                 il, W, 0, min(t, 512))
+    res["vp_beam"] = all(a.dtype == c.dtype and torch.equal(a, c)
+                         for a, c in zip(out, want))
+    greedy, res["vp_greedy_launches"] = counted(
+        lambda: greedy_decode_vocab_parallel(lp, il))
+    res["vp_greedy"] = all(torch.equal(a, c) for a, c in
+                           zip(greedy, greedy_decode(lp, il)))
+    res["vp_beam_ms"] = mg_time(lambda: beam_search_decode_vocab_parallel(
+        lp, il, beam_width=W, prune_k=K))
+    res["vp_greedy_ms"] = mg_time(
+        lambda: greedy_decode_vocab_parallel(lp, il))
+    return res
+
+
+def mg_tp_problem(dev):
+    return mg_ctc_problem(SEED + 345, MG_TP_CTC, dev, min_frac=0.75)
+
+
+def mg_tp(rank, dev):
+    """The time-parallel loss (every rank the global lattice, its 2000
+    frames): the NLL and the gradient of the rank's frames (the parent
+    holds them against the unsharded K1/K2 and a float64 witness)."""
+    lp, tgt, il, tl = mg_tp_problem(dev)
+    lp.requires_grad_()
+    tc = lp.shape[0] // MG_RANKS
+    own = slice(rank * tc, (rank + 1) * tc)
+
+    def tp_step():
+        lp.grad = None
+        nll = ctc_nll_time_parallel(lp, tgt, il, tl)
+        nll.sum().backward()
+        return nll.detach()
+
+    nll, launches = counted(tp_step)
+    outside = not lp.grad[:own.start].any() and not lp.grad[own.stop:].any()
+    return {"tp_ctc": (nll.cpu(), lp.grad[own].cpu(), outside),
+            "tp_ctc_launches": launches, "tp_ctc_ms": mg_time(tp_step)}
+
+
+def check_tp(res, dev):
+    """The ranks' time-parallel NLL and gradients against the unsharded
+    K1/K2 loss and against the float64 plain scan (the witness): the
+    largest NLL error relative, the gradient's of the witness's max."""
+    lp, tgt, il, tl = mg_tp_problem(dev)
+    nll = res[0]["tp_ctc"][0]
+    if not all(torch.equal(x["tp_ctc"][0], nll) for x in res):
+        raise AssertionError("the ranks' time-parallel NLLs differ")
+    grad = torch.cat([x["tp_ctc"][1] for x in res])
+    out = {}
+    for name, x in (("k1k2", lp), ("f64", lp.double())):
+        x = x.detach().requires_grad_()
+        ref = ctc_nll(x, tgt, il, tl)
+        ref.sum().backward()
+        out[name] = (ref.detach().cpu().double(), x.grad.cpu().double())
+    wit_nll, wit_g = out["f64"]
+    scale = float(wit_g.abs().max())
+
+    def errs(n, g):
+        return (float(((n.double() - wit_nll).abs() / wit_nll.abs()).max()),
+                float((g.double() - wit_g).abs().max()) / scale)
+
+    got = {"tp_vs_f64": errs(nll, grad),
+           "k1k2_vs_f64": errs(*out["k1k2"]),
+           "tp_vs_k1k2": (float(((nll.double() - out["k1k2"][0]).abs()
+                                 / out["k1k2"][0].abs()).max()),
+                          float((grad.double() - out["k1k2"][1]).abs().max())
+                          / float(out["k1k2"][1].abs().max()))}
+    log(f"phase 34 the time-parallel loss (B={MG_TP_CTC[0]}, "
+        f"T={MG_TP_CTC[1]}, S={MG_TP_CTC[2]}, V={MG_TP_CTC[3]}; "
+        f"{MG_TP_CTC[1] // MG_RANKS} frames a rank), (NLL relative, "
+        f"gradient of the max): against the float64 scan "
+        f"{got['tp_vs_f64']}; the unsharded float32 K1/K2 against it "
+        f"{got['k1k2_vs_f64']}; the two against each other "
+        f"{got['tp_vs_k1k2']}")
+    if max(got["tp_vs_f64"]) > TP_CTC_TOL or got["tp_vs_k1k2"][0] > \
+            TP_CTC_TOL or not all(x["tp_ctc"][2] for x in res):
+        raise AssertionError(f"the time-parallel loss: {got}")
+    return got
+
+
+def mg_rank(rank, tmp):
+    """One rank of phase 34 (a spawned process on the one card): every
+    path's launches, checks and times to tmp/mg{rank}.pt."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
+                            world_size=MG_RANKS, rank=rank,
+                            timeout=TP_TIMEOUT)
+    try:
+        dev = torch.device("cuda", 0)
+        res = {"place": group_rank(), **mg_dp(rank, dev)}
+        torch.cuda.empty_cache()
+        res.update(mg_vp(rank, dev))
+        torch.cuda.empty_cache()
+        res.update(mg_tp(rank, dev))
+        res["jax_free"] = not any(
+            m.split(".")[0] in ("jax", "flax", "end2end_tpu")
+            for m in sys.modules)
+        torch.save(res, f"{tmp}/mg{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+MG_WANT = {  # the kernels each rank's path must launch, exactly
+    "dp_ctc_launches": {"ctc_alpha": 2, "ctc_beta": 1, "ctc_grad": 1},
+    "dp_rnnt_launches": {"rnnt_alpha": 2, "rnnt_posteriors": 1},
+    "vp_ctc_launches": {"ctc_alpha": 1, "ctc_beta": 1, "ctc_grad": 1},
+    "vp_prep_launches": {"topk": 2},
+    "vp_beam_launches": {"topk": 2, "beam_step": 1, "backtrace": 1},
+    "dp_greedy_launches": {}, "vp_greedy_launches": {},
+    "tp_ctc_launches": {},  # host loops over plain torch, no kernel
+}
+
+
+def multi_gpu_slice(dev):
+    """Phase 34: MG_RANKS gloo ranks on the one card run the data-,
+    vocabulary- and time-parallel paths; the decodes' rows against the
+    unsharded decodes here; then dryrun_multichip(4).  Returns the ranks'
+    results."""
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(mg_rank, args=(tmp,), nprocs=MG_RANKS, join=True)
+        wall = time.perf_counter() - t0
+        res = [torch.load(f"{tmp}/mg{r}.pt") for r in range(MG_RANKS)]
+    log(f"phase 34 {MG_RANKS} gloo ranks on one card, spawned and joined in "
+        f"{wall:.1f} s")
+    for r, x in enumerate(res):
+        if x["place"] != (r, MG_RANKS) or not x["jax_free"]:
+            raise AssertionError(f"rank {r}: place {x['place']}, JAX-free "
+                                 f"{x['jax_free']}")
+        dp_nll_eq, dp_g_eq, dp_nll_err, dp_g_err = x["dp_ctc"]
+        r_nll_eq, r_g_eq, r_nll_err, r_g_err = x["dp_rnnt"]
+        vp_nll_eq, vp_g_eq, vp_out, vp_nll_err, vp_g_err = x["vp_ctc"]
+        log(f"phase 34 rank {r}: DP CTC (config 2, {MG_DP_CTC[0] // MG_RANKS}"
+            f" rows) NLL bit-equal to the unsharded ctc_nll's rows "
+            f"{dp_nll_eq} (max diff {dp_nll_err:.3g}), gradient {dp_g_eq} "
+            f"({dp_g_err:.3g}); DP RNN-T (bench row) NLL {r_nll_eq} "
+            f"({r_nll_err:.3g}), gradient {r_g_eq} ({r_g_err:.3g}); DP greedy"
+            f" tokens and lengths equal {x['dp_greedy'][0]}, scores within "
+            f"{x['dp_greedy'][1]:.3g} relative; VP CTC (V={MG_VP_CTC[3]}) NLL "
+            f"bit-equal {vp_nll_eq} ({vp_nll_err:.3g}), its columns' "
+            f"gradient {vp_g_eq} ({vp_g_err:.3g}), zero elsewhere {vp_out}; "
+            f"VP prep == topk {x['vp_prep']}, VP beam-16 == "
+            f"beam_search_from_topk {x['vp_beam']}, VP greedy equal "
+            f"{x['vp_greedy']}; TP gradient zero outside its frames "
+            f"{x['tp_ctc'][2]}; launches DP CTC {x['dp_ctc_launches']}, "
+            f"DP RNN-T {x['dp_rnnt_launches']}, DP beam-4 "
+            f"{x['dp_rnnt_beam4_launches']}, VP CTC {x['vp_ctc_launches']}, "
+            f"VP beam {x['vp_beam_launches']}")
+        for key, want in MG_WANT.items():
+            if x[key] != want:
+                raise AssertionError(f"rank {r}: {key} {x[key]}, want {want}")
+        if not x["dp_rnnt_beam4_launches"].get("topk"):
+            raise AssertionError(f"rank {r}: K3 missed on the DP ALSD beam")
+        if not (vp_nll_eq and vp_g_eq and vp_out and x["vp_prep"]
+                and x["vp_beam"] and x["vp_greedy"] and x["dp_greedy"][0]
+                and x["dp_greedy"][1] <= DP_SCORE_RTOL):
+            raise AssertionError(f"rank {r}: a vocabulary-parallel path or "
+                                 "the DP greedy differs from unsharded")
+        if (not (dp_nll_eq and r_nll_eq)
+                or max(dp_g_err, r_g_err) > CTC_GRAD_TOL):
+            raise AssertionError(f"rank {r}: a data-parallel loss differs "
+                                 "from unsharded")
+    res[0]["tp_check"] = check_tp(res, dev)
+    enc, il, pred, h0, joint = bench_decoder(dev)
+    want = {"dp_rnnt_greedy": rnnt_greedy_decode(
+                enc, il, pred, h0, joint, max_symbols=S_CAP,
+                return_timestamps=True),
+            "dp_rnnt_beam4": rnnt_beam_decode(
+                enc, il, pred, h0, joint, beam_width=4, max_symbols=S_CAP,
+                return_timestamps=True)}
+    want["dp_rnnt_stream"] = want["dp_rnnt_beam4"]
+    for key, w in want.items():
+        got = [torch.cat(p).to(dev) for p in zip(*(x[key] for x in res))]
+        same_decode(got, w, f"phase 34 {key} (B={enc.shape[0]}, the ranks' "
+                            "rows) vs the unsharded decode")
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, tmpdir=cuda_build.BUILD_DIR)
+    log(f"phase 34 {dry['line']} ({time.perf_counter() - t0:.1f} s, "
+        f"ranks on {sorted({r['device'] for r in dry['ranks']})})")
+    if not all(r["device"].startswith("cuda") for r in dry["ranks"]):
+        raise AssertionError("a dry-run rank ran off the card")
+    return res
+
+
+def new_slice_timings(s_ocr, s_dense, mg):
+    """Phase 35: the OCR train step and beam-10 decode (ms, seq/s), K4 and
+    the backtrace at W=10 (device ms, bounds), the Dense transducer step,
+    and each multi-GPU path's step (the slowest rank, the median of its
+    runs) with the share in collectives.  Returns (ms, bounds)."""
+    b = OCR_ROW[0]
+    lp, ow = s_ocr["lp"], s_ocr["ow"]
+    ms = {"ocr_train_step_bench": time_ms(s_ocr["step"]),
+          "ocr_beam10_bench": time_ms(lambda: beam_search_decode(
+              lp, ow, beam_width=OCR_BEAM, prune_k=OCR_PRUNE))}
+    args, (bp, score), ck = s_ocr["args"], s_ocr["kern"][:2], s_ocr["ck"]
+    W, K, s_cap = args[4:7]
+    ms["beam_w10_bench"] = time_both(
+        "beam_w10_bench", lambda: beam_search_cuda.beam_step_cuda(*args))
+    ms["beam_w10_plain_bench"] = time_plain(
+        lambda: beam_search_cuda.beam_step_plain(*args))
+    ms["backtrace_w10_bench"] = time_both(
+        "backtrace_w10_bench", lambda: beam_search_cuda.backtrace_cuda(
+            bp, ck, score, W, K, s_cap))
+    ms["backtrace_w10_plain_bench"] = time_ms(
+        lambda: beam_search_cuda.backtrace_plain(bp, ck, score, W, K,
+                                                 s_cap))
+    bounds = {"beam_w10": beam_bound(args[0], args[3], W, K),
+              "backtrace_w10": backtrace_bound(
+                  bp, beam_search_cuda.backtrace_cuda(bp, ck, score, W, K,
+                                                      s_cap))}
+    ms["dense_transducer_step_b8_10s"] = time_ms(s_dense["step"])
+    log(f"phase 35 OCR (B={b}, T'={lp.shape[0]}, V={OCR_ROW[4]}): train "
+        f"step {ms['ocr_train_step_bench']:.3f} ms "
+        f"({b * 1e3 / ms['ocr_train_step_bench']:.1f} seq/s), beam-10 / "
+        f"prune 16 decode {ms['ocr_beam10_bench']:.3f} ms "
+        f"({b * 1e3 / ms['ocr_beam10_bench']:.1f} seq/s)")
+    for k in ("beam_w10", "backtrace_w10"):
+        log(f"phase 35 {k} (OCR row): {DEVICE_MS[k + '_bench'][0]:.4f} ms "
+            f"device ({DEVICE_MS[k + '_bench'][1]}), one call "
+            f"{ms[k + '_bench']:.4f}, plain twin "
+            f"{ms[k + '_plain_bench']:.3f}; bound {bounds[k][0]:.4f} ms "
+            f"({bounds[k][1]})")
+    log(f"phase 35 Dense-front-end transducer train step (B=8 x 10 s, "
+        f"T'=1000): {ms['dense_transducer_step_b8_10s']:.3f} ms")
+    for key in [k for k in mg[0] if k.endswith("_ms")]:
+        wall = max(x[key][0] for x in mg)
+        share = max(x[key][1] for x in mg)
+        ms[f"mg_{key[:-3]}"] = wall
+        log(f"phase 35 {key[:-3]} ({MG_RANKS} ranks sharing the card, the "
+            f"slowest rank): {wall:.3f} ms, collectives up to "
+            f"{100 * share:.1f}% of a rank's run")
+    return ms, bounds
+
+
 def main() -> None:
     # 1. the device
     if not torch.cuda.is_available():
@@ -3054,6 +3847,9 @@ def main() -> None:
     for line in topk_ref_ptxas:
         log(f"  ptxas (the parent K3) {line}")
     rng = np.random.default_rng(SEED)
+    # 34 runs here, before the other phases' tensors fill the card: its
+    # four ranks hold ~25 GB at the large-vocabulary row
+    mg = multi_gpu_slice(dev)
 
     # 4. top-k kernel vs plain and vs the parent K3 (the LM decode's B=128
     # shape and the beam-16 row's k from an rng of their own, which leaves
@@ -4002,6 +4798,19 @@ def main() -> None:
     s31 = transducer_decode_slice(dmodel, dmodel_cpu, xbatches[0], hlm_lps,
                                   dev)
     ms.update(transducer_decode_timings(dmodel, xbatches[0], s31))
+    # 33. the OCR recognizer and the Dense-front-end transducer; 34. the
+    # multi-GPU slice; 35. their timings
+    s_ocr = ocr_slice(np.random.default_rng(SEED + 33), dev)
+    s_dense = dense_transducer_slice(np.random.default_rng(SEED + 330), dev,
+                                     rnnt_ref_lib)
+    mg_ms, new_b = new_slice_timings(s_ocr, s_dense, mg)
+    ms.update(mg_ms)
+
+    def mg_launches(kernel):  # every rank's, every path's
+        return sum(n for x in mg for key, c in x.items()
+                   if key.endswith("_launches") for k, n in c.items()
+                   if k == kernel)
+
     log(json.dumps({"card": card, "ms": ms, "device_ms": DEVICE_MS}))
 
     beam_src = "end2end_tpu_torch/csrc/beam_step.cu"
@@ -4019,20 +4828,34 @@ def main() -> None:
         ("topk", "end2end_tpu_torch/csrc/topk.cu",
          "end2end_tpu/ops/topk_pallas.py:64",
          launches["topk"] + s31["launches"]["topk"]
-         + s31["mwer_launches"]["topk"], topk_err,
+         + s31["mwer_launches"]["topk"] + s_ocr["decode"]["topk"]
+         + mg_launches("topk"), topk_err,
          "topk_main", topk_b, "topk_library_main"),
-        ("beam_step", beam_src, f"{beam_tpu}:94", launches["beam_step"],
+        # + phase 33's OCR decode and phase 34's ranks' VP beams
+        ("beam_step", beam_src, f"{beam_tpu}:94", launches["beam_step"]
+         + s_ocr["decode"]["beam_step"] + mg_launches("beam_step"),
          beam_err, "beam_main", beam_b, None),
+        # the same kernel at W=10 on the OCR row (three sequences a warp
+        # in the backtrace): its launch is phase 33's decode
+        ("beam_step_w10", beam_src, f"{beam_tpu}:94",
+         s_ocr["decode"]["beam_step"], s_ocr["beam_err"], "beam_w10_bench",
+         new_b["beam_w10"], None),
         # outside Pallas on the TPU: the backtrace's lane-map composition
         # and compaction, and the chunked decode's (one chunk's) scan
-        ("backtrace", walk_src, f"{beam_tpu}:442", launches["backtrace"],
+        ("backtrace", walk_src, f"{beam_tpu}:442", launches["backtrace"]
+         + s_ocr["decode"]["backtrace"] + mg_launches("backtrace"),
          bt_err, "backtrace_main", bt_b, None),
+        ("backtrace_w10", walk_src, f"{beam_tpu}:442",
+         s_ocr["decode"]["backtrace"], s_ocr["err"], "backtrace_w10_bench",
+         new_b["backtrace_w10"], None),
         ("ctc_alpha", ctc_src, "end2end_tpu/ops/ctc_loss_pallas.py:115",
-         train_launches["ctc_alpha"], ctc_err[0], "ctc_alpha_main", ctc_b[0],
+         train_launches["ctc_alpha"] + s_ocr["train"]["ctc_alpha"]
+         + mg_launches("ctc_alpha"), ctc_err[0], "ctc_alpha_main", ctc_b[0],
          "ctc_library_fwd_main"),
         # library: F.ctc_loss backward alone, the yardstick of K2 + combine
         ("ctc_beta", ctc_src, "end2end_tpu/ops/ctc_loss_pallas.py:174",
-         train_launches["ctc_beta"], ctc_err[1], "ctc_beta_main", ctc_b[1],
+         train_launches["ctc_beta"] + s_ocr["train"]["ctc_beta"]
+         + mg_launches("ctc_beta"), ctc_err[1], "ctc_beta_main", ctc_b[1],
          "ctc_library_bwd_main"),
         ("beam_step_lm", beam_src, f"{beam_tpu}:202",
          lm_launches["launches_lm"], k5_err, "beam_lm_main", lm_b, None),
@@ -4049,11 +4872,16 @@ def main() -> None:
         # launches: phase 16's training and phase 31's MWER step
         ("rnnt_alpha", rnnt_src, f"{rnnt_tpu}:108",
          rnnt_launches["rnnt_alpha"]
-         + s31["mwer_launches"]["rnnt_alpha"], rnnt_err[0],
+         + s31["mwer_launches"]["rnnt_alpha"]
+         + s_dense["launches"]["rnnt_alpha"] + mg_launches("rnnt_alpha"),
+         max(rnnt_err[0], s_dense["errs"][0]),
          "rnnt_alpha_main", rnnt_b[0], None),
         ("rnnt_posteriors", rnnt_src, f"{rnnt_tpu}:194",
          rnnt_launches["rnnt_posteriors"]
-         + s31["mwer_launches"]["rnnt_posteriors"], rnnt_err[1],
+         + s31["mwer_launches"]["rnnt_posteriors"]
+         + s_dense["launches"]["rnnt_posteriors"]
+         + mg_launches("rnnt_posteriors"),
+         max(rnnt_err[1], s_dense["errs"][1]),
          "rnnt_posteriors_main", rnnt_b[1], None),
         ("rnnt_joint_fwd", joint_src, f"{joint_tpu}:78",
          joint_launches["joint_fwd"], joint_err[0], "joint_fwd_bench",
@@ -4075,7 +4903,8 @@ def main() -> None:
          tp_launches["joint_dw_tp"], tp_err[2], "joint_dw_tp_bench",
          tp_b["dw"], "joint_dw_tp_library_bench"),
         ("ctc_grad", ctc_src, "end2end_tpu/ops/ctc_loss_xla.py:196",
-         train_launches["ctc_grad"], combine_err, "ctc_grad_main",
+         train_launches["ctc_grad"] + s_ocr["train"]["ctc_grad"]
+         + mg_launches("ctc_grad"), combine_err, "ctc_grad_main",
          ctc_grad_b, None),
         # outside Pallas on the TPU: the Viterbi forward and backtrace
         # scans; torch has no forced alignment (nor torchaudio here)

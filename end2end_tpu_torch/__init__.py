@@ -15,7 +15,10 @@ log-probs or planes, over a chunked never-materialised joint, and through
 the online-softmax fused joint `rnnt_nll_fused_pallas`), and the fused
 joint with its output projection vocabulary-sharded over a
 torch.distributed group (`rnnt_nll_fused_pallas_vocab_parallel` and the
-float32 `rnnt_nll_fused_vocab_parallel`).  On CUDA tensors the CTC loss
+float32 `rnnt_nll_fused_vocab_parallel`).  `models.ocr` holds the OCR
+text-line recognizer; `parallel` the data-, vocabulary- and
+time-parallel CTC and transducer losses and decoders and the multi-GPU
+dry run.  On CUDA tensors the CTC loss
 runs two hand-written kernels (csrc/ctc_loss.cu), the beam search three
 more (csrc/topk.cu, csrc/beam_step.cu, whose beam kernel has the LM
 modes, and csrc/backtrace.cu), the forced alignment one

@@ -9,7 +9,9 @@ the same logits:
     gets uniform weights instead of NaN (NaN * 0 would survive the
     re-masking of padded frames);
   * the subsampler convolves (N, 1, T, F) with explicit padding 1 and
-    flattens (f, c) with f major, as flax's NHWC layout does.
+    flattens (f, c) with f major, as flax's NHWC layout does;
+  * with subsample=False the front end is one Linear (flax's Dense) over
+    the features, frame for frame: out lengths are the input lengths.
 Per-sample lengths are masks: padded frames never change valid outputs.
 """
 
@@ -142,9 +144,30 @@ def sinusoidal_positions(t_max: int, d: int) -> np.ndarray:
     return pe
 
 
+@torch.no_grad()
+def init_like_flax(module: nn.Module,
+                   generator: torch.Generator | None = None) -> None:
+    """flax's default initialisation, drawn from `generator` (a fresh one
+    seeded 0 when None) on the CPU: LeCun-normal weights, zero biases,
+    unit LayerNorm scales."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    for m in module.modules():
+        if isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+            fan_in = m.weight[0].numel()
+            w = torch.randn(m.weight.shape, generator=generator)
+            m.weight.copy_(w / math.sqrt(fan_in))
+            m.bias.zero_()
+
+
 class ConformerEncoder(nn.Module):
     """Log-mel features (N, T, F) + lengths -> CTC logits (N, T', V) and
-    out lengths (N,).  vocab_size includes the blank.
+    out lengths (N,).  vocab_size includes the blank.  The front end is
+    the 4x `ConvSubsampling` (`subsample`), or with subsample=False one
+    Linear from the features to d_model (`input_proj`, T' = T).
 
     Parameters are drawn from `generator` (a fresh one seeded 0 when None):
     LeCun-normal weights, zero biases, unit LayerNorm scales, as flax's
@@ -155,12 +178,17 @@ class ConformerEncoder(nn.Module):
 
     def __init__(self, vocab_size: int, d_model: int = 256,
                  num_layers: int = 4, num_heads: int = 4,
-                 conv_kernel: int = 15, n_mels: int = 80, *, device=None,
+                 conv_kernel: int = 15, n_mels: int = 80,
+                 subsample: bool = True, *, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.d_model = d_model
         with torch.device("meta"):  # allocate once, on `device`, below
-            self.subsample = ConvSubsampling(d_model, n_mels)
+            if subsample:
+                self.subsample = ConvSubsampling(d_model, n_mels)
+            else:
+                self.subsample = None
+                self.input_proj = nn.Linear(n_mels, d_model)
             self.blocks = nn.ModuleList(
                 ConformerBlock(d_model, num_heads, conv_kernel)
                 for _ in range(num_layers))
@@ -168,25 +196,17 @@ class ConformerEncoder(nn.Module):
         self.to_empty(device=resolve_device(device))
         self.reset_parameters(generator)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        for m in self.modules():
-            if isinstance(m, nn.LayerNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-            elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
-                fan_in = m.weight[0].numel()
-                w = torch.randn(m.weight.shape, generator=generator)
-                m.weight.copy_(w / math.sqrt(fan_in))
-                m.bias.zero_()
+        init_like_flax(self, generator)
 
     def forward(self, feats, lengths):
         lengths = lengths.to(feats.device)
         feats = feats * _length_mask(lengths, feats.shape[1])[..., None]
-        x = self.subsample(feats, lengths)
-        out_len = ConvSubsampling.out_length(lengths)
+        if self.subsample is not None:
+            x = self.subsample(feats, lengths)
+            out_len = ConvSubsampling.out_length(lengths)
+        else:
+            x, out_len = self.input_proj(feats), lengths
         t_max = x.shape[1]
         pe = torch.from_numpy(sinusoidal_positions(t_max, self.d_model))
         x = x + pe.to(x.device)

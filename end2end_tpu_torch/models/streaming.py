@@ -198,7 +198,8 @@ def _rnnt_encoded_chunks(model, feats, chunk_frames: int = 400,
         raise ValueError("overlap must be smaller than the chunk")
     t_f = feats.shape[0]
     n = max(1, int(np.ceil(max(t_f - overlap_frames, 1) / hop)))
-    ov_out = int(ConvSubsampling.out_length(overlap_frames))
+    ov_out = (int(ConvSubsampling.out_length(overlap_frames))
+              if model.config.subsample else overlap_frames)
     lo_trim, hi_trim = ov_out // 2, ov_out - ov_out // 2
     for i in range(n):
         piece = feats[i * hop: i * hop + chunk_frames]

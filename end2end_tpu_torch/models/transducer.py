@@ -64,16 +64,13 @@ class ConformerTransducer(nn.Module):
     def __init__(self, config: TransducerConfig = TransducerConfig(), *,
                  device=None, seed: int = 0):
         super().__init__()
-        if not config.subsample:
-            raise NotImplementedError(
-                "subsample=False (a Dense front end) is not ported yet "
-                "(ROADMAP.md queue 1, item 8)")
         c = self.config = config
         dev = resolve_device(device)
         self.encoder = ConformerEncoder(
             vocab_size=c.enc_dim, d_model=c.d_model,
             num_layers=c.num_layers, num_heads=c.num_heads,
-            conv_kernel=c.conv_kernel, n_mels=c.n_mels, device=dev,
+            conv_kernel=c.conv_kernel, n_mels=c.n_mels,
+            subsample=c.subsample, device=dev,
             generator=torch.Generator().manual_seed(seed))
         rng = np.random.default_rng(seed)
         self.pred = _params(random_gru_params(

@@ -15,7 +15,13 @@ a replicated value is already the full one.  Hence:
   * `copy_to_group(x)`: identity forward, all-reduce SUM backward (a
     replicated input each rank reads whole but whose gradient each rank
     holds only its shard's part of);
-  * `all_reduce_max(x)`: all-reduce MAX with no gradient (a stabiliser).
+  * `all_reduce_max(x)`: all-reduce MAX with no gradient (a stabiliser);
+  * `sum_owned(x)`: the SUM of x over the group where each element has
+    one owner and the others hold zeros, bit for bit (the sum runs on
+    the floats' bits as integers, so x + 0 + .. + 0 keeps a -0), with no
+    gradient: assembles replicated values from their shards;
+  * `all_gather_stack(x)`: every rank's x stacked in rank order on a new
+    leading axis, with no gradient (an all-gather moves bits, exactly).
 
 A gloo group takes CUDA tensors (it stages them through host memory
 itself), so the same calls serve ranks that share one card.
@@ -27,16 +33,22 @@ import torch
 import torch.distributed as dist
 
 
-def vocab_shard(v: int, group=None):
-    """(rank, V/D): this process's place in `group` (the default group when
-    None) and the width of its vocabulary shard, columns
-    [rank V/D, (rank+1) V/D).  Raises unless torch.distributed is
-    initialised and D divides V."""
+def group_rank(group=None):
+    """(rank, D): this process's place in `group` (the default group when
+    None) and the group's size -- the counterpart of JAX's `make_mesh`.
+    Raises unless torch.distributed is initialised."""
     if not (dist.is_available() and dist.is_initialized()):
-        raise RuntimeError("the vocabulary-parallel losses need an "
-                           "initialised torch.distributed process group "
+        raise RuntimeError("the parallel entry points need an initialised "
+                           "torch.distributed process group "
                            "(torch.distributed.init_process_group)")
-    d, rank = dist.get_world_size(group), dist.get_rank(group)
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def vocab_shard(v: int, group=None):
+    """(rank, V/D): this process's place in `group` and the width of its
+    vocabulary shard, columns [rank V/D, (rank+1) V/D).  Raises unless
+    torch.distributed is initialised and D divides V."""
+    rank, d = group_rank(group)
     if v % d:
         raise ValueError(f"V={v} does not divide evenly over the group's {d}"
                          " ranks (pad w_out and b_out with columns whose "
@@ -50,6 +62,24 @@ def all_reduce_max(x, group=None):
     out = x.detach().clone()
     dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
+
+
+def sum_owned(x, group=None):
+    """x summed over the group on its bits (module docstring); float32 and
+    float64 tensors, a new tensor, no gradient."""
+    ints = {4: torch.int32, 8: torch.int64}[x.element_size()]
+    out = x.detach().contiguous().clone()
+    dist.all_reduce(out.view(ints), op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def all_gather_stack(x, group=None):
+    """(D, *x.shape): every rank's x in rank order (a new tensor, no
+    gradient)."""
+    x = x.detach().contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.stack(parts)
 
 
 class _ReduceFromGroup(torch.autograd.Function):

@@ -1163,3 +1163,110 @@ def test_mwer_loss_on_the_card_matches_the_cpu(dev):
     assert abs(lg - lc) <= 1e-5 * max(abs(lc), 1e-3)
     assert float((gg - gc).abs().max()) <= 1e-5
 
+
+
+# --------------------------------------------------------------------------
+# beam widths that do not divide the warp (the OCR decoder's beam 10), and
+# the vocabulary-parallel prep on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["K4", "K5", "K7"])
+@pytest.mark.parametrize("K", [16, 32])
+@pytest.mark.parametrize("W", [10, 12])
+def test_beam_kernel_odd_widths_bit_equal_to_plain(dev, W, K, mode):
+    """The beam step at W = 10 and 12 (the OCR decoder's beam 10) against
+    its plain twin on the card: codes, scores and state bit for bit."""
+    args, kw = _beam_case(W * 977 + K, W, K, mode, dev)
+    got = beam_search_cuda.beam_step(*args, **kw)
+    _assert_beam_bits(got, beam_search_cuda.beam_step_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("W,n,t,s_cap", [(10, 64, 256, 256), (10, 5, 37, 9),
+                                         (12, 37, 300, 40), (12, 3, 1, 1)])
+def test_backtrace_and_lane_walk_odd_widths(dev, W, n, t, s_cap):
+    """The backtrace and lane-walk kernels at W = 10 and 12 (three and two
+    sequences a warp, two and eight idle lanes) against their plain twins:
+    every output bit for bit."""
+    K = 16
+    rng = np.random.default_rng(W * 131 + n * 7 + t)
+    bp = rng.integers(0, W + W * K, (t, W, n))
+    bp = np.where(rng.random((t, W, n)) < 0.6, np.arange(W)[None, :, None],
+                  bp).astype(np.int32)
+    ck = rng.integers(0, 1024, (t, n, K + 8)).astype(np.int32)
+    scores = (rng.standard_normal((W, n)) * 10).astype(np.float32)
+    scores[rng.random((W, n)) < 0.3] = -1e30
+    args = [torch.from_numpy(a) for a in (bp, ck, scores)]
+    got = beam_search_cuda.backtrace(*(a.to(dev) for a in args), W, K,
+                                     s_cap)
+    want = beam_search_cuda.backtrace_plain(*args, W, K, s_cap)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(
+            a.cpu().view(torch.int32), b.view(torch.int32))
+    got = beam_search_cuda.lane_walk(bp_d := args[0].to(dev),
+                                     args[1][..., :K].contiguous().to(dev),
+                                     W, K)
+    want = beam_search_cuda.lane_walk_plain(bp_d, args[1][..., :K]
+                                            .contiguous().to(dev), W, K)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+VP_PREP_CASES = {  # name: (T, B, V, K); coarse grids give exact ties
+    "beam16": (50, 8, 1024, 32), "ocr": (40, 6, 96, 16),
+    "large": (6, 3, 32768, 40)}
+
+
+def _vp_lattice(name):
+    t, b, v, _ = VP_PREP_CASES[name]
+    rng = np.random.default_rng(len(name) * 101 + v)
+    lp = -rng.integers(0, 40, (t, b, v)) / 4.0
+    lp[rng.random((t, b, v)) < 0.01] = -0.0
+    return torch.from_numpy(lp.astype(np.float32))
+
+
+def _vp_prep_rank(rank, tmp):
+    import torch.distributed as dist
+
+    from end2end_tpu_torch.parallel import beam_topk_prep_vocab_parallel
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
+                            world_size=4, rank=rank)
+    try:
+        out = {}
+        for name, (_, _, _, k) in VP_PREP_CASES.items():
+            prep = beam_topk_prep_vocab_parallel(_vp_lattice(name).cuda(),
+                                                 None, k)
+            out[name] = [x.cpu() for x in prep]
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def vp_prep_ranks(tmp_path_factory):
+    """Every case's prep on 4 gloo ranks sharing the card (one spawn)."""
+    import torch.multiprocessing as mp
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    cuda_build.library()  # built before any rank exists
+    tmp = tmp_path_factory.mktemp("vp_prep")
+    mp.spawn(_vp_prep_rank, args=(str(tmp),), nprocs=4, join=True)
+    return [torch.load(tmp / f"rank{r}.pt") for r in range(4)]
+
+
+@pytest.mark.parametrize("name", list(VP_PREP_CASES))
+def test_vp_prep_is_the_global_topk_on_the_card(dev, vp_prep_ranks, name):
+    """Each shard's K3 top-k, gathered in rank order and merged by K3
+    again, against K3 on the whole lattice: values (with -0.0), ids and
+    tie order bit for bit, on every rank; the blank's column too."""
+    lp = _vp_lattice(name).to(dev)
+    k = VP_PREP_CASES[name][3]
+    want = [x.cpu() for x in topk_cuda.topk_cuda(lp, k)]
+    for r, res in enumerate(vp_prep_ranks):
+        lpk, ck, lpb = res[name]
+        assert torch.equal(lpk.view(torch.int32), want[0].view(torch.int32))
+        assert torch.equal(ck, want[1]), r
+        assert torch.equal(lpb.view(torch.int32),
+                           lp[:, :, 0].cpu().view(torch.int32))
