@@ -3,8 +3,9 @@ transducer and the fused transducer joint; forced alignment and MWER
 fine-tuning; LM fusion with hashed, composite and neural LMs; transducer
 beam, streaming and long-form decoding; the OCR recognizer and the
 Dense-front-end transducer; data-, vocabulary- and time-parallel losses
-and decoders over processes sharing the card) once on one GPU and check
-them.
+and decoders over processes sharing the card; tracing, checkpoints, the
+C++ host runtime, the float64 oracles and the examples) once on one GPU
+and check them.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -334,7 +335,40 @@ Phases (every failure raises, so the exit code is nonzero):
      (ms, seq/s), K4 and the backtrace at W=10 in device time with their
      bounds, the Dense-front-end transducer step, and each phase-34 path's
      run (the slowest rank, the median of 3 or one run) with the share of
-     it spent in collectives (all-reduces and all-gathers).
+     it spent in collectives (all-reduces and all-gathers);
+ 36. the utilities: phase 3 builds the kernels and the C++ host runtime
+     (g++) inside `utils.profiling.log_compiles`, whose lines must name
+     both libraries; under `utils.profiling.trace` phase 6's pipeline
+     runs one beam-8 / prune-16 decode of phase 6's batch 0 and one CTC
+     loss with its backward (phase 9's targets): the written Chrome trace
+     must show K1, K2, the combine, K3, K4 and the backtrace with device
+     time (the five longest device operations and the device's idle share
+     of the window logged); a fresh full-width pipeline takes 3 AdamW
+     steps, `save_checkpoint` writes it with AdamW's state and
+     `restore_checkpoint` reads both into a freshly built pipeline and
+     AdamW on the card: the greedy and beam-8 decodes bit-equal, then one
+     more step's parameters bit-equal (cuDNN deterministic); the host
+     runtime must have built: on the serving lattice against
+     `native.beam_search_cpu` on its host copy, K4 at prune 16 and K5 (a
+     seeded bigram) at prune 24, where its K + 8 repeat window holds all
+     32 symbols, and the per-frame scan with the bigram at prune 16 (K4's
+     best hypotheses equal for every sequence; with the LM a sequence
+     whose best differs must have parted from the host decoder where the
+     beams each keeps tie on their search scores at the beam's edge; the
+     equal ones' scores within 1e-4 and 1e-3; K5's agreement at prune 16
+     logged), and
+     `load_arpa` / `parse_arpa_order` with the native parser equal to the
+     Python one on phase 29's Kneser-Ney trigram as ARPA text; the
+     kernels against the port's float64 oracles: K1/K2 and the combine
+     through `ctc_nll` against `ctc_loss_ref` (B=4, T=200, S=40, V=32),
+     K8/K9 through `rnnt_nll` against `rnnt_logits_grad_ref` (B=2, T=64,
+     U=16, V=32), K4 at prune = V against `beam_search_decode_ref` (B=4,
+     T=50, V=8, W=4), each error printed beside its tolerance; the
+     serving pipeline's seq/s over 20 beam-8 decodes by
+     `utils.profiling.Throughput`; and the five examples
+     (`python -m end2end_tpu_torch.examples.<name>`), started together,
+     each a process on the card, must exit 0 (steps 25, serving_demo its
+     15).  Its launches join every kernel row's.
 Every kernel row and library yardstick is also timed on the device alone
 (`device_ms`: calls captured in a CUDA graph and replayed between one
 pair of events; torch.profiler's kernel time where a call cannot be
@@ -357,12 +391,15 @@ import concurrent.futures
 import copy
 import datetime
 import json
+import logging
+import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
 from functools import partial
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -409,7 +446,7 @@ from end2end_tpu_torch.ops.lm import (CompositeLM, HashedNGramLM,
 from end2end_tpu_torch.ops.neural_lm import (NeuralLM, gru_step,
                                              random_gru_params)
 from end2end_tpu_torch.ops.rescore import rescore_nbest
-from end2end_tpu_torch.utils.lm_train import train_ngram_lm
+from end2end_tpu_torch.utils.lm_train import render_arpa, train_ngram_lm
 from end2end_tpu_torch.tools import (beam_step_breakdown, ctc_alpha_breakdown,
                                      ctc_beta_breakdown, joint_fwd_breakdown,
                                      rnnt_wavefront_breakdown, topk_breakdown)
@@ -428,8 +465,14 @@ from end2end_tpu_torch.parallel import (DataParallelStreamingRNNT,
                                         rnnt_greedy_decode_data_parallel,
                                         rnnt_loss_data_parallel, shard_batch)
 from end2end_tpu_torch.parallel.dryrun import dryrun_multichip
-from end2end_tpu_torch.utils import cuda_build
+from end2end_tpu_torch.utils import cuda_build, native, profiling
+from end2end_tpu_torch.utils.arpa import load_arpa, parse_arpa_order
+from end2end_tpu_torch.utils.checkpoint import (restore_checkpoint,
+                                                save_checkpoint)
 from end2end_tpu_torch.utils.metrics import batch_edit_distance
+from end2end_tpu_torch.utils.reference_impl import (beam_search_decode_ref,
+                                                    ctc_loss_ref)
+from end2end_tpu_torch.utils.rnnt_reference import rnnt_logits_grad_ref
 from end2end_tpu_torch.utils.subtitles import group_word_spans, to_srt
 from end2end_tpu_torch.utils.text import asr_alphabet
 
@@ -2445,7 +2488,7 @@ def hashed_lm_slice(lps, v, dev):
         f"per-frame scan on batch 0: card == CPU, max score err "
         f"{kn_err:.3g}; the scan took {t_card:.2f} s on the card")
     return {"launches": counts, "err": max(err, kn_err), "lm": lm,
-            "guide": guide, "kw": kw}
+            "guide": guide, "kw": kw, "kn": (order, ngrams, vocab)}
 
 
 def hashed_lm_timings(dev, slice29, lps):
@@ -3387,22 +3430,35 @@ def mg_time(fn, reps=3):
     return sorted(runs)[len(runs) // 2]
 
 
-def kernel_counts():
+def all_counts():
+    """Every launch counter of the port's kernels, by kernel row name."""
+    beam = beam_counts()
     return {**ctc_loss_cuda.launches, **rnnt_loss_cuda.launches,
-            "topk": topk_cuda.launches, "beam_step": beam_search_cuda.launches,
-            "backtrace": beam_search_cuda.launches_backtrace}
+            **rnnt_joint_cuda.launches, "topk": topk_cuda.launches,
+            "beam_step": beam["launches"], "beam_step_lm": beam["launches_lm"],
+            "beam_step_cls": beam["launches_cls"],
+            "beam_step_resume": beam["launches_resume"],
+            "backtrace": beam["launches_backtrace"],
+            "lane_walk": beam["launches_walk"], "ctc_align":
+            alignment.launches}
+
+
+def zero_all_counts():
+    zero_ctc_counts()
+    for c in (rnnt_loss_cuda.launches, rnnt_joint_cuda.launches):
+        for k in c:
+            c[k] = 0
+    reset_counts()
+    alignment.launches = 0
 
 
 def counted(fn):
     """(fn(), the kernels it launched, those that ran)."""
     torch.cuda.synchronize()
-    zero_ctc_counts()
-    for k in rnnt_loss_cuda.launches:
-        rnnt_loss_cuda.launches[k] = 0
-    reset_counts()
+    zero_all_counts()
     out = fn()
     torch.cuda.synchronize()
-    return out, {k: n for k, n in kernel_counts().items() if n}
+    return out, {k: n for k, n in all_counts().items() if n}
 
 
 def mg_ctc_problem(seed, shape, dev, min_frac=0.5):
@@ -3791,6 +3847,491 @@ def new_slice_timings(s_ocr, s_dense, mg):
     return ms, bounds
 
 
+# --------------------------------------------------------------------------
+# 36: the last slice's utilities on the card: a trace of the serving and
+# training paths, the build log, a checkpoint round trip, the C++ host
+# runtime, the float64 oracles, the examples and a throughput meter
+# --------------------------------------------------------------------------
+
+# the kernels a traced beam-8 decode and CTC loss + backward must show with
+# device time: label -> a piece of the kernel's symbol
+TRACE_KERNELS = {"K1": "ctc_alpha_kernel", "K2": "ctc_beta_kernel",
+                 "combine": "ctc_grad_kernel", "K3": "topk_",
+                 "K4": "beam_step_kernel", "backtrace": "backtrace_kernel"}
+# K4 and K5 against the C++ host decoder on the serving lattice: the best
+# hypotheses equal, their scores within tests/test_torch_beam_native.py's
+# tolerances (absolute and relative; float32 sums of 750 frames in other
+# orders, and with the LM's terms)
+NATIVE_TOL = {"K4": 1e-4, "K5": 1e-3}
+# the float32 kernels against the float64 oracles, (rtol, atol): the CTC
+# loss and gradient to tests/test_ctc_loss_xla.py's float32 bar (the JAX
+# scan against torch's loss, whose float64 twin tests/test_reference_impl.py
+# holds the oracle to), the RNN-T NLL and logits gradient to
+# tests/test_rnnt.py's, the beam sets' scores to tests/test_beam_pallas.py's
+ORACLE_TOL = {"ctc loss": (1e-5, 1e-4), "ctc grad": (1e-3, 3e-4),
+              "rnnt nll": (4e-6, 1e-4), "rnnt grad": (0.0, 1e-4),
+              "beam scores": (2e-4, 5e-4)}
+# the JAX package's examples' step counts in tests/test_examples.py
+EXAMPLE_STEPS = {"alignment_demo": None, "asr_demo": 25, "ocr_demo": 25,
+                 "lm_decode_demo": 25, "serving_demo": None}
+
+
+class BuildLog(logging.Handler):
+    """The lines `log_compiles` logs, kept to be printed and checked."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def check_close(got, want, tol, what):
+    """max |got - want| with every element within atol + rtol |want|
+    (infinities equal), else raise; returns the largest error."""
+    rtol, atol = tol
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    inf = ~np.isfinite(want)
+    if not np.array_equal(got[inf], want[inf]):
+        raise AssertionError(f"phase 36 {what}: the infinities differ")
+    err = np.abs(got[~inf] - want[~inf])
+    if np.any(err > atol + rtol * np.abs(want[~inf])):
+        raise AssertionError(f"phase 36 {what}: error {err.max():.3g} "
+                             f"beyond rtol {rtol}, atol {atol}")
+    return float(err.max()) if err.size else 0.0
+
+
+def traced_serving(pipe, batch, logdir):
+    """One beam-8 / prune-16 decode and one CTC loss with its backward
+    through the serving pipeline under `profiling.trace`: the written
+    Chrome trace must show each of TRACE_KERNELS with device time; logs
+    the five longest device operations and the device's idle share of the
+    traced window."""
+    wav, ns, tgt, tl = batch
+    t0 = time.perf_counter()
+    with profiling.trace(logdir):
+        pipe.decode(wav, ns, beam_width=8, prune_k=16)
+        pipe.loss(wav, ns, tgt, tl).backward()
+    seconds = time.perf_counter() - t0
+    files = sorted(Path(logdir).glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"phase 36 trace: {len(files)} trace files")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    device = sorted((e for e in spans if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")), key=lambda e: e["ts"])
+    per_op = {}
+    for e in device:
+        row = per_op.setdefault(e["name"], [0.0, 0])
+        row[0] += e["dur"]
+        row[1] += 1
+    found = {}
+    for label, piece in TRACE_KERNELS.items():
+        found[label] = sum(us for name, (us, _) in per_op.items()
+                           if piece in name)
+        if found[label] <= 0:
+            raise AssertionError(f"phase 36 trace: {label} ({piece}) has no "
+                                 f"device time in {files[0].name}")
+    lo = min(e["ts"] for e in spans)
+    hi = max(e["ts"] + e["dur"] for e in spans)
+    busy, end = 0.0, lo
+    for e in device:  # the union of the device's intervals
+        a, b = max(e["ts"], end), e["ts"] + e["dur"]
+        if b > a:
+            busy += b - a
+        end = max(end, b)
+    top = sorted(per_op.items(), key=lambda kv: -kv[1][0])[:5]
+    log(f"phase 36 trace: a beam-8 decode and a loss + backward (phase "
+        f"6's batch 0, phase 9's targets) under trace() in "
+        f"{seconds:.2f} s, {files[0].name} ({files[0].stat().st_size:,} B, "
+        f"{len(events):,} events, {sum(r[1] for r in per_op.values()):,} "
+        f"device operations); the traced kernels' device ms: "
+        + ", ".join(f"{k} {v / 1e3:.4f}" for k, v in found.items()))
+    for name, (us, n) in top:
+        log(f"phase 36 trace top device op: {us / 1e3:.4f} ms in {n} "
+            f"({name[:90]})")
+    idle = 1 - busy / (hi - lo)
+    log(f"phase 36 trace: the device busy {busy / 1e3:.3f} ms of the "
+        f"{(hi - lo) / 1e3:.3f} ms traced window, idle {idle:.3f}")
+    return {"kernel_ms": {k: v / 1e3 for k, v in found.items()},
+            "idle": idle, "window_ms": (hi - lo) / 1e3}
+
+
+def checkpoint_round_trip(cfg, dev, tbatches, batch, tmp):
+    """A full-width pipeline trained 3 AdamW steps, saved with its
+    optimizer and restored into a freshly built pipeline and optimizer on
+    the card: the greedy and beam-8 decodes bit-equal, then one more step
+    bit-equal.  cuDNN's deterministic algorithms are asked for, as bit
+    equality of two training steps needs."""
+    def build(seed):
+        return ConformerCTCPipeline(
+            cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+
+    def step(pipe, opt, b):
+        opt.zero_grad()
+        pipe.loss(*b).backward()
+        opt.step()
+
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        a = build(SEED + 36)
+        opt_a = torch.optim.AdamW(a.parameters(), lr=1e-3, weight_decay=1e-4)
+        for b in tbatches:
+            step(a, opt_a, b)
+        path = str(Path(tmp) / "pipeline.ckpt")
+        t0 = time.perf_counter()
+        save_checkpoint(path, {"model": a.state_dict(),
+                               "opt": opt_a.state_dict()})
+        save_s = time.perf_counter() - t0
+        fresh = build(SEED + 37)
+        opt_f = torch.optim.AdamW(fresh.parameters(), lr=1e-3,
+                                  weight_decay=1e-4)
+        for p in fresh.parameters():  # AdamW's state exists after a step
+            p.grad = torch.zeros_like(p)
+        opt_f.step()
+        like = {"model": fresh.state_dict(), "opt": opt_f.state_dict()}
+        t0 = time.perf_counter()
+        state = restore_checkpoint(path, like)
+        restore_s = time.perf_counter() - t0
+        if any(v.device != dev for v in state["model"].values()):
+            raise AssertionError("phase 36 checkpoint: a weight restored "
+                                 "off the card")
+        fresh.load_state_dict(state["model"])
+        opt_f.load_state_dict(state["opt"])
+        wav, ns = batch
+        for kw in (dict(beam_width=0), dict(beam_width=8, prune_k=16)):
+            got, want = fresh.decode(wav, ns, **kw), a.decode(wav, ns, **kw)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"phase 36 checkpoint: the decode "
+                                     f"{kw} differs after the restore")
+        step(a, opt_a, tbatches[0])
+        step(fresh, opt_f, tbatches[0])
+        differ = sum(not torch.equal(p, q) for p, q in
+                     zip(a.parameters(), fresh.parameters()))
+        if differ:
+            raise AssertionError(f"phase 36 checkpoint: {differ} parameters "
+                                 "differ after one more AdamW step")
+    finally:
+        torch.backends.cudnn.deterministic = was
+    n_params = sum(p.numel() for p in a.parameters())
+    log(f"phase 36 checkpoint: 3 AdamW steps at full width ({n_params:,} "
+        f"parameters), save_checkpoint {save_s:.3f} s "
+        f"({Path(path).stat().st_size:,} B with AdamW's state), "
+        f"restore_checkpoint into a fresh pipeline and AdamW {restore_s:.3f} "
+        f"s; greedy and beam-8 decodes bit-equal, one more step bit-equal")
+    return {"save_s": save_s, "restore_s": restore_s}
+
+
+def best_agree_native(kern, nat):
+    """Which sequences' best hypotheses (beam 0) of a device decode and of
+    `native.beam_search_cpu` are equal, and the best scores of both."""
+    kt, kl, ks = (x[:, 0].cpu().numpy() for x in kern)
+    nt, nl, ns_ = (x[:, 0] for x in nat)
+    same = np.array([kl[n] == nl[n] and np.array_equal(kt[n, :kl[n]],
+                                                       nt[n, :nl[n]])
+                     for n in range(len(kl))])
+    return same, ks, ns_, int(kl.sum())
+
+
+def tie_at_divergence(device_decode, host_decode, lp1, t_len, eos):
+    """Where a device decode and the host decoder of one sequence `lp1`
+    (T, 1, V) with the bigram LM part: the first frame count t after which
+    their beams (the sets and the scores, to 1e-5 relative) differ, by a
+    binary search over decodes of the first t frames.  There the sets must
+    differ, and the beams one side keeps and the other drops must tie on
+    their search scores (the final score less alpha * eos[last], the LM's
+    end term) to 1e-5 relative: two decoders that break an exact tie at
+    the beam's edge differently carry other beams, and other masses, from
+    there on.  Returns (t, the tied scores' spread)."""
+    def sets(t):
+        i = torch.tensor([t], dtype=torch.int32)
+        dev = beam_sets(*device_decode(lp1, i.to(lp1.device)))[0]
+        host = beam_sets(*(torch.from_numpy(x) for x in host_decode(
+            lp1.cpu(), i)))[0]
+        return dev, host
+
+    def differ(dev, host):
+        return set(dev) != set(host) or any(
+            abs(dev[p] - host[p]) > 1e-5 * max(1.0, abs(host[p]))
+            for p in host)
+
+    lo, hi = 1, t_len
+    while lo < hi:
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if differ(*sets(mid)) else (mid + 1, hi)
+    dev, host = sets(lo)
+    if not differ(dev, host) or lo > 1 and differ(*sets(lo - 1)):
+        raise AssertionError(f"phase 36: no first divergence found ({lo})")
+    if set(dev) == set(host):
+        raise AssertionError(f"phase 36: after frame {lo} the same beams "
+                             "carry other scores")
+
+    def search(prefix, score):
+        return score - (LM_ALPHA * float(eos[prefix[-1]]) if prefix else 0.0)
+
+    edge = ([search(p, dev[p]) for p in set(dev) - set(host)]
+            + [search(p, host[p]) for p in set(host) - set(dev)])
+    spread = max(edge) - min(edge)
+    if spread > 1e-5 * max(1.0, abs(max(edge))):
+        raise AssertionError(f"phase 36: the beams part after frame {lo} "
+                             f"without a tie (search scores {edge})")
+    return lo, spread
+
+
+def native_slice(lp, il, dev, kn_arpa, tmp):
+    """The C++ host runtime on the card's machine: K4 (no LM) and K5 (the
+    dense bigram) against `native.beam_search_cpu` on the serving lattice
+    copied to the host; `load_arpa` and `parse_arpa_order` with the native
+    parser against the Python one on phase 29's Kneser-Ney trigram.
+
+    K4 and K5 read a beam's repeated last symbol from the frame's K + 8
+    best (the JAX kernel's window; tests/test_prune_divergence.py bounds
+    what it costs), the host decoder from the whole row.  At prune 16
+    (a window of 24 of 32 symbols) the bigram pulls beams onto symbols
+    outside the window, so K5 is held to the host decoder at prune 24
+    (the window holds all 32), and at prune 16 the card's per-frame scan
+    (`implementation='xla'`, the whole row, no kernel), with K5's
+    agreement at prune 16 logged.  K4 must give the host decoder's best
+    hypothesis for every sequence; with the LM, every sequence whose best
+    differs must have parted from the host decoder at an exact tie at the
+    beam's edge (`tie_at_divergence`): the two break ties by other rules
+    (the device by candidate order, the host by its hash map's)."""
+    if not native.available():
+        raise AssertionError("phase 36: the C++ host runtime did not build")
+    lm = seeded_bigram(np.random.default_rng(SEED + 361), lp.shape[2], dev)
+    lm_kw = dict(lm=lm, lm_alpha=LM_ALPHA, lm_beta=LM_BETA)
+    host_kw = dict(lm_table=lm._table.cpu(), lm_eos=lm._eos.cpu(),
+                   lm_alpha=LM_ALPHA, lm_beta=LM_BETA)
+    errs = {}
+    for name, k, kw, nkw, counter in (
+            ("K4", 16, {}, {}, "launches"),
+            ("K5", 24, lm_kw, host_kw, "launches_lm"),
+            ("the scan + bigram", 16, dict(lm_kw, implementation="xla"),
+             host_kw, None),
+            ("K5 at prune 16", 16, lm_kw, host_kw, "launches_lm")):
+        before = beam_counts()
+        kern = beam_search_decode(lp, il, beam_width=8, prune_k=k, **kw)
+        torch.cuda.synchronize()
+        launched = {c: v - before[c] for c, v in beam_counts().items()}
+        if counter and launched[counter] != 1 or not counter and any(
+                launched.values()):
+            raise AssertionError(f"phase 36 {name}: launches {launched}")
+        t0 = time.perf_counter()
+        nat = native.beam_search_cpu(lp.cpu(), il.cpu(), beam_width=8,
+                                     prune_k=k, **nkw)
+        host_s = time.perf_counter() - t0
+        same, ks, ns_, n_tok = best_agree_native(kern, nat)
+        what = (f"phase 36 {name} (T'={lp.shape[0]}, B={lp.shape[1]}, "
+                f"V={lp.shape[2]}, W=8, prune {k}) vs beam_search_cpu")
+        if name == "K5 at prune 16":
+            log(f"{what}: best hypotheses equal in {int(same.sum())} of "
+                f"{len(same)} sequences, best scores "
+                + ", ".join(f"{a:.3f}/{b:.3f}" for a, b in zip(ks, ns_))
+                + " (kernel/host): the repeat window")
+            errs["K5 prune 16 agree"] = int(same.sum())
+            continue
+        tol = NATIVE_TOL["K4" if name == "K4" else "K5"]
+        for n in np.flatnonzero(~same):
+            if name == "K4":
+                raise AssertionError(f"{what}: best hypotheses differ in "
+                                     f"sequence {n}")
+            t_tie, spread = tie_at_divergence(
+                lambda x, i, k=k, kw=kw: beam_search_decode(
+                    x, i, beam_width=8, prune_k=k, **kw),
+                lambda x, i, k=k: native.beam_search_cpu(
+                    x, i, beam_width=8, prune_k=k, **host_kw),
+                lp[:, n:n + 1], int(il[n]), lm._eos.cpu().numpy())
+            log(f"{what}: sequence {n}'s best hypotheses differ (best "
+                f"scores {ks[n]:.4f} device, {ns_[n]:.4f} host); the beams "
+                f"first part after frame {t_tie} of {int(il[n])}, where the "
+                f"beams each keeps and the other drops tie at the beam's "
+                f"edge (search scores within {spread:.3g})")
+        errs[name] = check_close(ks[same], ns_[same], (tol, tol),
+                                 f"{name} vs native")
+        log(f"{what}: best hypotheses equal in {int(same.sum())} of "
+            f"{len(same)} sequences ({n_tok} tokens), their scores max err "
+            f"{errs[name]:.3g} (tol {tol}); the host decoder "
+            f"{1e3 * host_s:.1f} ms")
+    path = str(Path(tmp) / "kn_trigram.arpa")
+    Path(path).write_text(render_arpa(*kn_arpa))
+    vocab = kn_arpa[2]
+    secs = {}
+    for nat_ in (True, False):
+        t0 = time.perf_counter()
+        tables = load_arpa(path, vocab, prefer_native=nat_)
+        order = parse_arpa_order(path, vocab, prefer_native=nat_)
+        secs[nat_] = (tables, order, time.perf_counter() - t0)
+    arpa_err = max(check_close(a, b, (1e-5, 1e-5), "load_arpa native")
+                   for a, b in zip(secs[True][0], secs[False][0]))
+    (o_n, ng_n), (o_p, ng_p) = secs[True][1], secs[False][1]
+    if o_n != o_p or any(sorted(g for g, _, _ in ng_n[k])
+                         != sorted(g for g, _, _ in ng_p[k])
+                         for k in range(1, o_p + 1)):
+        raise AssertionError("phase 36 parse_arpa_order: the native and "
+                             "Python parsers read other n-grams")
+    for k in range(1, o_p + 1):
+        a, b = sorted(ng_n[k]), sorted(ng_p[k])
+        arpa_err = max(arpa_err, check_close(
+            [(x[1], x[2]) for x in a], [(x[1], x[2]) for x in b],
+            (1e-5, 1e-6), "parse_arpa_order native"))
+    n_grams = sum(len(ng_p[k]) for k in range(1, o_p + 1))
+    log(f"phase 36 phase 29's Kneser-Ney trigram as ARPA ({n_grams:,} "
+        f"n-grams): load_arpa + parse_arpa_order native {secs[True][2]:.3f}"
+        f" s, Python {secs[False][2]:.3f} s, equal (max err "
+        f"{arpa_err:.3g})")
+    return {"errs": errs, "arpa_err": arpa_err}
+
+
+def oracle_slice(dev):
+    """The kernels against the port's float64 NumPy oracles at shapes
+    their Python loops reach: K1/K2 and the combine through `ctc_nll`
+    against `ctc_loss_ref`, K8/K9 through `rnnt_nll` against
+    `rnnt_logits_grad_ref`, K4 at prune = V against
+    `beam_search_decode_ref`."""
+    rng = np.random.default_rng(SEED + 36)
+    errs = {}
+    lp_np, tgt, il, tl = ctc_problem(rng, 4, 200, 40, 32)  # 1 infeasible
+    lp = torch.from_numpy(lp_np).to(dev).requires_grad_()
+    nll = ctc_nll(lp, *(torch.from_numpy(a).to(dev) for a in (tgt, il, tl)))
+    nll.sum().backward()
+    t0 = time.perf_counter()
+    ref_loss, ref_grad = ctc_loss_ref(lp_np.astype(np.float64), tgt, il, tl)
+    ctc_s = time.perf_counter() - t0
+    errs["ctc loss"] = check_close(nll.detach().cpu(), ref_loss,
+                                   ORACLE_TOL["ctc loss"], "ctc loss")
+    errs["ctc grad"] = check_close(lp.grad.cpu(), ref_grad,
+                                   ORACLE_TOL["ctc grad"], "ctc grad")
+    x, y, xil, xul = rnnt_problem(rng, dev, 2, 64, 16, 32, variable=True)
+    nll_r, g_r = rnnt_nll_and_grad(x, y, xil, xul, 0, "auto")
+    t0 = time.perf_counter()
+    ref_r, ref_g = rnnt_logits_grad_ref(
+        x.double().cpu().numpy(), *(a.cpu().numpy() for a in (y, xil, xul)))
+    rnnt_s = time.perf_counter() - t0
+    errs["rnnt nll"] = check_close(nll_r.cpu(), ref_r,
+                                   ORACLE_TOL["rnnt nll"], "rnnt nll")
+    errs["rnnt grad"] = check_close(g_r.cpu(), ref_g,
+                                    ORACLE_TOL["rnnt grad"], "rnnt grad")
+    t, b, v, w = 50, 4, 8, 4
+    x_b = rng.standard_normal((t, b, v)) * 1.5
+    lp_b = (x_b - np.log(np.exp(x_b).sum(-1, keepdims=True))).astype(
+        np.float32)
+    il_b = rng.integers(t // 2, t + 1, b).astype(np.int32)
+    il_b[0] = t
+    before = beam_counts()["launches"]
+    got = beam_sets(*beam_search_decode(
+        torch.from_numpy(lp_b).to(dev), torch.from_numpy(il_b).to(dev),
+        beam_width=w, prune_k=v))
+    if beam_counts()["launches"] != before + 1:
+        raise AssertionError("phase 36: K4 did not run at prune = V")
+    t0 = time.perf_counter()
+    want = beam_search_decode_ref(lp_b.astype(np.float64), il_b,
+                                  beam_width=w)
+    beam_s = time.perf_counter() - t0
+    errs["beam scores"] = 0.0
+    for n, (g, ref) in enumerate(zip(got, want)):
+        ref = dict(ref)
+        if set(g) != set(ref):
+            raise AssertionError(f"phase 36 K4 vs beam_search_decode_ref: "
+                                 f"beam sets differ, seq {n}")
+        errs["beam scores"] = max(errs["beam scores"], check_close(
+            [g[p] for p in ref], list(ref.values()),
+            ORACLE_TOL["beam scores"], "K4 vs the oracle"))
+    log(f"phase 36 oracles: K1/K2 + combine (B=4, T=200, S=40, V=32, one "
+        f"infeasible) vs ctc_loss_ref ({ctc_s:.2f} s): loss err "
+        f"{errs['ctc loss']:.3g} (rtol, atol {ORACLE_TOL['ctc loss']}), "
+        f"gradient {errs['ctc grad']:.3g} ({ORACLE_TOL['ctc grad']}); "
+        f"K8/K9 (B=2, T=64, U=16, V=32, an empty target) vs "
+        f"rnnt_logits_grad_ref ({rnnt_s:.2f} s): NLL {errs['rnnt nll']:.3g} "
+        f"({ORACLE_TOL['rnnt nll']}), gradient {errs['rnnt grad']:.3g} "
+        f"({ORACLE_TOL['rnnt grad']}); K4 at prune = V (B=4, T=50, V=8, "
+        f"W=4) vs beam_search_decode_ref ({beam_s:.2f} s): beam sets equal, "
+        f"scores {errs['beam scores']:.3g} ({ORACLE_TOL['beam scores']})")
+    return errs
+
+
+def run_example(name):
+    """One example as a subprocess on the card: (rc, its output, s)."""
+    env = dict(os.environ)
+    env.pop("E2E_DEMO_DEVICE", None)
+    if EXAMPLE_STEPS[name]:
+        env["E2E_DEMO_STEPS"] = str(EXAMPLE_STEPS[name])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"end2end_tpu_torch.examples.{name}"],
+        cwd=Path(__file__).resolve().parent, env=env, capture_output=True,
+        text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    return proc.returncode, proc.stdout + proc.stderr, seconds
+
+
+def examples_slice():
+    """The five examples, each a process on the card, all started
+    together: each must exit 0."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(EXAMPLE_STEPS)) as pool:
+        runs = dict(zip(EXAMPLE_STEPS, pool.map(run_example, EXAMPLE_STEPS)))
+    wall = time.perf_counter() - t0
+    for name, (rc, out, secs) in runs.items():
+        last = out.strip().splitlines()[-1] if out.strip() else ""
+        log(f"phase 36 example {name} (steps "
+            f"{EXAMPLE_STEPS[name] or 'its own'}): exit {rc} in {secs:.1f} s;"
+            f" last line: {last[:100]}")
+        if rc != 0:
+            log(out[-3000:])
+            raise AssertionError(f"phase 36 example {name} failed: {rc}")
+    log(f"phase 36 the five examples, run together: {wall:.1f} s")
+    return {name: run[2] for name, run in runs.items()}
+
+
+def utilities_slice(pipe, cfg, dev, batches, tbatches, lp, il, kn_arpa,
+                    build_log):
+    """Phase 36; returns its launches and results."""
+    t_phase = time.perf_counter()
+    out = {"build_log": list(build_log.lines)}
+    for line in out["build_log"]:
+        log(f"phase 36 log_compiles (phase 3's builds): {line}")
+    for lib in ("libe2e_kernels_", "libe2e_native_"):
+        if not any(lib in line for line in out["build_log"]):
+            raise AssertionError(f"phase 36: log_compiles logged no {lib}")
+    wav, ns = batches[0]
+    torch.cuda.synchronize()
+    zero_all_counts()
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
+        out["trace"] = traced_serving(pipe, (wav, ns, *tbatches[0][2:]),
+                                      str(Path(tmp) / "trace"))
+        log(f"phase 36 step trace: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["ckpt"] = checkpoint_round_trip(cfg, dev, tbatches, (wav, ns),
+                                            tmp)
+        log(f"phase 36 step checkpoint: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["native"] = native_slice(lp, il, dev, kn_arpa, tmp)
+        log(f"phase 36 step native: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["oracle"] = oracle_slice(dev)
+    log(f"phase 36 step oracles: {time.perf_counter() - t0:.1f} s")
+    meter = profiling.Throughput(units_per_iter=wav.shape[0])
+    for _ in range(20):
+        pipe.decode(wav, ns, beam_width=8, prune_k=16)
+    torch.cuda.synchronize()
+    out["throughput"] = meter.stop(20)
+    log(f"phase 36 Throughput: 20 beam-8 decodes of B=8 x 30 s in "
+        f"{out['throughput']['seconds']:.3f} s, "
+        f"{out['throughput']['units_per_s']:.1f} seq/s")
+    torch.cuda.synchronize()
+    out["launches"] = {k: n for k, n in all_counts().items() if n}
+    log(f"phase 36 launches (the examples' own, in their processes, not "
+        f"counted): {out['launches']}")
+    t0 = time.perf_counter()
+    out["examples"] = examples_slice()
+    log(f"phase 36 step examples: {time.perf_counter() - t0:.1f} s; the "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> None:
     # 1. the device
     if not torch.cuda.is_available():
@@ -3807,8 +4348,14 @@ def main() -> None:
     # 3. the build
     # and, beside it, the kernels that K1, K10 and the beam step replaced
     # (the A/B baselines)
+    # with the host runtime's g++ build beside them, inside log_compiles
+    # (its lines are read in phase 36)
+    build_log = BuildLog()
+    logging.getLogger("end2end_tpu_torch").addHandler(build_log)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+    with (profiling.log_compiles(),
+          concurrent.futures.ThreadPoolExecutor(7) as pool):
+        host_build = pool.submit(native.available)
         ref_build = pool.submit(ctc_alpha_breakdown.build_reference,
                                 cuda_build.BUILD_DIR / "reference")
         k2_build = pool.submit(ctc_beta_breakdown.build_reference,
@@ -3828,9 +4375,12 @@ def main() -> None:
         beam_ref_lib, beam_ref_ptxas = beam_build.result()
         rnnt_ref_lib, rnnt_ref_ptxas = rnnt_build.result()
         topk_ref_lib, topk_ref_ptxas = topk_build.result()
+        host_build.result()
     parent = parent_step(beam_ref_lib)
     log(f"phase 3 build: {info['build_s']:.1f} s nvcc, "
         f"{time.perf_counter() - t0:.1f} s to load ({info['path']})")
+    for line in build_log.lines:
+        log(f"phase 3 log_compiles: {line}")
     for line in info["log"].splitlines():
         if "registers" in line or "Compiling" in line or "spill" in line:
             log(f"  ptxas {line.strip()}")
@@ -4805,6 +5355,11 @@ def main() -> None:
                                      rnnt_ref_lib)
     mg_ms, new_b = new_slice_timings(s_ocr, s_dense, mg)
     ms.update(mg_ms)
+    # 36. the last slice's utilities: trace, build log, checkpoint, the
+    # host runtime, the float64 oracles, Throughput and the examples
+    s36 = utilities_slice(pipe, cfg, dev, batches, tbatches, lp_gpu,
+                          serve_il, slice29["kn"], build_log)
+    p36 = s36["launches"].get
 
     def mg_launches(kernel):  # every rank's, every path's
         return sum(n for x in mg for key, c in x.items()
@@ -4822,18 +5377,19 @@ def main() -> None:
     joint_src = "end2end_tpu_torch/csrc/rnnt_joint.cu"
     joint_tpu = "end2end_tpu/ops/rnnt_joint_pallas.py"
     rows = [  # name, source, replaces, launches, err, ms key, bound,
-        # library key
+        # library key; every row's launches include phase 36's (p36)
         # launches: phase 6's serving path and phase 31's transducer
         # decoding slice (the ALSD top-K and top-W, the MWER step's decode)
         ("topk", "end2end_tpu_torch/csrc/topk.cu",
          "end2end_tpu/ops/topk_pallas.py:64",
          launches["topk"] + s31["launches"]["topk"]
          + s31["mwer_launches"]["topk"] + s_ocr["decode"]["topk"]
-         + mg_launches("topk"), topk_err,
+         + mg_launches("topk") + p36("topk", 0), topk_err,
          "topk_main", topk_b, "topk_library_main"),
         # + phase 33's OCR decode and phase 34's ranks' VP beams
         ("beam_step", beam_src, f"{beam_tpu}:94", launches["beam_step"]
-         + s_ocr["decode"]["beam_step"] + mg_launches("beam_step"),
+         + s_ocr["decode"]["beam_step"] + mg_launches("beam_step")
+         + p36("beam_step", 0) - p36("beam_step_lm", 0),  # counts K5 too
          beam_err, "beam_main", beam_b, None),
         # the same kernel at W=10 on the OCR row (three sequences a warp
         # in the backtrace): its launch is phase 33's decode
@@ -4843,22 +5399,23 @@ def main() -> None:
         # outside Pallas on the TPU: the backtrace's lane-map composition
         # and compaction, and the chunked decode's (one chunk's) scan
         ("backtrace", walk_src, f"{beam_tpu}:442", launches["backtrace"]
-         + s_ocr["decode"]["backtrace"] + mg_launches("backtrace"),
+         + s_ocr["decode"]["backtrace"] + mg_launches("backtrace")
+         + p36("backtrace", 0),
          bt_err, "backtrace_main", bt_b, None),
         ("backtrace_w10", walk_src, f"{beam_tpu}:442",
          s_ocr["decode"]["backtrace"], s_ocr["err"], "backtrace_w10_bench",
          new_b["backtrace_w10"], None),
         ("ctc_alpha", ctc_src, "end2end_tpu/ops/ctc_loss_pallas.py:115",
          train_launches["ctc_alpha"] + s_ocr["train"]["ctc_alpha"]
-         + mg_launches("ctc_alpha"), ctc_err[0], "ctc_alpha_main", ctc_b[0],
+         + mg_launches("ctc_alpha") + p36("ctc_alpha", 0), ctc_err[0], "ctc_alpha_main", ctc_b[0],
          "ctc_library_fwd_main"),
         # library: F.ctc_loss backward alone, the yardstick of K2 + combine
         ("ctc_beta", ctc_src, "end2end_tpu/ops/ctc_loss_pallas.py:174",
          train_launches["ctc_beta"] + s_ocr["train"]["ctc_beta"]
-         + mg_launches("ctc_beta"), ctc_err[1], "ctc_beta_main", ctc_b[1],
+         + mg_launches("ctc_beta") + p36("ctc_beta", 0), ctc_err[1], "ctc_beta_main", ctc_b[1],
          "ctc_library_bwd_main"),
         ("beam_step_lm", beam_src, f"{beam_tpu}:202",
-         lm_launches["launches_lm"], k5_err, "beam_lm_main", lm_b, None),
+         lm_launches["launches_lm"] + p36("beam_step_lm", 0), k5_err, "beam_lm_main", lm_b, None),
         ("beam_step_cls", beam_src, f"{beam_tpu}:101",
          chunk_launches["launches_cls"], chunk_err, "beam_cls_chunk", cls_b,
          None),
@@ -4873,14 +5430,15 @@ def main() -> None:
         ("rnnt_alpha", rnnt_src, f"{rnnt_tpu}:108",
          rnnt_launches["rnnt_alpha"]
          + s31["mwer_launches"]["rnnt_alpha"]
-         + s_dense["launches"]["rnnt_alpha"] + mg_launches("rnnt_alpha"),
+         + s_dense["launches"]["rnnt_alpha"] + mg_launches("rnnt_alpha")
+         + p36("rnnt_alpha", 0),
          max(rnnt_err[0], s_dense["errs"][0]),
          "rnnt_alpha_main", rnnt_b[0], None),
         ("rnnt_posteriors", rnnt_src, f"{rnnt_tpu}:194",
          rnnt_launches["rnnt_posteriors"]
          + s31["mwer_launches"]["rnnt_posteriors"]
          + s_dense["launches"]["rnnt_posteriors"]
-         + mg_launches("rnnt_posteriors"),
+         + mg_launches("rnnt_posteriors") + p36("rnnt_posteriors", 0),
          max(rnnt_err[1], s_dense["errs"][1]),
          "rnnt_posteriors_main", rnnt_b[1], None),
         ("rnnt_joint_fwd", joint_src, f"{joint_tpu}:78",
@@ -4904,7 +5462,7 @@ def main() -> None:
          tp_b["dw"], "joint_dw_tp_library_bench"),
         ("ctc_grad", ctc_src, "end2end_tpu/ops/ctc_loss_xla.py:196",
          train_launches["ctc_grad"] + s_ocr["train"]["ctc_grad"]
-         + mg_launches("ctc_grad"), combine_err, "ctc_grad_main",
+         + mg_launches("ctc_grad") + p36("ctc_grad", 0), combine_err, "ctc_grad_main",
          ctc_grad_b, None),
         # outside Pallas on the TPU: the Viterbi forward and backtrace
         # scans; torch has no forced alignment (nor torchaudio here)

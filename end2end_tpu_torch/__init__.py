@@ -26,6 +26,9 @@ modes, and csrc/backtrace.cu), the forced alignment one
 joint three with their vocabulary-sharded modes (csrc/rnnt_joint.cu),
 built with nvcc at first use; on CPU tensors their plain torch versions.
 Models and LMs are built on the card unless `device="cpu"` is passed.
+`utils` also holds checkpointing, profiling (`trace`, `log_compiles`,
+`Throughput`), the C++ host runtime (`native`, built with g++) and the
+float64 NumPy oracles; `examples` the five demos.
 This package imports torch and numpy, never jax or the JAX package.
 """
 
@@ -87,7 +90,10 @@ from .utils.arpa import load_arpa, ngram_lm_from_arpa
 from .utils.lm_train import (train_ngram_arpa, train_ngram_lm,
                              word_lm_from_corpus)
 
+__version__ = "0.2.0"
+
 __all__ = [
+    "__version__",
     "BeamSearchCTCDecoder",
     "CTCLoss",
     "CompositeLM",

@@ -5,10 +5,10 @@
 backoff-completed bigram, <s> and </s> rows) for `ops.lm.NGramLM` and
 `ops.lm.WordNGramLM`; `parse_arpa_order` reads a model of any order into
 the n-gram lists of `ops.lm.HashedNGramLM` and `ops.lm.HashedWordNGramLM`;
-`ArpaScorer` is the float64 host oracle of their backoff semantics.  Only
-the pure-Python parsers are ported; the JAX package's native C parser
-gives the same output (in float32) faster, so `prefer_native` is accepted
-and changes nothing.
+`ArpaScorer` is the float64 host oracle of their backoff semantics.  With
+`prefer_native` (the default) both loaders parse with the C++ host
+runtime (`utils/native.py`) when it is built, which gives the Python
+parsers' output faster, and with the Python parsers otherwise.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..ops.semiring import LOG0
+from . import native
 
 _LN10 = np.log(10.0)
 
@@ -24,7 +25,10 @@ def parse_arpa_python(path: str, vocab: list[str]):
     """(unigram, bigram, start, eos) natural-log float32 tables for `vocab`:
     unigram (V,), bigram (V, V) with unseen pairs backed off as
     bo(w1) + p(w2), start (V,) = log p(w | <s>), eos (V,) = log p(</s> | w)
-    (0 everywhere when the file has no </s> unigram)."""
+    (0 everywhere when the file has no </s> unigram).  A bigram line may
+    carry a backoff weight (files of order 3 and above); the JAX package's
+    parser skips such lines, and so loses those bigrams, where its native
+    parser and this one read them."""
     v = len(vocab)
     word_id = {w: i for i, w in enumerate(vocab)}
     uni = np.full(v, LOG0, np.float32)
@@ -60,7 +64,7 @@ def parse_arpa_python(path: str, vocab: list[str]):
                 elif w in word_id:
                     uni[word_id[w]] = lp
                     bo[word_id[w]] = b
-            elif section == 2 and len(parts) == 3:
+            elif section == 2 and len(parts) >= 3:  # bo optional
                 lp = float(parts[0]) * _LN10
                 w1, w2 = parts[1], parts[2]
                 if w2 == "</s>":
@@ -84,11 +88,12 @@ def parse_arpa_python(path: str, vocab: list[str]):
 
 
 def load_arpa(path: str, vocab: list[str], prefer_native: bool = True):
-    """(unigram, bigram, start, eos) natural-log tables for the vocab.
-
-    `prefer_native` is accepted as the JAX package's loader takes it; the
-    port has only the Python parser, so it changes nothing."""
-    del prefer_native
+    """(unigram, bigram, start, eos) natural-log tables for the vocab, by
+    the native parser when `prefer_native` and it is built."""
+    if prefer_native and native.available():
+        out = native.parse_arpa_native(path, vocab)
+        if out is not None:
+            return out
     return parse_arpa_python(path, vocab)
 
 
@@ -107,9 +112,13 @@ def parse_arpa_order(path: str, vocab: list[str], prefer_native: bool = True):
     a list of (ids_tuple, logp, backoff) with natural-log scores.  Ids are
     vocab indices, <s> = len(vocab), </s> = len(vocab) + 1; n-grams with
     <unk> or out-of-vocabulary words are dropped except the <unk> unigram,
-    whose log-prob is ngrams["unk"] (None without one).  `prefer_native`
-    changes nothing (see the module docstring)."""
-    del prefer_native
+    whose log-prob is ngrams["unk"] (None without one).  With
+    `prefer_native` the native parser reads it when it is built (orders up
+    to 8), else the Python one below."""
+    if prefer_native and native.available():
+        out = native.parse_arpa_order_native(path, vocab)
+        if out is not None:
+            return out
     v = len(vocab)
     word_id = {w: i for i, w in enumerate(vocab)}
     word_id["<s>"] = v
@@ -163,7 +172,9 @@ class ArpaScorer:
 
     @classmethod
     def from_file(cls, path, vocab, **kw):
-        order, ngrams = parse_arpa_order(path, list(vocab))
+        # the Python parser: float64 scores, as an oracle's
+        order, ngrams = parse_arpa_order(path, list(vocab),
+                                         prefer_native=False)
         return cls(order, ngrams, len(vocab), **kw)
 
     def score(self, context, w):

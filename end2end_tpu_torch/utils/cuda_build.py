@@ -10,6 +10,8 @@ The build directory, `csrc/build/`, is ignored by git.
 
 Nothing here runs at import time: `library()` builds on its first call and
 raises if nvcc is missing or fails; no caller falls back to another path.
+Each build or reuse of a built library is reported to
+`utils.profiling.build_done`, which logs it inside `log_compiles()`.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+from .profiling import build_done
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -120,10 +124,12 @@ def library():
     `info` a dict with the library path, build seconds (0.0 when the cached
     build was reused) and nvcc's resource report (`-Xptxas -v`).
     """
+    t_start = time.perf_counter()
     sources = _sources()
     path = BUILD_DIR / f"libe2e_kernels_{_digest(sources)}.so"
     info = {"path": str(path), "build_s": 0.0, "log": ""}
-    if not path.exists():
+    cached = path.exists()
+    if not cached:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
         t0 = time.perf_counter()
@@ -154,6 +160,7 @@ def library():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    build_done(str(path), time.perf_counter() - t_start, cached)
     return lib, info
 
 

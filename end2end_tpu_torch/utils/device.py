@@ -13,11 +13,14 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """`device`, or CUDA when it is None; raises when CUDA is asked for
-    implicitly and there is no CUDA device."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    implicitly and there is no CUDA device.  A CUDA device without an
+    index gets the current one, as a tensor placed there reports it, so
+    the LMs' `device` compares equal to their lattices'."""
+    if device is None and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the port runs on the GPU by default; pass "
             "device='cpu' to build on the CPU")
-    return torch.device("cuda")
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device

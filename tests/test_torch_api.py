@@ -5,9 +5,14 @@ stays visible (the test prints it); and every shared name, and each
 public method of a shared class, takes JAX's parameters in JAX's order
 with JAX's defaults, but for the documented extras.  So do the ported
 models' public methods and the long-form transcribers, less JAX's
-`params`: the port's `nn.Module` holds its parameters itself."""
+`params`: the port's `nn.Module` holds its parameters itself.  Every
+public top-level name of every module of the JAX package is defined in
+some module of the port or listed in `TPU_ONLY` with its counterpart or
+the reason it has none (an `ast` walk of both trees, nothing imported)."""
 
+import ast
 import inspect
+from pathlib import Path
 
 import end2end_tpu
 import end2end_tpu.models.pipeline
@@ -16,8 +21,52 @@ import end2end_tpu.models.transducer
 import end2end_tpu_torch
 import end2end_tpu_torch.models.streaming
 
-NOT_YET_PORTED = {  # name: ROADMAP.md queue 1 item
-    "__version__": 10,
+NOT_YET_PORTED = {}  # name: ROADMAP.md queue 1 item
+
+ROOT = Path(__file__).resolve().parent.parent
+
+# JAX's public module-level names with no namesake in the port: name ->
+# the port's counterpart, or why it has none (docs/torch_port.md and
+# ROADMAP.md's "Don't port" list the same)
+TPU_ONLY = {
+    # the Pallas wrappers: the port's kernels sit behind *_cuda.py
+    "beam_search_pallas": "ops/beam_search_cuda.py (K4-K7 beam_step, "
+                          "backtrace), routed by beam_search_decode",
+    "beam_search_pallas_from_topk": "ops/beam_search.py::"
+                                    "beam_search_from_topk",
+    "beam_pallas_supported": "ops/beam_search_cuda.py::beam_supported",
+    "ctc_nll_pallas": "ops/ctc_loss_cuda.py::ctc_nll_cuda (K1, K2, the "
+                      "combine)",
+    "fits_vmem": "a VMEM budget; ops/ctc_loss_cuda.py::alpha_plan and "
+                 "beta_plan size the kernels' shared memory",
+    "alpha_scan_pallas": "ops/rnnt_loss_cuda.py::alpha (K8)",
+    "posteriors_pallas": "ops/rnnt_loss_cuda.py::posteriors (K9)",
+    "wavefront_pallas_supported": "ops/rnnt_loss_cuda.py::wavefront_plan "
+                                  "(every U + 1)",
+    "topk_pallas": "ops/topk_cuda.py::topk (K3)",
+    "topk_pallas_fits_vmem": "a VMEM budget; ops/topk_cuda.py::topk_plan",
+    # ctc_loss_xla's scans
+    "ctc_nll_xla": "ops/ctc_loss_plain.py::ctc_nll_plain",
+    "ctc_forward_scan": "ops/ctc_loss_plain.py::forward_scan",
+    "ctc_backward_scan": "ops/ctc_loss_plain.py::backward_scan",
+    "ctc_forward_scan_ckpt": "ops/ctc_loss_plain.py::forward_scan "
+                             "(every=)",
+    "ctc_backward_scan_ckpt": "ops/ctc_loss_plain.py::backward_scan "
+                              "(every=)",
+    # TPU numerics and gathers
+    **{name: "fastmath: the TPU's polynomial exp/log; libm's expf and "
+             "log1pf meet the float64 criterion (ops/semiring.py)"
+       for name in ("exp32", "log1p32", "log32", "log_softmax32",
+                    "log_softmax_acc", "logaddexp2_acc", "logaddexp3_acc")},
+    "state_onehot": "the MXU's one-hot gather; the port gathers "
+                    "(ops/ctc_common.py::gather_lp_ext)",
+    "ladder_take": "a TPU gather workaround; ops/indexing.py::flat_take is "
+                   "a gather",
+    "take1d": "a TPU gather workaround; ops/indexing.py::flat_take is a "
+              "gather",
+    "safe_clamp": "no caller in the JAX package",
+    "make_mesh": "the port's parallel functions take a torch.distributed "
+                 "group (default WORLD), what the 1-D mesh stood for",
 }
 
 # the port's documented additions to a JAX signature: (owner, parameter)
@@ -147,3 +196,46 @@ def test_model_and_long_form_signatures_match_jax_less_params():
     assert "ConformerTransducer.decode" in labels
     assert "transcribe_long_form_rnnt" in labels
     assert not mismatched, mismatched
+
+
+def _public_names(package: Path) -> dict:
+    """{name: [module path]} of the public top-level functions, classes
+    and assigned constants of every module under `package`."""
+    out = {}
+    for path in sorted(package.rglob("*.py")):
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.ClassDef)):
+                names = [node.name]
+            elif isinstance(node, ast.Assign):
+                names = [t.id for t in node.targets
+                         if isinstance(t, ast.Name)]
+            elif (isinstance(node, ast.AnnAssign)
+                  and isinstance(node.target, ast.Name)):
+                names = [node.target.id]
+            else:
+                names = []
+            for name in names:
+                if not name.startswith("_") or name == "__version__":
+                    out.setdefault(name, []).append(
+                        str(path.relative_to(ROOT)))
+    return out
+
+
+def test_every_jax_name_is_ported_or_tpu_only():
+    jax_names = _public_names(ROOT / "end2end_tpu")
+    port_names = _public_names(ROOT / "end2end_tpu_torch")
+    assert len(jax_names) > 150
+    missing = {n: where for n, where in jax_names.items()
+               if n not in port_names and n not in TPU_ONLY}
+    assert not missing, missing
+    # the list holds no name that the port has or JAX lacks
+    stale = sorted(n for n in TPU_ONLY
+                   if n in port_names or n not in jax_names)
+    assert not stale, stale
+
+
+def test_version_is_jax_version():
+    assert end2end_tpu_torch.__version__ == end2end_tpu.__version__
+    assert "__version__" in end2end_tpu_torch.__all__
+    assert NOT_YET_PORTED == {}

@@ -1270,3 +1270,77 @@ def test_vp_prep_is_the_global_topk_on_the_card(dev, vp_prep_ranks, name):
         assert torch.equal(ck, want[1]), r
         assert torch.equal(lpb.view(torch.int32),
                            lp[:, :, 0].cpu().view(torch.int32))
+
+
+def test_lms_built_on_an_unindexed_cuda_device_decode(dev):
+    """`device="cuda"` (no index) builds an LM whose `device` equals its
+    lattice's (cuda:0): the device check compared cuda with cuda:0."""
+    rng = np.random.default_rng(19)
+    v = 8
+    lp = torch.from_numpy(np.log(rng.dirichlet(np.ones(v), (20, 2))).astype(
+        np.float32)).to(dev)
+    hot = tlm.HotwordBoostLM([(1, 2)], weight=0.5, device="cuda")
+    bigram = tlm.NGramLM(np.log(rng.dirichlet(np.ones(v), v)).astype(
+        np.float32), device="cuda")
+    for lm in (hot, bigram, tlm.CompositeLM([bigram, hot])):
+        assert lm.device == lp.device
+        beam_search_decode(lp, beam_width=4, lm=lm, lm_alpha=0.5,
+                           implementation="xla")
+
+
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    from end2end_tpu_torch.utils.checkpoint import (restore_checkpoint,
+                                                    save_checkpoint)
+
+    state = {"w": torch.randn(3, 4, device=dev), "n": [torch.arange(5), 2.5]}
+    save_checkpoint(str(tmp_path / "c"), state)
+    like = {"w": torch.zeros(3, 4, device=dev), "n": [torch.zeros(
+        5, dtype=torch.long), 0.0]}
+    got = restore_checkpoint(str(tmp_path / "c"), like)
+    assert got["w"].device == dev and torch.equal(got["w"], state["w"])
+    assert got["n"][0].device.type == "cpu" and got["n"][1] == 2.5
+
+
+def test_trace_records_the_ctc_kernels(dev, tmp_path):
+    import json
+
+    from end2end_tpu_torch.utils.profiling import trace
+
+    rng = np.random.default_rng(19)
+    lp = torch.from_numpy(np.log(rng.dirichlet(np.ones(6), (30, 2))).astype(
+        np.float32)).to(dev).requires_grad_()
+    tgt = torch.tensor([[1, 2, 3], [4, 5, 0]], dtype=torch.int32, device=dev)
+    il = torch.tensor([30, 20], dtype=torch.int32, device=dev)
+    tl = torch.tensor([3, 2], dtype=torch.int32, device=dev)
+    ctc_nll(lp, tgt, il, tl).sum().backward()  # builds the library first
+    with trace(str(tmp_path)):
+        ctc_nll(lp, tgt, il, tl).sum().backward()
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    names = {e.get("name", "") for e in json.loads(path.read_text())[
+        "traceEvents"] if e.get("cat") == "kernel"}
+    for kernel in ("ctc_alpha_kernel", "ctc_beta_kernel", "ctc_grad_kernel"):
+        assert any(kernel in n for n in names), kernel
+
+
+def test_beam_kernel_matches_the_host_decoder(dev):
+    """K4 against the C++ host decoder at prune 4 of 12 symbols: its K + 8
+    repeat window holds them all, so the two decode alike (where the
+    window cuts, tests/test_prune_divergence.py bounds the kernel)."""
+    from end2end_tpu_torch.utils import native
+
+    if not native.available():
+        pytest.skip("g++ is missing: no host runtime")
+    rng = np.random.default_rng(19)
+    lp = np.log(rng.dirichlet(np.ones(12) * 0.3, (60, 4))).astype(np.float32)
+    il = np.array([60, 51, 40, 33], np.int32)
+    tok, lens, sc = beam_search_decode(torch.from_numpy(lp).to(dev),
+                                       torch.from_numpy(il).to(dev),
+                                       beam_width=8, prune_k=4)
+    ntok, nlens, nsc = native.beam_search_cpu(lp, il, beam_width=8,
+                                              prune_k=4)
+    np.testing.assert_array_equal(lens[:, 0].cpu().numpy(), nlens[:, 0])
+    for n in range(4):
+        np.testing.assert_array_equal(tok[n, 0, :lens[n, 0]].cpu().numpy(),
+                                      ntok[n, 0, :nlens[n, 0]])
+    np.testing.assert_allclose(sc[:, 0].cpu().numpy(), nsc[:, 0], rtol=1e-4,
+                               atol=1e-4)

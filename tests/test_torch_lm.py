@@ -208,33 +208,41 @@ def test_arpa_matches_jax(tmp_path):
     for got, want in zip(tarpa.parse_arpa_python(str(path), vocab),
                          jax_parse_arpa(str(path), vocab)):
         np.testing.assert_array_equal(got, want)
-    tl = tarpa.ngram_lm_from_arpa(str(path), vocab, device="cpu")
     from end2end_tpu.utils.arpa import ngram_lm_from_arpa
 
-    jl = ngram_lm_from_arpa(str(path), vocab, prefer_native=False)
-    np.testing.assert_array_equal(tl._table.numpy(), np.asarray(jl._table))
-    np.testing.assert_array_equal(tl._eos.numpy(), np.asarray(jl._eos))
+    for native in (False, True):  # True: the native parser where it builds
+        tl = tarpa.ngram_lm_from_arpa(str(path), vocab, native,
+                                      device="cpu")
+        jl = ngram_lm_from_arpa(str(path), vocab, prefer_native=native)
+        np.testing.assert_array_equal(tl._table.numpy(),
+                                      np.asarray(jl._table))
+        np.testing.assert_array_equal(tl._eos.numpy(), np.asarray(jl._eos))
 
 
 @pytest.mark.parametrize("native", [True, False])
 def test_arpa_loaders_take_prefer_native(tmp_path, native):
-    """`prefer_native`, by name and by position, as JAX's loaders take it;
-    the port has only the Python parser, so the tables do not change."""
+    """`prefer_native`, by name and by position, as JAX's loaders take it:
+    True reads with the native parser where it builds, False with the
+    Python parser."""
+    from end2end_tpu_torch.utils import native as tnative
+
     path = tmp_path / "lm.arpa"
     path.write_text(_ARPA)
     vocab = ["ab", "b", "ba", "c", "zz"]
-    want = tarpa.parse_arpa_python(str(path), vocab)
+    want = (tnative.parse_arpa_native(str(path), vocab)
+            if native and tnative.available()
+            else tarpa.parse_arpa_python(str(path), vocab))
     for got in (tarpa.load_arpa(str(path), vocab, prefer_native=native),
                 tarpa.load_arpa(str(path), vocab, native)):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
-    base = tarpa.ngram_lm_from_arpa(str(path), vocab, device="cpu")
     for lm in (tarpa.ngram_lm_from_arpa(str(path), vocab, native,
                                         device="cpu"),
                tarpa.ngram_lm_from_arpa(str(path), vocab,
                                         prefer_native=native, device="cpu")):
-        assert torch.equal(lm._table, base._table)
-        assert torch.equal(lm._eos, base._eos)
+        np.testing.assert_array_equal(lm._table[:-1].numpy(), want[1])
+        np.testing.assert_array_equal(lm._table[-1].numpy(), want[2])
+        np.testing.assert_array_equal(lm._eos.numpy(), want[3])
 
 
 def test_word_lm_from_arpa_matches_jax(tmp_path, rng):

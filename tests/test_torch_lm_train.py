@@ -84,21 +84,22 @@ _ARPA4 = (
 
 
 def test_parse_arpa_order_matches_jax(tmp_path):
-    """Equal to JAX's Python parser (<unk> unigram, an out-of-vocabulary
-    word and an <unk> gram dropped); within one float32 ulp of the native
-    parser, which multiplies by ln 10 in float32."""
+    """The Python parser equal to JAX's (<unk> unigram, an out-of-vocabulary
+    word and an <unk> gram dropped); the default (the native parser where
+    it builds) equal to JAX's default, and within one float32 ulp of the
+    Python parser (the native one multiplies by ln 10 in float32)."""
     path = tmp_path / "order4.arpa"
     path.write_text(_ARPA4)
     vocab = ["a", "b", "c"]
-    got = tarpa.parse_arpa_order(str(path), vocab)
+    got = tarpa.parse_arpa_order(str(path), vocab, prefer_native=False)
     assert got == jarpa.parse_arpa_order(str(path), vocab,
                                          prefer_native=False)
-    assert got == tarpa.parse_arpa_order(str(path), vocab,
-                                         prefer_native=False)
+    assert (tarpa.parse_arpa_order(str(path), vocab)
+            == jarpa.parse_arpa_order(str(path), vocab))
     order, ng = got
     assert order == 4 and len(ng[1]) == 5 and len(ng[3]) == 3
     if native.available():
-        n_order, n_ng = jarpa.parse_arpa_order(str(path), vocab)
+        n_order, n_ng = tarpa.parse_arpa_order(str(path), vocab)
         assert n_order == order
         def ulp1(x, y):
             np.testing.assert_array_max_ulp(np.float32(x), np.float32(y), 1)
