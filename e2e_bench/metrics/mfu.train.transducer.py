@@ -1,0 +1,8 @@
+"""As `mfu.train`, in the transducer's training cells, where it moves
+`train_throughput.transducer`."""
+
+from e2e_bench import readings
+
+
+def read(run):
+    return readings.mfu(run, "train")

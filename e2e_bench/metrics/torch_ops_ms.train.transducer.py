@@ -1,0 +1,8 @@
+"""As `torch_ops_ms.train`, in the transducer's training cells, where it moves
+`train_throughput.transducer`."""
+
+from e2e_bench import readings
+
+
+def read(run):
+    return readings.torch_ops_ms(run, "train")
