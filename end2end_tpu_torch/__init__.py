@@ -27,7 +27,8 @@ joint three with their vocabulary-sharded modes (csrc/rnnt_joint.cu),
 built with nvcc at first use; on CPU tensors their plain torch versions.
 Models and LMs are built on the card unless `device="cpu"` is passed.
 `utils` also holds checkpointing, profiling (`trace`, `log_compiles`,
-`Throughput`), the C++ host runtime (`native`, built with g++) and the
+`Throughput`, and `span`, the profiler ranges that mark the port's layer
+boundaries while a profiler records), the C++ host runtime (`native`, built with g++) and the
 float64 NumPy oracles; `examples` the five demos.
 This package imports torch and numpy, never jax or the JAX package.
 """

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 _LN_EPS = 1e-6
 
@@ -200,17 +201,20 @@ class ConformerEncoder(nn.Module):
         init_like_flax(self, generator)
 
     def forward(self, feats, lengths):
-        lengths = lengths.to(feats.device)
-        feats = feats * _length_mask(lengths, feats.shape[1])[..., None]
-        if self.subsample is not None:
-            x = self.subsample(feats, lengths)
-            out_len = ConvSubsampling.out_length(lengths)
-        else:
-            x, out_len = self.input_proj(feats), lengths
-        t_max = x.shape[1]
-        pe = torch.from_numpy(sinusoidal_positions(t_max, self.d_model))
-        x = x + pe.to(x.device)
-        mask = _length_mask(out_len, t_max)
-        for block in self.blocks:
-            x = block(x, mask)
-        return self.out(x), out_len
+        with span("encoder"):
+            lengths = lengths.to(feats.device)
+            feats = feats * _length_mask(lengths, feats.shape[1])[..., None]
+            if self.subsample is not None:
+                with span("encoder.subsample"):
+                    x = self.subsample(feats, lengths)
+                out_len = ConvSubsampling.out_length(lengths)
+            else:
+                x, out_len = self.input_proj(feats), lengths
+            t_max = x.shape[1]
+            pe = torch.from_numpy(sinusoidal_positions(t_max, self.d_model))
+            x = x + pe.to(x.device)
+            mask = _length_mask(out_len, t_max)
+            with span("encoder.blocks"):
+                for block in self.blocks:
+                    x = block(x, mask)
+            return self.out(x), out_len

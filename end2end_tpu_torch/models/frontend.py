@@ -13,6 +13,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 
 def _hz_to_mel(f):
     return 2595.0 * np.log10(1.0 + np.asarray(f) / 700.0)
@@ -47,25 +49,27 @@ def log_mel_spectrogram(waveform, sample_rate: int = 16000, n_fft: int = 400,
                         eps: float = 1e-10) -> torch.Tensor:
     """(N, num_samples) float32 -> (N, frames, n_mels) log-mel features,
     frames = 1 + max(0, num_samples - n_fft) // hop_length."""
-    waveform = torch.as_tensor(waveform, dtype=torch.float32)
-    if waveform.ndim == 1:
-        waveform = waveform[None, :]
-    dev = waveform.device
-    num_samples = waveform.shape[1]
-    frames = 1 + max(0, num_samples - n_fft) // hop_length
-    idx = (torch.arange(frames, device=dev)[:, None] * hop_length
-           + torch.arange(n_fft, device=dev)[None, :])
-    # a clip shorter than one window reads its last sample again (the
-    # JAX package's gather clamps out-of-range indices the same way)
-    framed = waveform[:, idx.clamp(max=num_samples - 1)]
-    window = torch.hann_window(n_fft, periodic=False, dtype=torch.float32,
-                               device=dev)
-    spec = torch.fft.rfft(framed * window, dim=-1)
-    power = spec.real.square() + spec.imag.square()
-    fb = torch.from_numpy(mel_filterbank(
-        n_mels, n_fft, sample_rate, fmin, fmax or sample_rate / 2.0).copy())
-    mel = power @ fb.to(dev)
-    return torch.log(torch.clamp(mel, min=eps))
+    with span("frontend"):
+        waveform = torch.as_tensor(waveform, dtype=torch.float32)
+        if waveform.ndim == 1:
+            waveform = waveform[None, :]
+        dev = waveform.device
+        num_samples = waveform.shape[1]
+        frames = 1 + max(0, num_samples - n_fft) // hop_length
+        idx = (torch.arange(frames, device=dev)[:, None] * hop_length
+               + torch.arange(n_fft, device=dev)[None, :])
+        # a clip shorter than one window reads its last sample again (the
+        # JAX package's gather clamps out-of-range indices the same way)
+        framed = waveform[:, idx.clamp(max=num_samples - 1)]
+        window = torch.hann_window(n_fft, periodic=False,
+                                   dtype=torch.float32, device=dev)
+        spec = torch.fft.rfft(framed * window, dim=-1)
+        power = spec.real.square() + spec.imag.square()
+        fb = torch.from_numpy(mel_filterbank(
+            n_mels, n_fft, sample_rate, fmin,
+            fmax or sample_rate / 2.0).copy())
+        mel = power @ fb.to(dev)
+        return torch.log(torch.clamp(mel, min=eps))
 
 
 def num_frames(num_samples, n_fft: int = 400, hop_length: int = 160):

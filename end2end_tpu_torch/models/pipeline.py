@@ -27,6 +27,7 @@ from ..ops.beam_search import beam_search_decode
 from ..ops.ctc_loss import ctc_loss
 from ..ops.greedy import greedy_decode
 from ..utils.convert import conformer_state_dict_from_flax
+from ..utils.profiling import span
 from .conformer import ConformerEncoder
 from .frontend import log_mel_spectrogram, num_frames
 
@@ -84,12 +85,14 @@ class ConformerCTCPipeline(nn.Module):
              blank: int = 0, implementation: str = "auto") -> torch.Tensor:
         """Mean CTC loss of a batch (zero_infinity=True), differentiable
         wrt the encoder's parameters: the training objective."""
-        logits, out_len = self.encode(waveforms, num_samples)
-        log_probs = torch.log_softmax(logits, dim=-1)
-        return ctc_loss(log_probs.transpose(0, 1),  # (N, T, V) -> (T, N, V)
-                        targets, out_len, target_lengths, blank=blank,
-                        reduction="mean", zero_infinity=True,
-                        implementation=implementation)
+        with span("ctc_pipeline.loss"):
+            logits, out_len = self.encode(waveforms, num_samples)
+            log_probs = torch.log_softmax(logits, dim=-1)
+            # (N, T, V) -> (T, N, V)
+            return ctc_loss(log_probs.transpose(0, 1),
+                            targets, out_len, target_lengths, blank=blank,
+                            reduction="mean", zero_infinity=True,
+                            implementation=implementation)
 
     @torch.no_grad()
     def decode(self, waveforms, num_samples, beam_width: int = 0,
@@ -99,11 +102,12 @@ class ConformerCTCPipeline(nn.Module):
         shallow fusion when `lm` is given (ops/lm.py, on the model's
         device); returns the best hypothesis per sample: tokens, lengths,
         scores."""
-        logits, out_len = self.encode(waveforms, num_samples)
-        log_probs = torch.log_softmax(logits, dim=-1).transpose(0, 1)
-        if beam_width == 0:
-            return greedy_decode(log_probs, out_len, blank=blank)
-        tokens, lengths, scores = beam_search_decode(
-            log_probs, out_len, beam_width=beam_width, blank=blank,
-            prune_k=prune_k, lm=lm, lm_alpha=lm_alpha, lm_beta=lm_beta)
-        return tokens[:, 0], lengths[:, 0], scores[:, 0]
+        with span("ctc_pipeline.decode"):
+            logits, out_len = self.encode(waveforms, num_samples)
+            log_probs = torch.log_softmax(logits, dim=-1).transpose(0, 1)
+            if beam_width == 0:
+                return greedy_decode(log_probs, out_len, blank=blank)
+            tokens, lengths, scores = beam_search_decode(
+                log_probs, out_len, beam_width=beam_width, blank=blank,
+                prune_k=prune_k, lm=lm, lm_alpha=lm_alpha, lm_beta=lm_beta)
+            return tokens[:, 0], lengths[:, 0], scores[:, 0]

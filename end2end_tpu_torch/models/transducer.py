@@ -35,6 +35,7 @@ from ..ops.rnnt_decode import (FactoredAdditiveJoint, _prefix_states,
 from ..ops.rnnt_loss import rnnt_loss
 from ..utils.convert import transducer_state_dict_from_jax
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .conformer import ConformerEncoder
 
 
@@ -117,20 +118,22 @@ class ConformerTransducer(nn.Module):
     def joint_logits(self, enc, pred_states):
         """(N, T, E) x (N, U+1, H) -> (N, T, U+1, V) joint logits."""
         j = self.joint
-        z = torch.tanh((enc @ j["w_enc"])[:, :, None]
-                       + (pred_states @ j["w_pred"])[:, None] + j["b"])
-        return z @ j["w_out"] + j["b_out"]
+        with span("rnnt.joint"):
+            z = torch.tanh((enc @ j["w_enc"])[:, :, None]
+                           + (pred_states @ j["w_pred"])[:, None] + j["b"])
+            return z @ j["w_out"] + j["b_out"]
 
     def loss(self, feats, lengths, targets, target_lengths,
              reduction: str = "mean", implementation: str = "auto"):
         """The transducer loss of a batch (blank 0, from logits),
         differentiable wrt every parameter."""
-        enc, enc_len = self.encode(feats, lengths)
-        logits = self.joint_logits(enc, self._pred_states(targets))
-        return rnnt_loss(logits, self._tensor(targets),
-                         enc_len, self._tensor(target_lengths), blank=0,
-                         reduction=reduction, from_logits=True,
-                         implementation=implementation)
+        with span("transducer.loss"):
+            enc, enc_len = self.encode(feats, lengths)
+            logits = self.joint_logits(enc, self._pred_states(targets))
+            return rnnt_loss(logits, self._tensor(targets),
+                             enc_len, self._tensor(target_lengths), blank=0,
+                             reduction=reduction, from_logits=True,
+                             implementation=implementation)
 
     def decoder_fns(self):
         """(predictor_step, init_hidden, joint_fn) for ops/rnnt_decode.py;

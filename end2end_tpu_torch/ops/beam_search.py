@@ -36,6 +36,7 @@ import warnings
 
 import torch
 
+from ..utils.profiling import span
 from .beam_chunked import beam_search_chunked_lm
 from .lm import _where_rows
 from .beam_search_cuda import (
@@ -373,71 +374,76 @@ def beam_search_decode(
       (-inf for dead beams), and times (N, W, max_symbols) int32 with
       return_timestamps.
     """
-    if implementation not in ("auto", "pallas", "chunked", "xla"):
-        raise ValueError(f"invalid implementation {implementation!r}")
-    if guide_lm is not None and implementation != "chunked":
-        raise ValueError("guide_lm is only meaningful with "
-                         "implementation='chunked' (it steers between "
-                         "chunk boundaries)")
-    log_probs = torch.as_tensor(log_probs)
-    if batch_first:
-        log_probs = log_probs.transpose(0, 1)
-    if log_probs.dtype in (torch.bfloat16, torch.float16):
-        log_probs = log_probs.float()
-    if from_logits:
-        log_probs = torch.log_softmax(log_probs, dim=-1)
-    t_max, n, v = log_probs.shape
-    if implementation == "chunked":
-        if lm is None or not hasattr(lm, "score_chunk"):
-            raise ValueError("implementation='chunked' requires an lm with "
-                             "score_chunk")
-        return beam_search_chunked_lm(
-            log_probs, input_lengths, beam_width=beam_width, blank=blank,
-            prune_k=prune_k, max_symbols=max_symbols, lm=lm,
-            lm_alpha=lm_alpha, lm_beta=lm_beta, chunk_t=lm_chunk_t,
-            return_timestamps=return_timestamps,
-            token_min_logp=token_min_logp, guide_lm=guide_lm)
-    W = int(beam_width)
-    K = min(int(prune_k or v), v)
-    s_cap = int(max_symbols or min(t_max, 512))
-    ok, reason = beam_supported(W, K, log_probs.dtype)
-    if ok and lm is not None:
-        ok, reason = lm_fusion_supported(lm, v, W)
-    if implementation == "pallas" and not ok:
-        raise ValueError(f"implementation='pallas' unsupported: {reason}")
-    check_lm_device(lm, log_probs.device)
-    if input_lengths is None:
-        il = torch.full((n,), t_max, dtype=torch.int32)
-    else:
-        il = torch.as_tensor(input_lengths).to(torch.int32)
-    il = il.to(log_probs.device)
-    log_probs = log_probs.contiguous()
-    if implementation == "xla" or not ok:
-        if implementation == "auto":
-            hint = ("; implementation='chunked' runs this LM on the kernel "
-                    "(chunk-granular steering, exact scores)"
-                    if lm is not None and hasattr(lm, "score_chunk") else "")
-            logging.getLogger(__name__).info(
-                "beam_search_decode: running the prefix-beam scan (%s)%s",
-                reason, hint)
-        out = _beam_search_scan(
-            log_probs, il, W, K, s_cap, int(blank), lm=lm,
-            lm_alpha=float(lm_alpha), lm_beta=float(lm_beta),
-            token_min_logp=(None if token_min_logp is None
-                            else float(token_min_logp)))
+    with span("ctc.beam"):
+        if implementation not in ("auto", "pallas", "chunked", "xla"):
+            raise ValueError(f"invalid implementation {implementation!r}")
+        if guide_lm is not None and implementation != "chunked":
+            raise ValueError("guide_lm is only meaningful with "
+                             "implementation='chunked' (it steers between "
+                             "chunk boundaries)")
+        log_probs = torch.as_tensor(log_probs)
+        if batch_first:
+            log_probs = log_probs.transpose(0, 1)
+        if log_probs.dtype in (torch.bfloat16, torch.float16):
+            log_probs = log_probs.float()
+        if from_logits:
+            log_probs = torch.log_softmax(log_probs, dim=-1)
+        t_max, n, v = log_probs.shape
+        if implementation == "chunked":
+            if lm is None or not hasattr(lm, "score_chunk"):
+                raise ValueError("implementation='chunked' requires an lm "
+                                 "with score_chunk")
+            return beam_search_chunked_lm(
+                log_probs, input_lengths, beam_width=beam_width, blank=blank,
+                prune_k=prune_k, max_symbols=max_symbols, lm=lm,
+                lm_alpha=lm_alpha, lm_beta=lm_beta, chunk_t=lm_chunk_t,
+                return_timestamps=return_timestamps,
+                token_min_logp=token_min_logp, guide_lm=guide_lm)
+        W = int(beam_width)
+        K = min(int(prune_k or v), v)
+        s_cap = int(max_symbols or min(t_max, 512))
+        ok, reason = beam_supported(W, K, log_probs.dtype)
+        if ok and lm is not None:
+            ok, reason = lm_fusion_supported(lm, v, W)
+        if implementation == "pallas" and not ok:
+            raise ValueError(f"implementation='pallas' unsupported: {reason}")
+        check_lm_device(lm, log_probs.device)
+        if input_lengths is None:
+            il = torch.full((n,), t_max, dtype=torch.int32)
+        else:
+            il = torch.as_tensor(input_lengths).to(torch.int32)
+        il = il.to(log_probs.device)
+        log_probs = log_probs.contiguous()
+        if implementation == "xla" or not ok:
+            if implementation == "auto":
+                hint = ("; implementation='chunked' runs this LM on the "
+                        "kernel (chunk-granular steering, exact scores)"
+                        if lm is not None and hasattr(lm, "score_chunk")
+                        else "")
+                logging.getLogger(__name__).info(
+                    "beam_search_decode: running the prefix-beam scan (%s)%s",
+                    reason, hint)
+            out = _beam_search_scan(
+                log_probs, il, W, K, s_cap, int(blank), lm=lm,
+                lm_alpha=float(lm_alpha), lm_beta=float(lm_beta),
+                token_min_logp=(None if token_min_logp is None
+                                else float(token_min_logp)))
+            return out if return_timestamps else out[:3]
+        ks = min(K + 8, v)  # the stay term's window (see module docstring)
+        with span("ctc.beam.topk"):
+            lpk, ck = topk(log_probs, ks)
+            lpk, ck = apply_token_min_logp(lpk, ck, token_min_logp)
+        with span("ctc.beam.step"):
+            lpb = log_probs[:, :, blank].contiguous()
+            inc = None if lm is None else lm_alpha * lm._table + lm_beta
+            bp, scores, last, _ = beam_step(lpk, ck, lpb, il, W, K, s_cap,
+                                            int(blank), inc=inc)
+        if lm is not None:  # end-of-sequence bonus, after the last frame
+            eos = lm._eos[last.long().clamp(0, v - 1)]
+            scores = scores + torch.where(last >= 0, lm_alpha * eos, 0.0)
+        with span("ctc.beam.backtrace"):
+            out = backtrace(bp, ck, scores, W, K, s_cap)
         return out if return_timestamps else out[:3]
-    ks = min(K + 8, v)  # the stay term's window (see module docstring)
-    lpk, ck = topk(log_probs, ks)
-    lpk, ck = apply_token_min_logp(lpk, ck, token_min_logp)
-    lpb = log_probs[:, :, blank].contiguous()
-    inc = None if lm is None else lm_alpha * lm._table + lm_beta
-    bp, scores, last, _ = beam_step(lpk, ck, lpb, il, W, K, s_cap,
-                                    int(blank), inc=inc)
-    if lm is not None:  # end-of-sequence bonus, after the last frame
-        eos = lm._eos[last.long().clamp(0, v - 1)]
-        scores = scores + torch.where(last >= 0, lm_alpha * eos, 0.0)
-    out = backtrace(bp, ck, scores, W, K, s_cap)
-    return out if return_timestamps else out[:3]
 
 
 class BeamSearchCTCDecoder:

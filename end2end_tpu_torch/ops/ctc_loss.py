@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.profiling import span
 from .ctc_loss_cuda import ctc_nll_cuda
 from .ctc_loss_plain import ctc_nll_plain
 
@@ -101,35 +102,36 @@ def ctc_loss(log_probs, targets, input_lengths, target_lengths,
     `from_logits=True` applies `torch.log_softmax` over the vocabulary
     first; `batch_first=True` takes (N, T, C).  Lengths and targets may be
     tensors, numpy arrays or lists; 1-D targets are unpacked on the host."""
-    if reduction not in ("none", "mean", "sum"):
-        raise ValueError(f"invalid reduction {reduction!r}")
-    log_probs = torch.as_tensor(log_probs)
-    if log_probs.ndim != 3:
-        raise ValueError(
-            f"log_probs must be (T, N, C); got {tuple(log_probs.shape)}")
-    if batch_first:
-        log_probs = log_probs.transpose(0, 1)
-    if log_probs.dtype in (torch.bfloat16, torch.float16):
-        log_probs = log_probs.float()
-    if from_logits:
-        log_probs = torch.log_softmax(log_probs, dim=-1)
-    n = log_probs.shape[1]
-    t_ndim = (targets.ndim if isinstance(targets, torch.Tensor)
-              else np.ndim(targets))
-    if t_ndim == 1:
-        targets = _unpack_flat_targets(_host(targets), _host(target_lengths),
-                                       n)
-    dev = log_probs.device
-    target_lengths = torch.as_tensor(target_lengths, device=dev)
-    nll = ctc_nll(log_probs, targets, input_lengths, target_lengths, blank,
-                  implementation, checkpoint_every)
-    if zero_infinity:
-        nll = torch.where(torch.isinf(nll), torch.zeros_like(nll), nll)
-    if reduction == "none":
-        return nll
-    if reduction == "sum":
-        return nll.sum()
-    return (nll / torch.clamp(target_lengths, min=1).to(nll.dtype)).mean()
+    with span("ctc.loss"):
+        if reduction not in ("none", "mean", "sum"):
+            raise ValueError(f"invalid reduction {reduction!r}")
+        log_probs = torch.as_tensor(log_probs)
+        if log_probs.ndim != 3:
+            raise ValueError(
+                f"log_probs must be (T, N, C); got {tuple(log_probs.shape)}")
+        if batch_first:
+            log_probs = log_probs.transpose(0, 1)
+        if log_probs.dtype in (torch.bfloat16, torch.float16):
+            log_probs = log_probs.float()
+        if from_logits:
+            log_probs = torch.log_softmax(log_probs, dim=-1)
+        n = log_probs.shape[1]
+        t_ndim = (targets.ndim if isinstance(targets, torch.Tensor)
+                  else np.ndim(targets))
+        if t_ndim == 1:
+            targets = _unpack_flat_targets(_host(targets),
+                                           _host(target_lengths), n)
+        dev = log_probs.device
+        target_lengths = torch.as_tensor(target_lengths, device=dev)
+        nll = ctc_nll(log_probs, targets, input_lengths, target_lengths, blank,
+                      implementation, checkpoint_every)
+        if zero_infinity:
+            nll = torch.where(torch.isinf(nll), torch.zeros_like(nll), nll)
+        if reduction == "none":
+            return nll
+        if reduction == "sum":
+            return nll.sum()
+        return (nll / torch.clamp(target_lengths, min=1).to(nll.dtype)).mean()
 
 
 class CTCLoss(nn.Module):

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
+
 
 def _as_time_major(log_probs, from_logits, batch_first):
     log_probs = torch.as_tensor(log_probs)
@@ -77,10 +79,11 @@ def greedy_decode(log_probs, input_lengths=None, blank: int = 0,
       tokens (N, T) int32 left-aligned ids, pad_id elsewhere; lengths (N,)
       int32; scores (N,) sum of the best-path log-probs over valid frames.
     """
-    log_probs = _as_time_major(log_probs, from_logits, batch_first)
-    best, ids = log_probs.max(dim=-1)
-    return greedy_decode_from_path(ids, best, input_lengths, blank=blank,
-                                   pad_id=pad_id)
+    with span("ctc.greedy"):
+        log_probs = _as_time_major(log_probs, from_logits, batch_first)
+        best, ids = log_probs.max(dim=-1)
+        return greedy_decode_from_path(ids, best, input_lengths, blank=blank,
+                                       pad_id=pad_id)
 
 
 def greedy_decode_with_timestamps(log_probs, input_lengths=None,

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .beam_search import _gather_w, _masked_logsumexp
 from .beam_search_cuda import _wrap32, check_lm_device
 from .lm import _where_rows
@@ -118,11 +119,12 @@ def _lengths(input_lengths, n, t_max, dev):
 def _prefix_states(predictor_step, init_hidden, tokens):
     """(M, S) token ids -> (M, S+1, H): the predictor state before each
     token and after the last, from `init_hidden` (H,) on every row."""
-    h = torch.as_tensor(init_hidden).to(tokens.device)
-    hs = [h.expand(tokens.shape[0], *h.shape)]
-    for col in tokens.T:
-        hs.append(predictor_step(hs[-1], col))
-    return torch.stack(hs, 1)
+    with span("rnnt.predictor"):
+        h = torch.as_tensor(init_hidden).to(tokens.device)
+        hs = [h.expand(tokens.shape[0], *h.shape)]
+        for col in tokens.T:
+            hs.append(predictor_step(hs[-1], col))
+        return torch.stack(hs, 1)
 
 
 def _lse(logits):

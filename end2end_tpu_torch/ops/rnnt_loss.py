@@ -32,6 +32,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.profiling import span
 from . import rnnt_loss_cuda, rnnt_loss_plain
 from .rnnt_loss_plain import log_z, mask_labels, planes
 
@@ -214,11 +215,12 @@ def rnnt_loss(log_probs_or_logits, targets, input_lengths, target_lengths,
               from_logits: bool = True, implementation: str = "auto"):
     """Transducer loss: `rnnt_nll` reduced by 'none', 'sum' or 'mean' (the
     plain batch mean, as torchaudio's, not CTC's per-target-length one)."""
-    _check_reduction(reduction)
-    return _reduce(rnnt_nll(log_probs_or_logits, targets, input_lengths,
-                            target_lengths, blank=blank,
-                            from_logits=from_logits,
-                            implementation=implementation), reduction)
+    with span("rnnt.loss"):
+        _check_reduction(reduction)
+        return _reduce(rnnt_nll(log_probs_or_logits, targets, input_lengths,
+                                target_lengths, blank=blank,
+                                from_logits=from_logits,
+                                implementation=implementation), reduction)
 
 
 def fused_additive_joint(w_out, b_out, activation=torch.tanh,

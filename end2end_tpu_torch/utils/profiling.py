@@ -12,6 +12,15 @@
     is logged with its seconds and the library's file name.
   * `Throughput`: a steady-state throughput meter (wall time, iterations/s
     and units/s).
+  * `span(name)`: a `torch.profiler.record_function` range around a block
+    while a profiler records, and a shared null context otherwise (one
+    flag check).  The port marks its layer boundaries with it: the
+    pipelines' and the transducer's entry points, the frontend, the
+    encoder with its subsampler and block loop, the losses, the GRU
+    predictor's loop, the joint and the decoders.  A span sits around a
+    whole loop, never inside one, and never in a backward: the profiler
+    stamps each backward node with the sequence number of the forward op
+    that made it, which ties the node to that op's span.
 """
 
 from __future__ import annotations
@@ -26,6 +35,16 @@ import torch
 logger = logging.getLogger("end2end_tpu_torch")
 
 _LOG_BUILDS: list[bool] = []  # the `enabled` of each open log_compiles
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range named `name` around the block while a profiler
+    records (its times share the device trace's clock); else a shared
+    null context."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
