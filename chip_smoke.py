@@ -126,7 +126,8 @@ Phases (every failure raises, so the exit code is nonzero):
      default) takes 3 AdamW steps on batches of 8 requests (30/22/15 s as
      log-mel features, padded to 30 s, T'=750) with random targets of
      T'/5 labels (lattice (8, 750, 151, 32)); the counters must show K8
-     and K9 once per step and every loss finite and > 0; on the first
+     and K9 once per step, the predictor's GRU kernels (phase 37) once a
+     direction per step, and every loss finite and > 0; on the first
      batch the CUDA loss within 1e-3 rel of the CPU model's, every
      parameter's gradient through the kernels within 1e-4 (of its max)
      of the plain scan's, and K8/K9 within phase 15's tolerances (and
@@ -307,7 +308,8 @@ Phases (every failure raises, so the exit code is nonzero):
      default widths on B=8 requests of 10 s (T = T' = 998): phase 16's
      checks on the batch (the loss against the CPU, the gradients through
      K8/K9 against the plain scan's, K8/K9 against their twins and the
-     parent kernels), one AdamW step (K8 and K9 once) and the greedy
+     parent kernels), one AdamW step (K8 and K9 once, the GRU kernels
+     once a direction) and the greedy
      decode card against CPU (some request emitting and agreeing, scores
      within 1e-3 where the tokens agree);
  34. the multi-GPU slice: 4 gloo ranks on the one card (phase 24's
@@ -368,7 +370,21 @@ Phases (every failure raises, so the exit code is nonzero):
      `utils.profiling.Throughput`; and the five examples
      (`python -m end2end_tpu_torch.examples.<name>`), started together,
      each a process on the card, must exit 0 (steps 25, serving_demo its
-     15).  Its launches join every kernel row's.
+     15).  Its launches join every kernel row's;
+ 37. the transducer predictor's GRU kernels (`csrc/gru_seq.cu`, one
+     launch a direction) on the card through tests/test_torch_gru_seq.py's
+     `card_errors` at its `CARD_SHAPES` (the transducer cell's widths,
+     E = H = 640, V = 1025, at its 36 s, 14 s and 4 s buckets, (N, U) =
+     (11, 158), (28, 63), (100, 18); and H = 10): each kernel against its
+     plain twin on the same inputs, and `gru_prefix_states` (one launch a
+     direction) against autograd through the `gru_step` loop, states and
+     every predictor gradient within `CARD_TOL` of each tensor's max;
+     then at the three buckets the forward and backward kernels alone
+     against `gru_bound` (the float32 FMAs at the CUDA-core rate, or the
+     bytes at HBM's) and against their step chain (the same kernels on
+     two rows: 2U barriers and each phase's least work), the predictor's
+     forward + backward through `gru_prefix_states` against the step loop
+     it replaced, and the plain twins once each.
 Every kernel row and library yardstick is also timed on the device alone
 (`device_ms`: calls captured in a CUDA graph and replayed between one
 pair of events; torch.profiler's kernel time where a call cannot be
@@ -421,9 +437,10 @@ from end2end_tpu_torch.models.streaming import (_rnnt_encoded_chunks,
                                                 transcribe_long_form_rnnt)
 from end2end_tpu_torch.ops import (alignment, beam_chunked, beam_search_cuda,
                                    ctc_common, ctc_loss_cuda, ctc_loss_plain,
-                                   mwer, rnnt_decode, rnnt_joint_cuda,
-                                   rnnt_joint_plain, rnnt_loss_cuda,
-                                   rnnt_loss_plain, topk_cuda)
+                                   gru_cuda, mwer, neural_lm, rnnt_decode,
+                                   rnnt_joint_cuda, rnnt_joint_plain,
+                                   rnnt_loss_cuda, rnnt_loss_plain,
+                                   topk_cuda)
 from end2end_tpu_torch.ops.beam_search import (beam_search_decode,
                                                beam_search_from_topk)
 from end2end_tpu_torch.ops.ctc_loss import ctc_loss, ctc_nll
@@ -475,6 +492,8 @@ from end2end_tpu_torch.utils.reference_impl import (beam_search_decode_ref,
 from end2end_tpu_torch.utils.rnnt_reference import rnnt_logits_grad_ref
 from end2end_tpu_torch.utils.subtitles import group_word_spans, to_srt
 from end2end_tpu_torch.utils.text import asr_alphabet
+from tests.test_torch_gru_seq import (CARD_SHAPES, CARD_TOL, card_errors,
+                                      gru_case)
 
 SEED = 0
 SCORE_TOL = 1e-4  # beam-set scores, kernel vs plain: ulp-level libm drift
@@ -562,6 +581,10 @@ TP_SHAPES = {  # the bench row is phase 20's problem
 # the bench row), so one flip moves it by more of its own max
 TP_NLL_RTOL = 1e-5
 TP_TIMEOUT = datetime.timedelta(seconds=300)  # a stuck collective raises
+# The predictor's GRU kernels (phase 37): the shapes, limits and the
+# comparison are tests/test_torch_gru_seq.py's (`CARD_SHAPES`, `CARD_TOL`,
+# `card_errors`); the first three shapes are the transducer cell's buckets
+GRU_ROW = "n11_u158"  # the kernels line's shape
 # H100 SXM data sheet: HBM bandwidth and the float32 rate outside the
 # tensor cores, yardsticks of each kernel's bound; the dense bf16
 # tensor-core rate (4096 a clock per SM, tensor_ops_per_s) and the exp
@@ -1679,8 +1702,9 @@ TRANSDUCER_PARTS = ("tr_encoder_fwd_bwd", "tr_predictor_fwd_bwd",
 
 def time_transducer_parts(model, batch):
     """The train step's pieces, each forward + backward on its own (the
-    backward seeded with ones): the encoder, the predictor's U-step GRU
-    loop, the joint logits, the loss + gradient wrt the logits (K8, K9 and
+    backward seeded with ones): the encoder, the predictor's states
+    (`gru_prefix_states`: on the card one GRU kernel launch a direction),
+    the joint logits, the loss + gradient wrt the logits (K8, K9 and
     the vocabulary prep and combine), and the AdamW update."""
     feats, lens, tgt, tl = batch
     with torch.no_grad():
@@ -3352,14 +3376,17 @@ def dense_transducer_slice(rng, dev, ref_lib):
         return loss.detach()
 
     torch.cuda.synchronize()
-    for k in rnnt_loss_cuda.launches:
-        rnnt_loss_cuda.launches[k] = 0
+    for c in (rnnt_loss_cuda.launches, gru_cuda.launches):
+        for k in c:
+            c[k] = 0
     loss = step().item()
     torch.cuda.synchronize()
     launches = dict(rnnt_loss_cuda.launches)
-    if launches != {"rnnt_alpha": 1, "rnnt_posteriors": 1}:
+    gru_launches = dict(gru_cuda.launches)
+    if launches != {"rnnt_alpha": 1, "rnnt_posteriors": 1} or \
+            gru_launches != {"gru_forward": 1, "gru_backward": 1}:
         raise AssertionError(f"kernels missed on the Dense transducer step: "
-                             f"{launches}")
+                             f"{launches}, {gru_launches}")
     if not (np.isfinite(loss) and loss > 0):
         raise AssertionError(f"bad Dense transducer loss {loss}")
     same = [i for i in range(8)
@@ -3374,14 +3401,16 @@ def dense_transducer_slice(rng, dev, ref_lib):
     log(f"phase 33 Dense-front-end transducer (d 144, 2 layers, 80 mels, "
         f"subsample=False): lattice {tuple(dp[0].shape)} x "
         f"V={cfg.vocab_size}; one AdamW step, loss {loss:.6f}, launches "
-        f"{launches}; greedy decode (blank bias {DECODE_BLANK_BIAS}) "
+        f"{launches}, the predictor's {gru_launches}; greedy decode (blank "
+        f"bias {DECODE_BLANK_BIAS}) "
         f"lengths {tlen.tolist()}, {len(same)} of "
         f"8 requests decode alike on the card and the CPU, their scores "
         f"within {sc_err:.3g} relative")
     if sc_err > ALSD_SCORE_TOL or not torch.isfinite(tsc).all():
         raise AssertionError(f"Dense transducer greedy decode card vs CPU: "
                              f"score err {sc_err}")
-    return {"step": step, "launches": launches, "errs": errs}
+    return {"step": step, "launches": launches, "gru_launches": gru_launches,
+            "errs": errs}
 
 
 class CollectiveClock:
@@ -3434,7 +3463,8 @@ def all_counts():
     """Every launch counter of the port's kernels, by kernel row name."""
     beam = beam_counts()
     return {**ctc_loss_cuda.launches, **rnnt_loss_cuda.launches,
-            **rnnt_joint_cuda.launches, "topk": topk_cuda.launches,
+            **rnnt_joint_cuda.launches, **gru_cuda.launches,
+            "topk": topk_cuda.launches,
             "beam_step": beam["launches"], "beam_step_lm": beam["launches_lm"],
             "beam_step_cls": beam["launches_cls"],
             "beam_step_resume": beam["launches_resume"],
@@ -3445,7 +3475,8 @@ def all_counts():
 
 def zero_all_counts():
     zero_ctc_counts()
-    for c in (rnnt_loss_cuda.launches, rnnt_joint_cuda.launches):
+    for c in (rnnt_loss_cuda.launches, rnnt_joint_cuda.launches,
+              gru_cuda.launches):
         for k in c:
             c[k] = 0
     reset_counts()
@@ -4332,6 +4363,104 @@ def utilities_slice(pipe, cfg, dev, batches, tbatches, lp, il, kn_arpa,
     return out
 
 
+def gru_bound(n, u, h):
+    """One direction of the recurrence at the card's peaks: its
+    3 N U H^2 float32 FMAs on CUDA cores (the forward's z, r and candidate
+    products; the backward's three transposed ones), or its bytes, 7 N U H
+    floats each way plus a state or cotangent row a step and the three
+    (H, H) weights once: the forward reads gx (3H a row and step) and
+    writes the tape (4H: z, r, c, q) and the states; the backward reads
+    z, r, c, the states and their cotangent and writes dgx (3H).  Not in
+    it: the 2U grid barriers of the step chain, which phase 37 times
+    apart, on two rows."""
+    nbytes = 4 * (7 * n * u * h + n * (u + 1) * h + 3 * h * h)
+    return bound(nbytes, 2 * 3 * n * u * h * h)
+
+
+def gru_seq_slice(dev):
+    """Phase 37: the predictor's GRU kernels against their plain twins
+    and the step loop on the card, then timed against their bound, their
+    step chain at N = 2 and the loop they replace."""
+    t0 = time.perf_counter()
+    errs = {"gru_forward": 0.0, "gru_backward": 0.0}
+    for n, u, e, h, v in CARD_SHAPES:
+        err, ran = card_errors(n, u, e, h, v, dev)
+        log(f"phase 37 GRU (N={n}, U={u}, E={e}, H={h}, V={v}): launches "
+            f"{ran}, errors (of each tensor's max) "
+            + ", ".join(f"{k} {x:.3g}" for k, x in err.items()))
+        bad = {k: x for k, x in err.items() if not x < CARD_TOL[k]}
+        if bad or ran != {"gru_forward": 1, "gru_backward": 1}:
+            raise AssertionError(f"phase 37 GRU kernels: launches {ran}, "
+                                 f"errors over CARD_TOL {bad}")
+        errs["gru_forward"] = max(errs["gru_forward"], err["states"],
+                                  err["tape"])
+        errs["gru_backward"] = max(errs["gru_backward"], err["dgx"],
+                                   err["dh0"])
+    ms, bounds = {}, {}
+    for n, u, e, h, v in CARD_SHAPES[:3]:
+        tag = f"n{n}_u{u}"
+        params, h0, toks, cot = gru_case(n * 1000 + u, v, e, h, n, u,
+                                         device=dev)
+        with torch.no_grad():
+            p = {k: x.detach() for k, x in params.items()}
+            h0 = h0.detach()
+            wx = torch.cat([p[k][:e] for k in ("wz", "wr", "wh")], 1)
+            gx = (p["emb"][toks] @ wx
+                  + torch.cat([p["bz"], p["br"], p["bh"]])).contiguous()
+            hidden = [p[k][e:] for k in ("wz", "wr", "wh")]
+            states, tape = gru_cuda.gru_forward(gx, *hidden, h0)
+            # the step chain: the same grid and U steps on two rows
+            gx2 = gx[:2].contiguous()
+            states2, tape2 = gru_cuda.gru_forward(gx2, *hidden, h0)
+        fwd = partial(gru_cuda.gru_forward, gx, *hidden, h0)
+        bwd = partial(gru_cuda.gru_backward, cot, states, tape, *hidden)
+        step = partial(neural_lm.gru_prefix_states, params, h0, toks)
+        loop = partial(rnnt_decode._prefix_states,
+                       partial(gru_step, params), h0, toks)
+        for key, fn, reps in (
+                (f"gru_forward_{tag}_bench", fwd, 20),
+                (f"gru_backward_{tag}_bench", bwd, 20),
+                (f"gru_forward_{tag}_chain",
+                 partial(gru_cuda.gru_forward, gx2, *hidden, h0), 20),
+                (f"gru_backward_{tag}_chain",
+                 partial(gru_cuda.gru_backward, cot[:2].contiguous(),
+                         states2, tape2, *hidden), 20),
+                (f"gru_forward_{tag}_plain_bench",
+                 partial(neural_lm.gru_seq_forward_plain, gx, *hidden, h0),
+                 3),
+                (f"gru_backward_{tag}_plain_bench",
+                 partial(neural_lm.gru_seq_backward_plain, cot, states,
+                         tape, *hidden), 3),
+                (f"gru_step_{tag}",
+                 lambda: (step() * cot).sum().backward(), 10),
+                (f"gru_loop_{tag}",
+                 lambda: (loop() * cot).sum().backward(), 3)):
+            ms[key] = time_ms(fn, reps=reps)
+        for d in ("forward", "backward"):  # one launch: events time it
+            DEVICE_MS[f"gru_{d}_{tag}_bench"] = (
+                ms[f"gru_{d}_{tag}_bench"], "events")
+        bounds[tag] = gru_bound(n, u, h)
+        plan = gru_cuda._plan(dev, n, h)
+        chain = {d: ms[f"gru_{d}_{tag}_chain"] for d in ("forward",
+                                                         "backward")}
+        log(f"phase 37 GRU time (N={n}, U={u}, H={h}; plan {plan}): "
+            f"forward kernel {ms[f'gru_forward_{tag}_bench']:.4f} ms, "
+            f"backward {ms[f'gru_backward_{tag}_bench']:.4f} ms; bound "
+            f"{bounds[tag][0]:.4f} ms each ({bounds[tag][1]}); the step "
+            f"chain (N = 2, the same grid and U) forward "
+            f"{chain['forward']:.4f} ms, backward {chain['backward']:.4f} "
+            f"ms ({chain['forward'] * 1e3 / (2 * u):.3f} / "
+            f"{chain['backward'] * 1e3 / (2 * u):.3f} us a barrier and its "
+            f"phase); the predictor's forward + backward (x-side matmul, "
+            f"kernels, weight-gradient matmuls) "
+            f"{ms[f'gru_step_{tag}']:.3f} ms against the step loop's "
+            f"{ms[f'gru_loop_{tag}']:.3f} ms; plain twins forward "
+            f"{ms[f'gru_forward_{tag}_plain_bench']:.3f}, backward "
+            f"{ms[f'gru_backward_{tag}_plain_bench']:.3f} ms")
+    log(f"phase 37 done in {time.perf_counter() - t0:.1f} s")
+    return {"errs": errs, "ms": ms, "bounds": bounds}
+
+
 def main() -> None:
     # 1. the device
     if not torch.cuda.is_available():
@@ -4851,8 +4980,9 @@ def main() -> None:
     rnnt_err = [max(a, e) for a, e in zip(rnnt_err, errs)]
     opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
     torch.cuda.synchronize()
-    for k in rnnt_loss_cuda.launches:
-        rnnt_loss_cuda.launches[k] = 0
+    for c in (rnnt_loss_cuda.launches, gru_cuda.launches):
+        for k in c:
+            c[k] = 0
     losses = []
     for batch in xbatches:
         opt.zero_grad()
@@ -4862,12 +4992,15 @@ def main() -> None:
         losses.append(loss.item())
     torch.cuda.synchronize()
     rnnt_launches = dict(rnnt_loss_cuda.launches)
+    gru_launches = dict(gru_cuda.launches)
     log(f"phase 16 training: 3 AdamW steps x 8 requests, lattice "
         f"{tuple(main_dp[0].shape)} x V={tcfg.vocab_size}, losses "
-        f"{[round(x, 6) for x in losses]}, launches {rnnt_launches}")
-    if rnnt_launches != {"rnnt_alpha": 3, "rnnt_posteriors": 3}:
-        raise AssertionError(
-            f"kernels missed on the transducer path: {rnnt_launches}")
+        f"{[round(x, 6) for x in losses]}, launches {rnnt_launches}, "
+        f"the predictor's {gru_launches}")
+    if rnnt_launches != {"rnnt_alpha": 3, "rnnt_posteriors": 3} or \
+            gru_launches != {"gru_forward": 3, "gru_backward": 3}:
+        raise AssertionError(f"kernels missed on the transducer path: "
+                             f"{rnnt_launches}, {gru_launches}")
     if not all(np.isfinite(x) and x > 0 for x in losses):
         raise AssertionError(f"bad transducer loss: {losses}")
     feats, lens = xbatches[0][:2]
@@ -5360,6 +5493,9 @@ def main() -> None:
     s36 = utilities_slice(pipe, cfg, dev, batches, tbatches, lp_gpu,
                           serve_il, slice29["kn"], build_log)
     p36 = s36["launches"].get
+    # 37. the predictor's GRU kernels against their plain twins, and timed
+    s37 = gru_seq_slice(dev)
+    ms.update(s37["ms"])
 
     def mg_launches(kernel):  # every rank's, every path's
         return sum(n for x in mg for key, c in x.items()
@@ -5469,6 +5605,14 @@ def main() -> None:
         ("ctc_align", "end2end_tpu_torch/csrc/ctc_align.cu",
          "end2end_tpu/ops/alignment.py:37", align_launches, align_err,
          "ctc_align_main", align_b, None),
+        # outside Pallas on the TPU: the predictor's lax.scan; times at the
+        # transducer cell's longest bucket (N=11, U=158)
+        *(("gru_" + d, "end2end_tpu_torch/csrc/gru_seq.cu",
+           "end2end_tpu/models/transducer.py:112",
+           gru_launches["gru_" + d] + s_dense["gru_launches"]["gru_" + d]
+           + p36("gru_" + d, 0),
+           s37["errs"]["gru_" + d], f"gru_{d}_{GRU_ROW}_bench",
+           s37["bounds"][GRU_ROW], None) for d in ("forward", "backward")),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

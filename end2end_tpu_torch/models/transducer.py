@@ -8,9 +8,11 @@ port of `end2end_tpu/models/transducer.py`).
 
 Three parts: ``encoder``, the port's `ConformerEncoder` whose last Linear
 projects to ``enc_dim`` features; ``pred``, the GRU predictor of
-ops/neural_lm.py (its parameters in the JAX layout); ``joint``, the
-additive joint ``W_out tanh(W_enc f + W_pred h + b) + b_out`` with (in,
-out) matrices.  Training builds the (N, T', U+1, V) joint logits and feeds
+ops/neural_lm.py (its parameters in the JAX layout; training's states
+over the targets are `gru_prefix_states`, on the card one kernel launch
+forward and one backward); ``joint``, the additive joint
+``W_out tanh(W_enc f + W_pred h + b) + b_out`` with (in, out) matrices.
+Training builds the (N, T', U+1, V) joint logits and feeds
 `rnnt_loss` (on the card: kernels K8/K9); decoding is greedy or ALSD beam
 search (ops/rnnt_decode.py; the beam's top-k is kernel K3 on the card).
 The predictor and joint weights are drawn from
@@ -29,9 +31,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.neural_lm import gru_step, random_gru_params
-from ..ops.rnnt_decode import (FactoredAdditiveJoint, _prefix_states,
-                               rnnt_beam_decode, rnnt_greedy_decode)
+from ..ops.neural_lm import gru_prefix_states, gru_step, random_gru_params
+from ..ops.rnnt_decode import (FactoredAdditiveJoint, rnnt_beam_decode,
+                               rnnt_greedy_decode)
 from ..ops.rnnt_loss import rnnt_loss
 from ..utils.convert import transducer_state_dict_from_jax
 from ..utils.device import resolve_device
@@ -109,9 +111,10 @@ class ConformerTransducer(nn.Module):
                             self._tensor(lengths))
 
     def _pred_states(self, targets):
-        """(N, U) target ids -> (N, U+1, H) prefix states (h_0 = 0)."""
-        return _prefix_states(
-            partial(gru_step, self.pred),
+        """(N, U) target ids -> (N, U+1, H) prefix states (h_0 = 0); on
+        the card one GRU kernel launch forward and one backward."""
+        return gru_prefix_states(
+            self.pred,
             torch.zeros(self.config.pred_hidden, device=self.device),
             self._tensor(targets).long())
 

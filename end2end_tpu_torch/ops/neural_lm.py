@@ -1,7 +1,10 @@
 """Neural-LM shallow fusion (torch port of `end2end_tpu/ops/neural_lm.py`):
 `NeuralLM`, the protocol wrapper around any stateful next-token model, and
 the functional GRU cell (`gru_step`, `gru_logits`, `random_gru_params`;
-also the transducer's predictor).
+also the transducer's predictor, whose states over a whole target sequence
+are `gru_prefix_states`: on the card one kernel launch a direction,
+`ops/gru_cuda.py`, held to the plain twins `gru_seq_forward_plain` and
+`gru_seq_backward_plain`).
 
 `NeuralLM`'s state defers each beam's last token: (hidden, pending), the
 hidden state after the prefix less its last token and that token (-1:
@@ -29,7 +32,10 @@ import torch
 from torch.utils._pytree import tree_map
 
 from ..utils.device import resolve_device
+from ..utils.profiling import span
+from . import gru_cuda
 from .lm import _state_device, _where_rows
+from .rnnt_decode import _prefix_states
 
 
 class NeuralLM:
@@ -143,6 +149,111 @@ def gru_step(params, h: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
 def gru_logits(params, h: torch.Tensor) -> torch.Tensor:
     """Next-token logits (..., V) from hidden states (..., H)."""
     return h @ params["wo"] + params["bo"]
+
+
+def gru_prefix_states(params, init_hidden, tokens):
+    """(N, U) token ids -> (N, U+1, H): the GRU's state before each token
+    and after the last, from `init_hidden` (H,) on every row (the
+    transducer's predictor states).  CUDA weights: the sequence as one
+    autograd Function, one launch of `csrc/gru_seq.cu` forward and one
+    backward (`ops/gru_cuda.py`; float32 only, it raises on anything
+    else).  CPU weights: the step loop, `rnnt_decode._prefix_states`."""
+    if not params["wz"].is_cuda:
+        return _prefix_states(partial(gru_step, params), init_hidden,
+                              tokens)
+    with span("rnnt.predictor"):
+        return _gru_sequence(params, init_hidden, tokens)
+
+
+def gru_seq_forward_plain(gx, wz_h, wr_h, wh_h, h0):
+    """The kernel's forward in torch: gx (N, U, 3H), the x-side terms and
+    biases of every step (z, r, candidate); the hidden-side weights
+    (H, H); h0 (H,).  Returns the states (N, U+1, H) and the tape
+    (N, U, 4H) of z, r, the candidate c and q = r * h."""
+    h = wz_h.shape[0]
+    hs = [h0.expand(gx.shape[0], h)]
+    tape = []
+    for g in gx.unbind(1):
+        hp = hs[-1]
+        z = torch.sigmoid(g[:, :h] + hp @ wz_h)
+        r = torch.sigmoid(g[:, h:2 * h] + hp @ wr_h)
+        q = r * hp
+        c = torch.tanh(g[:, 2 * h:] + q @ wh_h)
+        hs.append((1.0 - z) * hp + z * c)
+        tape.append(torch.cat([z, r, c, q], 1))
+    return torch.stack(hs, 1), torch.stack(tape, 1)
+
+
+def gru_seq_backward_plain(d_states, states, tape, wz_h, wr_h, wh_h):
+    """The kernel's backward in torch, derived by hand: from the states'
+    cotangent (N, U+1, H) and the forward's states and tape, the
+    gradients of the pre-activations (N, U, 3H) and of each row's h_0
+    (N, H)."""
+    h = wz_h.shape[0]
+    g = d_states[:, -1]
+    dgx = []
+    for t in range(tape.shape[1] - 1, -1, -1):
+        z, r, c, _ = tape[:, t].split(h, 1)
+        hp = states[:, t]
+        dac = g * z * (1.0 - c * c)
+        daz = g * (c - hp) * z * (1.0 - z)
+        dq = dac @ wh_h.T
+        dar = dq * hp * r * (1.0 - r)
+        g = (g * (1.0 - z) + dq * r + daz @ wz_h.T + dar @ wr_h.T
+             + d_states[:, t])
+        dgx.append(torch.cat([daz, dar, dac], 1))
+    return torch.stack(dgx[::-1], 1), g
+
+
+class _GRUSequence(torch.autograd.Function):
+    """The predictor's whole sequence as one node: the x-side terms of
+    every step in one matmul, the recurrence where the tensors are (the
+    kernels on the card, raising on what they do not take; the plain
+    twins on the CPU, which `gru_prefix_states` does not send here: the
+    CPU tests hold this backward's matmuls to the loop through them), and
+    in the backward the weight, bias and embedding gradients over all N U
+    rows in a few matmuls and one index_add_."""
+
+    @staticmethod
+    def forward(ctx, tokens, emb, wz, wr, wh, bz, br, bh, h0):
+        n, u = tokens.shape
+        e, h = emb.shape[1], wz.shape[1]
+        wx = torch.cat([wz[:e], wr[:e], wh[:e]], 1)
+        x = emb[tokens].reshape(n * u, e)
+        gx = torch.addmm(torch.cat([bz, br, bh]), x, wx).view(n, u, 3 * h)
+        hidden = (wz[e:], wr[e:], wh[e:])
+        fwd = gru_cuda.gru_forward if gx.is_cuda else gru_seq_forward_plain
+        states, tape = fwd(gx, *hidden, h0)
+        ctx.save_for_backward(tokens, emb, x, wx, states, tape, *hidden)
+        return states
+
+    @staticmethod
+    def backward(ctx, d_states):
+        tokens, emb, x, wx, states, tape, *hidden = ctx.saved_tensors
+        bwd = (gru_cuda.gru_backward if states.is_cuda
+               else gru_seq_backward_plain)
+        dgx, dh0 = bwd(d_states.contiguous(), states, tape, *hidden)
+        h = states.shape[2]
+        dg = dgx.reshape(-1, 3 * h)
+        hp = states[:, :-1].reshape(-1, h)
+        q = tape[..., 3 * h:].reshape(-1, h)
+        dwzr = torch.cat([x, hp], 1).T @ dg[:, :2 * h]
+        dwh = torch.cat([x, q], 1).T @ dg[:, 2 * h:]
+        demb = torch.zeros_like(emb).index_add_(
+            0, tokens.reshape(-1).remainder(emb.shape[0]), dg @ wx.T)
+        return (None, demb, dwzr[:, :h], dwzr[:, h:], dwh,
+                *dg.sum(0).split(h), dh0.sum(0))
+
+
+def _gru_sequence(params, init_hidden, tokens):
+    """`_GRUSequence` on the predictor's parameters; tokens (N, U) long
+    (-1 is the last row, as in `gru_step`'s indexing)."""
+    h0 = torch.as_tensor(init_hidden).to(params["wz"].device)
+    if tokens.shape[0] == 0 or tokens.shape[1] == 0:
+        return h0.expand(tokens.shape[0], 1, *h0.shape).clone()
+    return _GRUSequence.apply(
+        tokens.long(), *(params[k] for k in (
+            "emb", "wz", "wr", "wh", "bz", "br", "bh")), h0)
 
 
 def random_gru_params(rng: np.random.Generator, vocab_size, emb_dim=32,

@@ -86,6 +86,14 @@ _SIGNATURES = {
     # stream
     "e2e_rnnt_joint_dw": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                           _LL, _I, _I, _I, _I, _I, _VP),
+    # gx, wz_h, wr_h, wh_h, h0, states, tape, bar, n, u, h, units, slices,
+    # groups, rows_tile, threads, smem, stream
+    "e2e_gru_seq_fwd": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _VP),
+    # states, tape, d_states, wz_h, wr_h, wh_h, dgx, dh0, bar, n, u, h,
+    # units, slices, groups, rows_tile, threads, smem, stream
+    "e2e_gru_seq_bwd": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _I, _VP),
     # J, info (int[6], int[5] for K12)
     "e2e_rnnt_joint_fwd_plan": (_I, _VP),
     "e2e_rnnt_joint_dh_plan": (_I, _VP),

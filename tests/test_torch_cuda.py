@@ -11,8 +11,8 @@ import pytest
 import torch
 
 from end2end_tpu_torch.ops import (alignment, beam_search_cuda,
-                                   ctc_loss_cuda, ctc_loss_plain,
-                                   rnnt_joint_cuda,
+                                   ctc_loss_cuda, ctc_loss_plain, gru_cuda,
+                                   neural_lm, rnnt_joint_cuda,
                                    rnnt_joint_plain, rnnt_loss_cuda,
                                    rnnt_loss_plain, topk_cuda)
 from end2end_tpu_torch.ops.ctc_common import build_ctc_tables
@@ -27,6 +27,8 @@ from end2end_tpu_torch.tools import (beam_step_breakdown, ctc_alpha_breakdown,
                                      rnnt_wavefront_breakdown,
                                      topk_breakdown)
 from end2end_tpu_torch.utils import cuda_build
+from tests.test_torch_gru_seq import (CARD_SHAPES, CARD_TOL, card_errors,
+                                      gru_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -817,10 +819,45 @@ def test_transducer_defaults_to_the_card(dev):
     feats = torch.randn(2, 37, 12, device=dev)
     lens = torch.tensor([37, 29], device=dev)
     before = dict(rnnt_loss_cuda.launches)
+    gru_before = dict(gru_cuda.launches)
     model.loss(feats, lens, [[1, 2, 3], [4, 5, 0]], [3, 2]).backward()
     assert rnnt_loss_cuda.launches == {k: c + 1 for k, c in before.items()}
+    assert gru_cuda.launches == {k: c + 1 for k, c in gru_before.items()}
     tokens, lengths, scores = model.decode(feats, lens, max_symbols=8)
     assert tokens.shape == (2, 8) and torch.isfinite(scores).all()
+
+
+@pytest.mark.parametrize("n,u,e,h,v", CARD_SHAPES)
+def test_gru_kernels_match_plain(dev, n, u, e, h, v):
+    """The predictor's GRU kernels on the card (`card_errors`): against
+    their plain twins on the same inputs, and through `gru_prefix_states`
+    (one launch a direction) against autograd through the `gru_step` loop,
+    the states and every gradient within `CARD_TOL` of each tensor's max.
+    Not bit equality: the kernels sum in their own order, and cuBLAS in
+    its own."""
+    errs, ran = card_errors(n, u, e, h, v, dev)
+    assert ran == {"gru_forward": 1, "gru_backward": 1}
+    for k, x in errs.items():
+        assert x < CARD_TOL[k], (k, x)
+
+
+def test_gru_kernels_refuse_what_they_do_not_take(dev):
+    """float64 or non-contiguous CUDA tensors raise; nothing falls back to
+    the plain twins."""
+    h = 8
+    w = torch.zeros(h, h, device=dev)
+    gx = torch.zeros(2, 3, 3 * h, device=dev)
+    h0 = torch.zeros(h, device=dev)
+    with pytest.raises(ValueError, match="CUDA float32"):
+        gru_cuda.gru_forward(gx.double(), w, w, w, h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        gru_cuda.gru_forward(gx, w.T, w, w, h0)
+    params = {k: x.double() for k, x in gru_case(
+        0, 5, 4, h, 2, 3, device=dev)[0].items()}
+    with pytest.raises(ValueError, match="CUDA float32"):
+        neural_lm.gru_prefix_states(params, h0.double(),
+                                    torch.zeros(2, 3, dtype=torch.long,
+                                                device=dev))
 
 
 def _joint_case(seed, r, j, v, blank, dev, y_hi=None):
