@@ -12,7 +12,21 @@ the same logits:
     flattens (f, c) with f major, as flax's NHWC layout does;
   * with subsample=False the front end is one Linear (flax's Dense) over
     the features, frame for frame: out lengths are the input lengths.
-Per-sample lengths are masks: padded frames never change valid outputs.
+Per-sample lengths are masks: padded frames never change valid outputs
+(with `conv_norm="batch_norm"`, in eval mode; see `ConvModule`).
+
+Options whose defaults are the model above, key for key (FastConformer,
+Rekesh et al. 2023, as NeMo builds it, e.g. Parakeet-RNNT 1.1B):
+  * `subsampling="dw_striding"`: Conv2d(1, C, 3, s2) + ReLU, then
+    [depthwise Conv2d(C, C, 3, s2) + pointwise Conv2d(C, C, 1) + ReLU]
+    until `subsampling_factor`, then a Linear of (freq, channel) -> d;
+  * `self_attention="rel_pos"`: Transformer-XL relative positions, the
+    score ((q + u) k_j + (q + v) p_{i-j}) / sqrt(d_k) with p = linear_pos
+    of the sinusoids of offsets T'-1 .. -(T'-1), no absolute positions;
+  * `xscaling`: the subsampler's output times sqrt(d);
+  * `conv_norm="batch_norm"`: BatchNorm1d after the depthwise convolution,
+    padding zeroed after the GLU (NeMo's module) where the default zeroes
+    it before the first pointwise Linear.
 """
 
 from __future__ import annotations
@@ -40,29 +54,64 @@ def _ceil2(x):
 
 
 class ConvSubsampling(nn.Module):
-    """Two stride-2 3x3 convs: (N, T, F) -> (N, ceil(ceil(T/2)/2), d_model).
-    Activations are re-masked after each conv so the amount of padding
-    never reaches valid frames."""
+    """Stride-2 3x3 convs: (N, T, F) -> (N, T', d_model), T' = T halved
+    (rounding up) log2(factor) times.  kind "striding": log2(factor) full
+    convs with SiLU (conv0, conv1, ...; channels default to d_model);
+    "dw_striding": conv0 + ReLU, then depthwise `dw<i>` and pointwise
+    `pw<i>` convs + ReLU.  Activations are re-masked after each
+    stage so the amount of padding never reaches valid frames."""
 
-    def __init__(self, d_model: int, n_mels: int):
+    def __init__(self, d_model: int, n_mels: int, channels: int | None = None,
+                 kind: str = "striding", factor: int = 4):
         super().__init__()
-        self.conv0 = nn.Conv2d(1, d_model, 3, stride=2, padding=1)
-        self.conv1 = nn.Conv2d(d_model, d_model, 3, stride=2, padding=1)
-        self.dense = nn.Linear(_ceil2(_ceil2(n_mels)) * d_model, d_model)
+        stages = int(math.log2(factor))
+        if factor != 2 ** stages or stages < 1:
+            raise ValueError(f"subsampling_factor must be a power of 2, got "
+                             f"{factor}")
+        if kind not in ("striding", "dw_striding"):
+            raise ValueError(f"unknown subsampling {kind!r}")
+        c = channels or d_model
+        self.kind, self.factor = kind, factor
+        self.conv0 = nn.Conv2d(1, c, 3, stride=2, padding=1)
+        for i in range(1, stages):
+            if kind == "striding":
+                self.add_module(f"conv{i}", nn.Conv2d(c, c, 3, stride=2,
+                                                      padding=1))
+            else:
+                self.add_module(f"dw{i}", nn.Conv2d(c, c, 3, stride=2,
+                                                    padding=1, groups=c))
+                self.add_module(f"pw{i}", nn.Conv2d(c, c, 1))
+        f = n_mels
+        for _ in range(stages):
+            f = _ceil2(f)
+        self.dense = nn.Linear(f * c, d_model)
+
+    def _stages(self):
+        """(modules, activation) of each stage, in order."""
+        if self.kind == "striding":
+            return [((getattr(self, f"conv{i}"),), F.silu)
+                    for i in range(int(math.log2(self.factor)))]
+        return [((self.conv0,), F.relu)] + [
+            ((getattr(self, f"dw{i}"), getattr(self, f"pw{i}")), F.relu)
+            for i in range(1, int(math.log2(self.factor)))]
 
     def forward(self, x, lengths):
-        x = F.silu(self.conv0(x[:, None]))  # (N, C, T1, F1)
-        l1 = _ceil2(lengths)
-        x = x * _length_mask(l1, x.shape[2])[:, None, :, None]
-        x = F.silu(self.conv1(x))
-        l2 = _ceil2(l1)
-        x = x * _length_mask(l2, x.shape[2])[:, None, :, None]
+        x = x[:, None]  # (N, 1, T, F)
+        for convs, act in self._stages():
+            for conv in convs:
+                x = conv(x)
+            x = act(x)
+            lengths = _ceil2(lengths)
+            x = x * _length_mask(lengths, x.shape[2])[:, None, :, None]
         n, c, t, f = x.shape
         return self.dense(x.permute(0, 2, 3, 1).reshape(n, t, f * c))
 
     @staticmethod
-    def out_length(lengths):
-        return _ceil2(_ceil2(torch.as_tensor(lengths)))
+    def out_length(lengths, factor: int = 4):
+        out = torch.as_tensor(lengths)
+        for _ in range(int(math.log2(factor))):
+            out = _ceil2(out)
+        return out
 
 
 class FeedForward(nn.Module):
@@ -77,7 +126,15 @@ class FeedForward(nn.Module):
 
 
 class MHSA(nn.Module):
-    def __init__(self, d_model: int, num_heads: int = 4):
+    """Multi-head self-attention over the valid frames.  With `rel_pos`,
+    Transformer-XL's relative score: `linear_pos` (no bias) projects the
+    (2T-1, d) sinusoids of offsets T-1 .. -(T-1) (`pos`, one table a
+    forward), `pos_bias_u` / `pos_bias_v` (heads, d_k) are added to the
+    query, and the (q + v) p product over the 2T-1 offsets is shifted
+    into place by `rel_shift`."""
+
+    def __init__(self, d_model: int, num_heads: int = 4,
+                 rel_pos: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.ln = nn.LayerNorm(d_model, eps=_LN_EPS)
@@ -85,52 +142,117 @@ class MHSA(nn.Module):
         self.key = nn.Linear(d_model, d_model)
         self.value = nn.Linear(d_model, d_model)
         self.out = nn.Linear(d_model, d_model)
+        self.rel_pos = rel_pos
+        if rel_pos:
+            dk = d_model // num_heads
+            self.linear_pos = nn.Linear(d_model, d_model, bias=False)
+            self.pos_bias_u = nn.Parameter(torch.zeros(num_heads, dk))
+            self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, dk))
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, pos=None):
         n, t, d = x.shape
         h = self.num_heads
         y = self.ln(x)
-        q = self.query(y).view(n, t, h, d // h) / math.sqrt(d // h)
+        q = self.query(y).view(n, t, h, d // h)
         k = self.key(y).view(n, t, h, d // h)
         v = self.value(y).view(n, t, h, d // h)
-        scores = torch.einsum("nqhd,nkhd->nhqk", q, k)
+        if self.rel_pos:
+            scale = 1.0 / math.sqrt(d // h)
+            scores = (torch.einsum("nqhd,nkhd->nhqk", q + self.pos_bias_u, k)
+                      + self.positional_scores(q, pos)) * scale
+        else:
+            scores = torch.einsum("nqhd,nkhd->nhqk", q / math.sqrt(d // h),
+                                  k)
         attn_mask = mask[:, None, None, :] & mask[:, None, :, None]
         scores = scores.masked_fill(~attn_mask, torch.finfo(scores.dtype).min)
         weights = torch.softmax(scores, dim=-1)
         y = torch.einsum("nhqk,nkhd->nqhd", weights, v).reshape(n, t, d)
         return self.out(y)
 
+    def positional_scores(self, q, pos):
+        """(N, H, T, T) (q_i + v) . p_{i-j} from q (N, T, H, d_k) and the
+        (2T-1, d) sinusoids."""
+        n, t, h, dk = q.shape
+        p = self.linear_pos(pos).view(2 * t - 1, h, dk)
+        return rel_shift(torch.einsum("nqhd,phd->nhqp",
+                                      q + self.pos_bias_v, p))
+
+
+def rel_shift(x):
+    """(..., T, 2T-1) scores over the offsets T-1 .. -(T-1) -> (..., T, T):
+    out[..., i, j] = x[..., i, T-1-i+j], the offset i-j; by padding one
+    column on the left and reading the buffer back one row on, with no
+    index tensor."""
+    *lead, t, p = x.shape
+    x = F.pad(x, (1, 0)).view(*lead, p + 1, t)
+    return x[..., 1:, :].reshape(*lead, t, p)[..., :t]
+
+
+def relative_positions(t: int, d: int, device, dtype) -> torch.Tensor:
+    """(2t-1, d) sinusoids of the offsets t-1 .. -(t-1) (sin on even
+    features, cos on odd), computed in float64 on `device`."""
+    pos = torch.arange(t - 1, -t, -1, device=device,
+                       dtype=torch.float64)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, device=device, dtype=torch.float64)
+                    * (-math.log(10000.0) / d))
+    pe = torch.empty(2 * t - 1, d, device=device, dtype=torch.float64)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe.to(dtype)
+
 
 class ConvModule(nn.Module):
-    def __init__(self, d_model: int, kernel_size: int = 15):
+    """Pointwise Linear + GLU, depthwise conv, norm + SiLU, pointwise.
+    norm "layer_norm": padded frames zeroed before the first Linear;
+    "batch_norm" (NeMo's): zeroed after the GLU, and a BatchNorm1d
+    (momentum 0.1, eps 1e-5) whose training statistics run over every
+    (n, t) of the padded batch, as NeMo's do, so a valid frame depends on
+    its batch's padding in training mode; eval mode reads the running
+    statistics, and padding changes no valid output."""
+
+    def __init__(self, d_model: int, kernel_size: int = 15,
+                 norm: str = "layer_norm"):
         super().__init__()
+        if norm not in ("layer_norm", "batch_norm"):
+            raise ValueError(f"unknown conv_norm {norm!r}")
+        self.batch_norm = norm == "batch_norm"
         self.ln0 = nn.LayerNorm(d_model, eps=_LN_EPS)
         self.pw1 = nn.Linear(d_model, 2 * d_model)
         self.dw = nn.Conv1d(d_model, d_model, kernel_size,
                             padding=kernel_size // 2, groups=d_model)
-        self.ln1 = nn.LayerNorm(d_model, eps=_LN_EPS)
+        if self.batch_norm:
+            self.bn = nn.BatchNorm1d(d_model)
+        else:
+            self.ln1 = nn.LayerNorm(d_model, eps=_LN_EPS)
         self.pw2 = nn.Linear(d_model, d_model)
 
     def forward(self, x, mask):
-        y = self.ln0(x) * mask[..., None]  # keep padding out of the mix
-        y = F.glu(self.pw1(y), dim=-1)
-        y = self.dw(y.transpose(1, 2)).transpose(1, 2)
-        return self.pw2(F.silu(self.ln1(y)))
+        if not self.batch_norm:
+            y = self.ln0(x) * mask[..., None]  # keep padding out of the mix
+            y = F.glu(self.pw1(y), dim=-1)
+            y = self.dw(y.transpose(1, 2)).transpose(1, 2)
+            return self.pw2(F.silu(self.ln1(y)))
+        y = F.glu(self.pw1(self.ln0(x)), dim=-1) * mask[..., None]
+        y = self.bn(self.dw(y.transpose(1, 2))).transpose(1, 2)
+        return self.pw2(F.silu(y))
 
 
 class ConformerBlock(nn.Module):
     def __init__(self, d_model: int, num_heads: int = 4,
-                 conv_kernel: int = 15):
+                 conv_kernel: int = 15, self_attention: str = "abs_pos",
+                 conv_norm: str = "layer_norm"):
         super().__init__()
+        if self_attention not in ("abs_pos", "rel_pos"):
+            raise ValueError(f"unknown self_attention {self_attention!r}")
         self.ff1 = FeedForward(d_model)
-        self.mhsa = MHSA(d_model, num_heads)
-        self.conv = ConvModule(d_model, conv_kernel)
+        self.mhsa = MHSA(d_model, num_heads, self_attention == "rel_pos")
+        self.conv = ConvModule(d_model, conv_kernel, conv_norm)
         self.ff2 = FeedForward(d_model)
         self.ln = nn.LayerNorm(d_model, eps=_LN_EPS)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, pos=None):
         x = x + 0.5 * self.ff1(x)
-        x = x + self.mhsa(x, mask)
+        x = x + self.mhsa(x, mask, pos)
         x = x + self.conv(x, mask)
         x = x + 0.5 * self.ff2(x)
         return self.ln(x)
@@ -154,44 +276,64 @@ def init_like_flax(module: nn.Module,
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     for m in module.modules():
-        if isinstance(m, nn.LayerNorm):
+        if isinstance(m, (nn.LayerNorm, nn.BatchNorm1d)):
             m.weight.fill_(1.0)
             m.bias.zero_()
+            if isinstance(m, nn.BatchNorm1d):
+                m.reset_running_stats()
         elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             fan_in = m.weight[0].numel()
             w = torch.randn(m.weight.shape, generator=generator)
             m.weight.copy_(w / math.sqrt(fan_in))
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, MHSA) and m.rel_pos:
+            m.pos_bias_u.zero_()
+            m.pos_bias_v.zero_()
 
 
 class ConformerEncoder(nn.Module):
     """Log-mel features (N, T, F) + lengths -> CTC logits (N, T', V) and
     out lengths (N,).  vocab_size includes the blank.  The front end is
     the 4x `ConvSubsampling` (`subsample`), or with subsample=False one
-    Linear from the features to d_model (`input_proj`, T' = T).
+    Linear from the features to d_model (`input_proj`, T' = T).  The
+    FastConformer options (`subsampling`, `subsampling_factor`,
+    `subsampling_conv_channels`, `self_attention`, `xscaling`,
+    `conv_norm`) are the module docstring's; their defaults build the
+    encoder above.
 
     Parameters are drawn from `generator` (a fresh one seeded 0 when None):
-    LeCun-normal weights, zero biases, unit LayerNorm scales, as flax's
-    defaults.  The draw happens on the CPU, so a seed gives the same
-    weights on every device.  `device` defaults to CUDA and raises without
-    one (utils/device.py); pass device="cpu" for the CPU.
+    LeCun-normal weights, zero biases, unit LayerNorm and BatchNorm
+    scales, zero `pos_bias_u` / `pos_bias_v`, as flax's defaults.  The
+    draw happens on the CPU, so a seed gives the same weights on every
+    device.  `device` defaults to CUDA and raises without one
+    (utils/device.py); pass device="cpu" for the CPU.
     """
 
     def __init__(self, vocab_size: int, d_model: int = 256,
                  num_layers: int = 4, num_heads: int = 4,
                  conv_kernel: int = 15, n_mels: int = 80,
                  subsample: bool = True, *, device=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 subsampling: str = "striding", subsampling_factor: int = 4,
+                 subsampling_conv_channels: int | None = None,
+                 self_attention: str = "abs_pos", xscaling: bool = False,
+                 conv_norm: str = "layer_norm"):
         super().__init__()
         self.d_model = d_model
+        self.rel_pos = self_attention == "rel_pos"
+        self.xscale = math.sqrt(d_model) if xscaling else None
         with torch.device("meta"):  # allocate once, on `device`, below
             if subsample:
-                self.subsample = ConvSubsampling(d_model, n_mels)
+                self.subsample = ConvSubsampling(
+                    d_model, n_mels, subsampling_conv_channels, subsampling,
+                    subsampling_factor)
             else:
                 self.subsample = None
                 self.input_proj = nn.Linear(n_mels, d_model)
             self.blocks = nn.ModuleList(
-                ConformerBlock(d_model, num_heads, conv_kernel)
+                ConformerBlock(d_model, num_heads, conv_kernel,
+                               self_attention, conv_norm)
                 for _ in range(num_layers))
             self.out = nn.Linear(d_model, vocab_size)
         self.to_empty(device=resolve_device(device))
@@ -207,14 +349,24 @@ class ConformerEncoder(nn.Module):
             if self.subsample is not None:
                 with span("encoder.subsample"):
                     x = self.subsample(feats, lengths)
-                out_len = ConvSubsampling.out_length(lengths)
+                out_len = ConvSubsampling.out_length(
+                    lengths, self.subsample.factor)
             else:
                 x, out_len = self.input_proj(feats), lengths
             t_max = x.shape[1]
-            pe = torch.from_numpy(sinusoidal_positions(t_max, self.d_model))
-            x = x + pe.to(x.device)
+            if self.xscale is not None:
+                x = x * self.xscale
+            pos = None
+            if self.rel_pos:
+                with span("encoder.positions"):
+                    pos = relative_positions(t_max, self.d_model, x.device,
+                                             x.dtype)
+            else:
+                pe = torch.from_numpy(sinusoidal_positions(t_max,
+                                                           self.d_model))
+                x = x + pe.to(x.device)
             mask = _length_mask(out_len, t_max)
             with span("encoder.blocks"):
                 for block in self.blocks:
-                    x = block(x, mask)
+                    x = block(x, mask, pos)
             return self.out(x), out_len

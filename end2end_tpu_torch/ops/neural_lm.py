@@ -21,6 +21,11 @@ tensors in the JAX layout: emb (V, E); wz, wr, wh (E+H, H) applied to
 concat([x, h]); bz, br, bh (H,); wo (H, V), bo (V,) for `gru_logits`.
 `gru_step` and `gru_logits` take one beam (h (H,), a token scalar) or a
 batch (h (N, H), tokens (N,)).
+
+The LSTM predictor (NeMo's RNN-T prediction network) is `torch.nn.LSTM`
+itself: `lstm_prefix_states` runs it over [blank, y_1 .. y_U] in one call
+(on the card one cuDNN call forward and one backward) and `lstm_step`
+advances packed decoder states one token.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from functools import partial
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils._pytree import tree_map
 
 from ..utils.device import resolve_device
@@ -254,6 +260,33 @@ def _gru_sequence(params, init_hidden, tokens):
     return _GRUSequence.apply(
         tokens.long(), *(params[k] for k in (
             "emb", "wz", "wr", "wh", "bz", "br", "bh")), h0)
+
+
+def _lstm_inputs(emb, ids, blank):
+    """The embeddings of token ids, the blank's held at zero (NeMo's
+    blank-as-padding embedding)."""
+    return emb[ids] * (ids != blank)[..., None].to(emb.dtype)
+
+
+def lstm_prefix_states(lstm, emb, tokens, blank: int = 0):
+    """(N, U) token ids -> (N, U+1, H): the top layer's output after each
+    of [blank, y_1 .. y_U] from zero states, the transducer's predictor
+    outputs.  One call of `lstm` (a batch-first `torch.nn.LSTM`): no host
+    loop.  Ids past a row's length are read as the blank."""
+    with span("rnnt.predictor"):
+        ids = F.pad(tokens.long(), (1, 0), value=blank)
+        return lstm(_lstm_inputs(emb, ids, blank))[0]
+
+
+def lstm_step(lstm, emb, state, tok, blank: int = 0):
+    """One step of `lstm` from packed states (N, 2 L H): [h_1 .. h_L,
+    c_1 .. c_L], the top layer's output h_L at (L - 1) H.  Consumes token
+    ids (N,)."""
+    n, L = state.shape[0], lstm.num_layers
+    hc = state.view(n, 2, L, -1).permute(1, 2, 0, 3)
+    x = _lstm_inputs(emb, tok.long(), blank)[:, None]
+    _, (h, c) = lstm(x, (hc[0].contiguous(), hc[1].contiguous()))
+    return torch.stack([h, c]).permute(2, 0, 1, 3).reshape(n, -1)
 
 
 def random_gru_params(rng: np.random.Generator, vocab_size, emb_dim=32,

@@ -10,7 +10,7 @@ from .sharding import (DataParallelStreamingRNNT, ctc_loss_data_parallel,
                        greedy_decode_data_parallel, group_rank,
                        rnnt_beam_decode_data_parallel,
                        rnnt_greedy_decode_data_parallel,
-                       rnnt_loss_data_parallel, shard_batch)
+                       rnnt_loss_data_parallel, shard_batch, sum_gradients)
 from .time_parallel import ctc_nll_time_parallel
 from .vocab_parallel import (beam_search_decode_vocab_parallel,
                              beam_topk_prep_vocab_parallel,
@@ -26,4 +26,4 @@ __all__ = ["DataParallelStreamingRNNT", "beam_search_decode_vocab_parallel",
            "group_rank", "rnnt_beam_decode_data_parallel",
            "rnnt_greedy_decode_data_parallel", "rnnt_loss_data_parallel",
            "rnnt_nll_fused_pallas_vocab_parallel",
-           "rnnt_nll_fused_vocab_parallel", "shard_batch"]
+           "rnnt_nll_fused_vocab_parallel", "shard_batch", "sum_gradients"]

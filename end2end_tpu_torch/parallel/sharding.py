@@ -24,11 +24,19 @@ replicated (each rank holds them whole).
     lp, tgt, il, tl = shard_batch(group, log_probs, targets, il, tl)
     loss = ctc_loss_data_parallel(lp, tgt, il, tl, group)  # whole batch's
     loss.backward()                                        # this rank's rows
+    sum_gradients(model, group)                    # the whole batch's, alike
+
+Training a replicated model: with a 'mean' or 'sum' loss each rank's
+gradient is the whole loss's gradient through its rows, so
+`sum_gradients` (one SUM all-reduce a flat bucket of gradients, after
+`backward()`) gives every rank the whole batch's gradient, and the same
+optimizer step on every rank keeps the replicas equal.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ..ops.ctc_loss import ctc_nll
 from ..ops.greedy import greedy_decode
@@ -109,6 +117,35 @@ def rnnt_loss_data_parallel(joint, targets, input_lengths, target_lengths,
     nll = rnnt_nll(joint, targets, input_lengths, target_lengths,
                    blank=blank, from_logits=from_logits)
     return _reduce(nll, reduction, group)
+
+
+def sum_gradients(module, group=None, bucket_numel: int = 1 << 25):
+    """Replace each gradient of `module`'s parameters by its SUM over the
+    group, in place: flat buckets of up to `bucket_numel` elements of one
+    dtype and device, one all-reduce each, in parameter order.  Call it
+    after `backward()` on every rank alike; a parameter with no gradient
+    takes zeros, so every rank reduces the same buckets."""
+    group_rank(group)
+    grads = []
+    for p in module.parameters():
+        if p.requires_grad:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+    buckets, key = [], None
+    for g in grads:
+        k = (g.dtype, g.device)
+        if (not buckets or k != key
+                or sum(x.numel() for x in buckets[-1]) + g.numel()
+                > bucket_numel):
+            buckets.append([])
+        buckets[-1].append(g)
+        key = k
+    for bucket in buckets:
+        flat = torch.cat([g.reshape(-1) for g in bucket])
+        dist.all_reduce(flat, group=group)
+        for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
+            g.copy_(part.view_as(g))
 
 
 def greedy_decode_data_parallel(log_probs, input_lengths, group=None,
