@@ -384,7 +384,18 @@ Phases (every failure raises, so the exit code is nonzero):
      bytes at HBM's) and against their step chain (the same kernels on
      two rows: 2U barriers and each phase's least work), the predictor's
      forward + backward through `gru_prefix_states` against the step loop
-     it replaced, and the plain twins once each.
+     it replaced, and the plain twins once each;
+ 38. the encoder's valid-frame packing: the serving cells' Conformer-CTC
+     Large encoder (d 512, 18 blocks, 8 heads, conv kernel 31, 129
+     outputs, seeded random weights) at testclean-b32-greedy's longest
+     batch and its median one (e2e_bench's traffic generator; noise
+     waveforms): every batch of the mix through `forward` must pack (the
+     packing counter), with its share of rows computed; then at the two
+     batches `forward` (packed on the card) against `forward_padded`,
+     valid logits within 1e-4 of their largest and padded frames zeros,
+     the packing counter's share of rows computed, and the two forwards
+     timed in turns (padded, packed, packed, padded; CUDA events, median
+     of 5 after a warm-up).
 Every kernel row and library yardstick is also timed on the device alone
 (`device_ms`: calls captured in a CUDA graph and replayed between one
 pair of events; torch.profiler's kernel time where a call cannot be
@@ -431,6 +442,7 @@ from end2end_tpu_torch import (ConformerCTCPipeline, ConformerTransducer,
                                greedy_decode_with_confidence, mwer_loss,
                                mwer_loss_from_nbest, rnnt_beam_decode,
                                rnnt_mwer_loss, word_confidences)
+from end2end_tpu_torch.models.conformer import ConformerEncoder
 from end2end_tpu_torch.models.frontend import log_mel_spectrogram, num_frames
 from end2end_tpu_torch.models.ocr import OCRRecognizer
 from end2end_tpu_torch.models.streaming import (_rnnt_encoded_chunks,
@@ -4461,6 +4473,97 @@ def gru_seq_slice(dev):
     return {"errs": errs, "ms": ms, "bounds": bounds}
 
 
+def top_device_ops(fn, count: int = 12) -> str:
+    """fn() once under torch.profiler: its `count` operations of most
+    device time, "name ms (calls)", and the total."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [(e.device_time_total / 1e3, e.count, e.key)
+           for e in prof.key_averages() if e.device_time_total > 0]
+    ops.sort(reverse=True)
+    return (f"total {sum(o[0] for o in ops):.3f} ms; " + "; ".join(
+        f"{k[:60]} {t:.3f} ({n})" for t, n, k in ops[:count]))
+
+
+def packing_slice(dev):
+    """Phase 38: the serving cells' encoder packed against padded at
+    testclean-b32-greedy's longest and median batches."""
+    from e2e_bench import traffic
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent / "e2e_bench"
+    cfg = json.loads((root / "configs/conformer-ctc-large.json").read_text())
+    mix = json.loads((root / "traffic/testclean-b32-greedy.json").read_text())
+    enc = ConformerEncoder(
+        vocab_size=cfg["vocab_size"], d_model=cfg["d_model"],
+        num_layers=cfg["num_layers"], num_heads=cfg["num_heads"],
+        conv_kernel=cfg["conv_kernel_size"], n_mels=cfg["n_mels"],
+        device=dev, generator=torch.Generator().manual_seed(SEED)).eval()
+    batches = sorted(traffic.batches(mix, cfg), key=lambda b: b.pad_samples)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def features(b):
+        wave, n = traffic.materialise(b, cfg, gen, dev)[:2]
+        return (log_mel_spectrogram(wave, cfg["sample_rate"], cfg["n_fft"],
+                                    cfg["hop_length"], cfg["n_mels"]),
+                num_frames(n, cfg["n_fft"], cfg["hop_length"]))
+
+    with torch.no_grad():
+        for b in batches:
+            enc(*features(b))
+    if enc.packing["packed"] != len(batches):
+        raise AssertionError(f"phase 38: {enc.packing} over {len(batches)} "
+                             f"batches")
+    log(f"phase 38 every batch of testclean-b32-greedy ({len(batches)}) "
+        f"through the encoder: {enc.packing}, rows computed "
+        f"{100 * enc.packing['rows'] / enc.packing['padded_rows']:.2f}% of "
+        f"the padded rows")
+    ms = {}
+    for tag, b in (("longest", batches[-1]),
+                   ("median", batches[len(batches) // 2])):
+        feats, lens = features(b)
+        fns = {"padded": partial(enc.forward_padded, feats, lens),
+               "packed": partial(enc, feats, lens)}
+        with torch.no_grad():
+            before = dict(enc.packing)
+            got, out_len = fns["packed"]()
+            count = {k: v - before[k] for k, v in enc.packing.items()}
+            want = fns["padded"]()[0]
+            valid = (torch.arange(got.shape[1], device=dev)[None, :]
+                     < out_len[:, None])
+            err = float((got - want)[valid].abs().max()
+                        / want[valid].abs().max())
+            if (count["packed"] != 1 or not err < 1e-4
+                    or got[~valid].any()):
+                raise AssertionError(f"phase 38 {tag}: counter {count}, "
+                                     f"error {err:.3g}")
+            del got, want
+            times = {k: [] for k in fns}
+            for k in ("padded", "packed", "packed", "padded"):
+                times[k].append(time_ms(fns[k]))
+        for k, v in times.items():
+            ms[f"encoder_{k}_{tag}"] = statistics.median(v)
+        log(f"phase 38 encoder ({tag} batch: N={len(b.rows)}, "
+            f"{b.pad_samples / cfg['sample_rate']:.0f} s padded, T'="
+            f"{valid.shape[1]}, {b.audio_s(cfg['sample_rate']):.1f} audio s):"
+            f" rows computed {count['rows']} of {count['padded_rows']} "
+            f"({100 * count['rows'] / count['padded_rows']:.1f}%), valid "
+            f"logits within {err:.3g} of their largest; ms in turns "
+            f"(padded, packed, packed, padded) padded "
+            + ", ".join(f"{x:.3f}" for x in times["padded"]) + ", packed "
+            + ", ".join(f"{x:.3f}" for x in times["packed"])
+            + f": {ms[f'encoder_padded_{tag}'] / ms[f'encoder_packed_{tag}']:.3f}x")
+        log(f"phase 38 encoder ({tag} batch), packed: the top device "
+            f"operations of one forward (torch.profiler): "
+            + top_device_ops(fns["packed"]))
+    log(f"phase 38 packing counter {enc.packing}; done in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"ms": ms}
+
+
 def main() -> None:
     # 1. the device
     if not torch.cuda.is_available():
@@ -5496,6 +5599,8 @@ def main() -> None:
     # 37. the predictor's GRU kernels against their plain twins, and timed
     s37 = gru_seq_slice(dev)
     ms.update(s37["ms"])
+    # 38. the encoder's valid-frame packing at the serving cells' shapes
+    ms.update(packing_slice(dev)["ms"])
 
     def mg_launches(kernel):  # every rank's, every path's
         return sum(n for x in mg for key, c in x.items()

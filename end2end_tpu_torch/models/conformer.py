@@ -15,6 +15,15 @@ the same logits:
 Per-sample lengths are masks: padded frames never change valid outputs
 (with `conv_norm="batch_norm"`, in eval mode; see `ConvModule`).
 
+On CUDA, where a frame of the batch is padded, the encoder computes its
+per-frame operations (the front end's Linear, the FeedForwards, the
+projections, the convolution module's pointwise layers, the norms, the
+output Linear) on the valid (n, t) rows alone (`Packing`), and lays rows
+out padded only for the two operations that mix frames: the attention
+core and the depthwise convolution (with BatchNorm).  The padded rows
+those two see hold what the padded computation puts there, so every valid
+output and every gradient is the same mathematics.
+
 Options whose defaults are the model above, key for key (FastConformer,
 Rekesh et al. 2023, as NeMo builds it, e.g. Parakeet-RNNT 1.1B):
   * `subsampling="dw_striding"`: Conv2d(1, C, 3, s2) + ReLU, then
@@ -51,6 +60,55 @@ def _length_mask(lengths: torch.Tensor, t_max: int) -> torch.Tensor:
 
 def _ceil2(x):
     return (x + 1) // 2
+
+
+def _host_sum(x: torch.Tensor):
+    """A call that returns int(x.sum()).  On CUDA the copy to the host
+    starts now, into pinned memory, and the call waits for it alone (one
+    event), so the work queued between the two keeps the device busy."""
+    if x.device.type != "cuda":
+        return lambda: int(x.sum())
+    host = x.to("cpu", non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record()
+
+    def read():
+        copied.synchronize()
+        return int(host.sum())
+    return read
+
+
+class Packing:
+    """The valid (n, t) rows of a padded (N, T', ...) batch: `rows` are
+    their flat indices in N * T', in order, `t` their frames, `mask` the
+    (N, T') valid frames.  Built on the lengths' device with no host read,
+    from the valid-row count `total` that the caller holds on the host.
+    `scatter` and `gather` move rows between the packed (R, ...) layout and
+    the padded one; both are differentiable."""
+
+    def __init__(self, lengths: torch.Tensor, total: int, t_max: int):
+        n, dev = lengths.shape[0], lengths.device
+        lengths = lengths.long()
+        sample = torch.repeat_interleave(torch.arange(n, device=dev),
+                                         lengths, output_size=total)
+        starts = torch.cumsum(lengths, 0) - lengths
+        self.t = torch.arange(total, device=dev) - starts[sample]
+        self.rows = sample * t_max + self.t
+        self.mask = _length_mask(lengths, t_max)
+        self.shape = (n, t_max)
+
+    def scatter(self, x: torch.Tensor, fill: torch.Tensor | None = None):
+        """(R, ...) -> (N, T', ...): the padded rows hold zeros, or `fill`
+        broadcast (its gradient is theirs)."""
+        n, t = self.shape
+        size = (n * t, *x.shape[1:])
+        base = (x.new_zeros(size) if fill is None
+                else fill.expand(size).clone())
+        return base.index_copy_(0, self.rows, x).view(n, t, *x.shape[1:])
+
+    def gather(self, y: torch.Tensor) -> torch.Tensor:
+        """(N, T', ...) -> the valid rows (R, ...)."""
+        return y.reshape(-1, *y.shape[2:]).index_select(0, self.rows)
 
 
 class ConvSubsampling(nn.Module):
@@ -96,6 +154,11 @@ class ConvSubsampling(nn.Module):
             for i in range(1, int(math.log2(self.factor)))]
 
     def forward(self, x, lengths):
+        return self.dense(self.convolve(x, lengths))
+
+    def convolve(self, x, lengths):
+        """The stages without `dense`: (N, T, F) -> (N, T', f * c), (f, c)
+        flattened f major."""
         x = x[:, None]  # (N, 1, T, F)
         for convs, act in self._stages():
             for conv in convs:
@@ -104,7 +167,7 @@ class ConvSubsampling(nn.Module):
             lengths = _ceil2(lengths)
             x = x * _length_mask(lengths, x.shape[2])[:, None, :, None]
         n, c, t, f = x.shape
-        return self.dense(x.permute(0, 2, 3, 1).reshape(n, t, f * c))
+        return x.permute(0, 2, 3, 1).reshape(n, t, f * c)
 
     @staticmethod
     def out_length(lengths, factor: int = 4):
@@ -156,18 +219,39 @@ class MHSA(nn.Module):
         q = self.query(y).view(n, t, h, d // h)
         k = self.key(y).view(n, t, h, d // h)
         v = self.value(y).view(n, t, h, d // h)
+        return self.out(self.attend(q, k, v, mask, pos))
+
+    def forward_packed(self, x, pack: Packing, pos=None):
+        """`forward` on the valid rows (R, d) of `pack`: the projections
+        (q, k and v as one product) on those rows alone, then q, k and v
+        scattered in one copy into the padded layout for the core, whose
+        zero padded keys are masked as any padded key, and the valid rows
+        of its result gathered back."""
+        h = self.num_heads
+        qkv = F.linear(self.ln(x), torch.cat([self.query.weight,
+                                              self.key.weight,
+                                              self.value.weight]),
+                       torch.cat([self.query.bias, self.key.bias,
+                                  self.value.bias]))
+        n, t = pack.shape
+        q, k, v = pack.scatter(qkv).view(n, t, 3, h, -1).unbind(2)
+        return self.out(pack.gather(self.attend(q, k, v, pack.mask, pos)))
+
+    def attend(self, q, k, v, mask, pos=None):
+        """The core over (N, T, H, d_k) q, k, v and the (N, T) valid
+        frames: scores, mask, softmax, weighted sum -> (N, T, H * d_k)."""
+        n, t, h, dk = q.shape
         if self.rel_pos:
-            scale = 1.0 / math.sqrt(d // h)
+            scale = 1.0 / math.sqrt(dk)
             scores = (torch.einsum("nqhd,nkhd->nhqk", q + self.pos_bias_u, k)
                       + self.positional_scores(q, pos)) * scale
         else:
-            scores = torch.einsum("nqhd,nkhd->nhqk", q / math.sqrt(d // h),
-                                  k)
+            scores = torch.einsum("nqhd,nkhd->nhqk", q / math.sqrt(dk), k)
         attn_mask = mask[:, None, None, :] & mask[:, None, :, None]
         scores = scores.masked_fill(~attn_mask, torch.finfo(scores.dtype).min)
         weights = torch.softmax(scores, dim=-1)
-        y = torch.einsum("nhqk,nkhd->nqhd", weights, v).reshape(n, t, d)
-        return self.out(y)
+        return torch.einsum("nhqk,nkhd->nqhd", weights, v).reshape(n, t,
+                                                                   h * dk)
 
     def positional_scores(self, q, pos):
         """(N, H, T, T) (q_i + v) . p_{i-j} from q (N, T, H, d_k) and the
@@ -230,10 +314,32 @@ class ConvModule(nn.Module):
         if not self.batch_norm:
             y = self.ln0(x) * mask[..., None]  # keep padding out of the mix
             y = F.glu(self.pw1(y), dim=-1)
-            y = self.dw(y.transpose(1, 2)).transpose(1, 2)
-            return self.pw2(F.silu(self.ln1(y)))
-        y = F.glu(self.pw1(self.ln0(x)), dim=-1) * mask[..., None]
-        y = self.bn(self.dw(y.transpose(1, 2))).transpose(1, 2)
+        else:
+            y = F.glu(self.pw1(self.ln0(x)), dim=-1) * mask[..., None]
+        return self._project(self._mix(y))
+
+    def forward_packed(self, x, pack: Packing):
+        """`forward` on the valid rows (R, d) of `pack`: the depthwise
+        convolution (and BatchNorm, whose training statistics run over
+        every (n, t) as in `forward`) alone in the padded layout, whose
+        padded rows hold what `forward`'s hold there: zeros with
+        batch_norm, else glu(pw1.bias), what pw1 makes of a zeroed row,
+        through which pw1.bias keeps the gradient that a clip's last
+        frames send it."""
+        y = F.glu(self.pw1(self.ln0(x)), dim=-1)
+        fill = None if self.batch_norm else F.glu(self.pw1.bias, dim=-1)
+        return self._project(pack.gather(self._mix(pack.scatter(y, fill))))
+
+    def _mix(self, y):
+        """(N, T, d) -> (N, T, d): the operations that mix frames."""
+        y = self.dw(y.transpose(1, 2))
+        if self.batch_norm:
+            y = self.bn(y)
+        return y.transpose(1, 2)
+
+    def _project(self, y):
+        if not self.batch_norm:
+            y = self.ln1(y)
         return self.pw2(F.silu(y))
 
 
@@ -254,6 +360,15 @@ class ConformerBlock(nn.Module):
         x = x + 0.5 * self.ff1(x)
         x = x + self.mhsa(x, mask, pos)
         x = x + self.conv(x, mask)
+        x = x + 0.5 * self.ff2(x)
+        return self.ln(x)
+
+    def forward_packed(self, x, pack: Packing, pos=None):
+        """`forward` on the valid rows (R, d) of `pack`, with the same
+        submodules."""
+        x = x + 0.5 * self.ff1(x)
+        x = x + self.mhsa.forward_packed(x, pack, pos)
+        x = x + self.conv.forward_packed(x, pack)
         x = x + 0.5 * self.ff2(x)
         return self.ln(x)
 
@@ -338,22 +453,53 @@ class ConformerEncoder(nn.Module):
             self.out = nn.Linear(d_model, vocab_size)
         self.to_empty(device=resolve_device(device))
         self.reset_parameters(generator)
+        # forwards packed of those seen, rows computed of the padded rows
+        self.packing = {"forwards": 0, "packed": 0, "rows": 0,
+                        "padded_rows": 0}
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         init_like_flax(self, generator)
 
     def forward(self, feats, lengths):
+        """(N, T, F) features and (N,) lengths -> logits (N, T', V), whose
+        padded frames are zeros when packed, and out lengths (N,).  On
+        CUDA, where a frame of the batch is padded, the per-frame
+        operations run packed (`forward_packed`); elsewhere padded."""
+        return self._encode(feats, lengths, feats.is_cuda)
+
+    def forward_packed(self, feats, lengths):
+        """`forward` packed on any device, wherever a frame is padded."""
+        return self._encode(feats, lengths, True)
+
+    def forward_padded(self, feats, lengths):
+        """`forward` with every operation on the padded (N, T') rows."""
+        return self._encode(feats, lengths, False)
+
+    def _encode(self, feats, lengths, packable: bool):
         with span("encoder"):
             lengths = lengths.to(feats.device)
-            feats = feats * _length_mask(lengths, feats.shape[1])[..., None]
-            if self.subsample is not None:
+            sub = self.subsample
+            out_len = (lengths if sub is None
+                       else ConvSubsampling.out_length(lengths, sub.factor))
+            if packable:  # the one host read, waited for after the convs
+                valid = _host_sum(out_len)
+            x = feats * _length_mask(lengths, feats.shape[1])[..., None]
+            if sub is not None:
                 with span("encoder.subsample"):
-                    x = self.subsample(feats, lengths)
-                out_len = ConvSubsampling.out_length(
-                    lengths, self.subsample.factor)
-            else:
-                x, out_len = self.input_proj(feats), lengths
-            t_max = x.shape[1]
+                    x = sub.convolve(x, lengths)
+            n, t_max = x.shape[:2]
+            pack = None
+            if packable:
+                with span("encoder.pack"):
+                    total = valid()
+                    if total < n * t_max:
+                        pack = Packing(out_len, total, t_max)
+            self.packing["forwards"] += 1
+            self.packing["packed"] += pack is not None
+            self.packing["rows"] += n * t_max if pack is None else total
+            self.packing["padded_rows"] += n * t_max
+            project = self.input_proj if sub is None else sub.dense
+            x = project(x if pack is None else pack.gather(x))
             if self.xscale is not None:
                 x = x * self.xscale
             pos = None
@@ -364,9 +510,15 @@ class ConformerEncoder(nn.Module):
             else:
                 pe = torch.from_numpy(sinusoidal_positions(t_max,
                                                            self.d_model))
-                x = x + pe.to(x.device)
-            mask = _length_mask(out_len, t_max)
+                pe = pe.to(x.device)
+                x = x + (pe if pack is None else pe[pack.t])
             with span("encoder.blocks"):
-                for block in self.blocks:
-                    x = block(x, mask, pos)
-            return self.out(x), out_len
+                if pack is None:
+                    mask = _length_mask(out_len, t_max)
+                    for block in self.blocks:
+                        x = block(x, mask, pos)
+                else:
+                    for block in self.blocks:
+                        x = block.forward_packed(x, pack, pos)
+            x = self.out(x)
+            return (x if pack is None else pack.scatter(x)), out_len

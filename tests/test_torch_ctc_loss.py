@@ -195,6 +195,22 @@ def test_zero_infinity(rng):
         assert not got[1][:, 1].any()
 
 
+@pytest.mark.parametrize("reduction", ["none", "mean"])
+def test_no_gradient_reaches_padded_frames(rng, reduction):
+    """The encoder on the card returns padded frames as zeros that take no
+    gradient (models/conformer.py's packing), which is the padded
+    encoder's mathematics only if the loss sends them none: the gradient
+    at every frame t >= the sample's length is exactly zero (a full-length
+    sample, a one-frame one and an infeasible one beside the rest)."""
+    lp, tgt, il, tl = random_ctc_problem(rng, 5, 24, 5, 9, min_t_frac=0.2)
+    il[:3], tl[:3], tgt[2] = [24, 1, 3], [3, 1, 3], [4, 4, 4, 1, 2]
+    _, grad = port_loss_grad(lp, tgt, il, tl, reduction=reduction,
+                             zero_infinity=True)
+    assert grad[:, 0].any()
+    for n, t in enumerate(il):
+        assert not grad[t:, n].any(), n
+
+
 def test_from_logits_batch_first_and_flat_targets(rng):
     B, T, S, V = 3, 15, 4, 9
     logits = rng.standard_normal((T, B, V)).astype(np.float32)

@@ -19,7 +19,7 @@ from end2end_tpu_torch.ops.ctc_common import build_ctc_tables
 from end2end_tpu_torch import mwer_loss
 from end2end_tpu_torch.ops import lm as tlm
 from end2end_tpu_torch.ops.beam_search import beam_search_decode
-from end2end_tpu_torch.ops.ctc_loss import ctc_nll
+from end2end_tpu_torch.ops.ctc_loss import ctc_loss, ctc_nll
 from end2end_tpu_torch.ops.rnnt_joint import rnnt_nll_fused_pallas
 from end2end_tpu_torch.ops.rnnt_loss import rnnt_loss, rnnt_nll
 from end2end_tpu_torch.tools import (beam_step_breakdown, ctc_alpha_breakdown,
@@ -807,6 +807,80 @@ def test_rnnt_loss_reaches_the_kernels(dev):
         rnnt_loss(x.double(), tgt, il, ul, implementation="pallas")
     with pytest.raises(ValueError, match="float32"):
         rnnt_loss_cuda.alpha(x[..., 0].double(), x[..., 1].double())
+
+
+def test_losses_send_no_gradient_to_padded_frames(dev):
+    """The packed encoder returns padded frames as zeros that take no
+    gradient, which is the padded encoder's mathematics only if the loss
+    sends them none: through K1/K2 and the combine, and through K8/K9, the
+    gradient at every frame t >= the sample's length is exactly zero."""
+    lp, tgt, il, tl = _edge_batch()
+    before = dict(ctc_loss_cuda.launches)
+    x = torch.tensor(lp, device=dev, requires_grad=True)
+    ctc_loss(x, *(torch.tensor(a, device=dev) for a in (tgt, il, tl)),
+             reduction="mean", zero_infinity=True).backward()
+    assert ctc_loss_cuda.launches == {k: v + 1 for k, v in before.items()}
+    assert x.grad[:, 0].any()
+    for n, t in enumerate(il):
+        assert not x.grad[t:, n].any(), n
+    x, tgt, il, ul = _rnnt_case(3, 4, 11, 5, 9, 0, dev)
+    before = dict(rnnt_loss_cuda.launches)
+    x.requires_grad_(True)
+    rnnt_loss(x, tgt, il, ul).backward()
+    assert rnnt_loss_cuda.launches == {k: v + 1 for k, v in before.items()}
+    for n, t in enumerate(il.tolist()):
+        assert x.grad[n, :t].any() and not x.grad[n, t:].any(), n
+
+
+def test_packed_encoder_on_the_card(dev, monkeypatch):
+    """On CUDA the Conformer-CTC encoder packs a padded batch (its counter
+    moves by one forward and the valid rows), its valid logits match the
+    padded path's to float32 rounding, its padded frames are zeros, and
+    the pipeline's greedy and beam-8 decodes and its loss are those of the
+    padded path."""
+    from end2end_tpu_torch import ConformerCTCPipeline, PipelineConfig
+
+    pipe = ConformerCTCPipeline(
+        PipelineConfig(), device=dev,
+        generator=torch.Generator().manual_seed(3)).eval()
+    enc = pipe.encoder
+    with torch.no_grad():
+        enc.out.weight.mul_(8.0)  # peaked posteriors: no near-ties
+    g = torch.Generator(device=dev).manual_seed(4)
+    wave = torch.randn(4, 48000, device=dev, generator=g)
+    n = torch.tensor([48000, 4000, 27200, 35200], device=dev)
+    feats, lens = pipe.features(wave), pipe.feature_lengths(n).to(dev)
+    before = dict(enc.packing)
+    with torch.no_grad():
+        got, out_len = enc(feats, lens)
+        after = dict(enc.packing)
+        want, want_len = enc.forward_padded(feats, lens)
+    rows = int(out_len.sum())
+    assert rows < got.shape[0] * got.shape[1]
+    assert after["packed"] == before["packed"] + 1
+    assert after["rows"] == before["rows"] + rows
+    assert torch.equal(out_len, want_len)
+    valid = (torch.arange(got.shape[1], device=dev)[None, :]
+             < out_len[:, None])
+    assert ((got - want)[valid].abs().max()
+            <= 1e-4 * want[valid].abs().max())
+    assert torch.isfinite(got).all() and not got[~valid].any()
+    tgt = torch.randint(1, 32, (4, 6), device=dev, generator=g)
+    tl = torch.tensor([6, 1, 4, 5], device=dev)
+    outs = {}
+    for path in ("packed", "padded"):
+        if path == "padded":
+            monkeypatch.setattr(enc, "forward", enc.forward_padded)
+        count = enc.packing["packed"]
+        outs[path] = ([pipe.decode(wave, n, beam_width=w, prune_k=16)
+                       for w in (0, 8)], pipe.loss(wave, n, tgt, tl))
+        assert enc.packing["packed"] == count + (3 if path == "packed"
+                                                 else 0)
+    for got, want in zip(outs["packed"][0], outs["padded"][0]):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(outs["packed"][1], outs["padded"][1],
+                               rtol=1e-5, atol=0)
 
 
 def test_transducer_defaults_to_the_card(dev):

@@ -148,6 +148,18 @@ def test_reductions_and_module():
         rnnt_loss(x, targets, il, ul, reduction="avg")
 
 
+@pytest.mark.parametrize("name", list(CASES))
+def test_no_gradient_reaches_padded_frames(name):
+    """The encoder on the card returns padded frames as zeros that take no
+    gradient (models/conformer.py's packing), which is the padded
+    encoder's mathematics only if the loss sends them none: the logits'
+    gradient at every frame t >= the sample's length is exactly zero."""
+    _, _, il, _, _ = problem(name)
+    grad = torch_result(name)[1]
+    for n, t in enumerate(il):
+        assert grad[n, :t].any() and not grad[n, t:].any(), n
+
+
 def test_implementation_routing():
     logits, targets, il, ul, _ = problem("mixed")
     x = torch.tensor(logits)

@@ -20,6 +20,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from e2e_bench import harness, spans
 from e2e_bench import trace as trace_mod
 from e2e_bench.tests.tiny import ROOT
+from end2end_tpu_torch.models.conformer import ConformerEncoder
 from end2end_tpu_torch.models.frontend import (log_mel_spectrogram,
                                                num_frames)
 from end2end_tpu_torch.models.pipeline import (ConformerCTCPipeline,
@@ -160,7 +161,30 @@ def test_the_programs_record_every_span_the_reader_knows():
 @pytest.mark.parametrize("program", sorted(PROGRAMS))
 def test_forward_ops_lie_under_a_span_and_backward_nodes_map_to_one(
         traced, program):
-    path, events = traced[program]
+    _check_ops_and_nodes(*traced[program], program)
+
+
+@pytest.mark.parametrize("program", ["ctc_loss", "transducer_loss"])
+def test_the_packed_encoder_keeps_ops_and_nodes_under_spans(
+        tmp_path, monkeypatch, program):
+    """The encoder packs on the card alone; forced to pack here, its
+    scatters and gathers lie under the spans and their backward nodes map
+    to one, as the padded path's do."""
+    packed = []
+
+    def forward(enc, feats, lengths):
+        out = enc.forward_packed(feats, lengths)
+        packed.append(enc.packing["packed"])
+        return out
+
+    monkeypatch.setattr(ConformerEncoder, "forward", forward)
+    path = tmp_path / "trace.json"
+    _check_ops_and_nodes(path, _profiled(PROGRAMS[program][0], path),
+                         program)
+    assert packed == [1]
+
+
+def _check_ops_and_nodes(path, events, program):
     st = spans.SpanTrace(path)
     roots = [e for e in events if e["name"] in ROOTS]
     nodes = [e for e in events
