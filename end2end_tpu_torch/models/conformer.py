@@ -15,14 +15,17 @@ the same logits:
 Per-sample lengths are masks: padded frames never change valid outputs
 (with `conv_norm="batch_norm"`, in eval mode; see `ConvModule`).
 
-On CUDA, where a frame of the batch is padded, the encoder computes its
-per-frame operations (the front end's Linear, the FeedForwards, the
-projections, the convolution module's pointwise layers, the norms, the
-output Linear) on the valid (n, t) rows alone (`Packing`), and lays rows
-out padded only for the two operations that mix frames: the attention
-core and the depthwise convolution (with BatchNorm).  The padded rows
-those two see hold what the padded computation puts there, so every valid
-output and every gradient is the same mathematics.
+Every module after the subsampler runs once over (R, d) rows, and a row
+layout says which (n, t) rows of the padded (N, T') batch those are:
+`Packing`, the valid rows alone (on CUDA, wherever a frame of the batch
+is padded), or `EveryRow`, all N * T' of them.  The per-frame operations
+(the front end's Linear, the FeedForwards, the projections, the
+convolution module's pointwise layers, the norms, the output Linear) run
+on the rows; the layout lays them out padded only for the two operations
+that mix frames, the attention core and the depthwise convolution (with
+BatchNorm), whose padded frames hold in either layout what the padded
+computation puts there, so every valid output and every gradient is the
+same mathematics.
 
 Options whose defaults are the model above, key for key (FastConformer,
 Rekesh et al. 2023, as NeMo builds it, e.g. Parakeet-RNNT 1.1B):
@@ -79,12 +82,12 @@ def _host_sum(x: torch.Tensor):
 
 
 class Packing:
-    """The valid (n, t) rows of a padded (N, T', ...) batch: `rows` are
-    their flat indices in N * T', in order, `t` their frames, `mask` the
-    (N, T') valid frames.  Built on the lengths' device with no host read,
-    from the valid-row count `total` that the caller holds on the host.
-    `scatter` and `gather` move rows between the packed (R, ...) layout and
-    the padded one; both are differentiable."""
+    """The row layout of the valid (n, t) rows of a padded (N, T', ...)
+    batch: `rows` are their flat indices in N * T', in order, `t` their
+    frames, `mask` the (N, T') valid frames.  Built on the lengths' device
+    with no host read, from the valid-row count `total` that the caller
+    holds on the host.  `scatter` and `gather` move rows between the
+    (R, ...) layout and the padded one; both are differentiable."""
 
     def __init__(self, lengths: torch.Tensor, total: int, t_max: int):
         n, dev = lengths.shape[0], lengths.device
@@ -97,13 +100,14 @@ class Packing:
         self.mask = _length_mask(lengths, t_max)
         self.shape = (n, t_max)
 
-    def scatter(self, x: torch.Tensor, fill: torch.Tensor | None = None):
-        """(R, ...) -> (N, T', ...): the padded rows hold zeros, or `fill`
-        broadcast (its gradient is theirs)."""
+    def scatter(self, x: torch.Tensor, fill=None):
+        """(R, ...) -> (N, T', ...): the rows not computed hold zeros; with
+        `fill` (a number, or a tensor broadcast whose gradient is theirs)
+        every padded frame holds it."""
         n, t = self.shape
         size = (n * t, *x.shape[1:])
-        base = (x.new_zeros(size) if fill is None
-                else fill.expand(size).clone())
+        base = (fill.expand(size).clone() if torch.is_tensor(fill)
+                else x.new_full(size, fill or 0))
         return base.index_copy_(0, self.rows, x).view(n, t, *x.shape[1:])
 
     def gather(self, y: torch.Tensor) -> torch.Tensor:
@@ -111,12 +115,34 @@ class Packing:
         return y.reshape(-1, *y.shape[2:]).index_select(0, self.rows)
 
 
+class EveryRow:
+    """`Packing`'s interface over all N * T' rows of a padded batch, with
+    no host read: `t` the frame of each row, `mask` the (N, T') valid
+    frames; `gather` a reshape, `scatter` a view, or with `fill` the padded
+    frames replaced by it."""
+
+    def __init__(self, lengths: torch.Tensor, t_max: int):
+        n = lengths.shape[0]
+        self.mask = _length_mask(lengths, t_max)
+        self.t = torch.arange(t_max, device=lengths.device).repeat(n)
+        self.shape = (n, t_max)
+
+    def scatter(self, x: torch.Tensor, fill=None):
+        y = x.view(*self.shape, *x.shape[1:])
+        return y if fill is None else torch.where(self.mask[..., None], y,
+                                                  fill)
+
+    def gather(self, y: torch.Tensor) -> torch.Tensor:
+        return y.reshape(-1, *y.shape[2:])
+
+
 class ConvSubsampling(nn.Module):
-    """Stride-2 3x3 convs: (N, T, F) -> (N, T', d_model), T' = T halved
-    (rounding up) log2(factor) times.  kind "striding": log2(factor) full
-    convs with SiLU (conv0, conv1, ...; channels default to d_model);
-    "dw_striding": conv0 + ReLU, then depthwise `dw<i>` and pointwise
-    `pw<i>` convs + ReLU.  Activations are re-masked after each
+    """Stride-2 3x3 convs (`forward`), then a Linear (`dense`, which the
+    encoder runs on its rows): (N, T, F) -> (N, T', d_model), T' = T
+    halved (rounding up) log2(factor) times.  kind "striding":
+    log2(factor) full convs with SiLU (conv0, conv1, ...; channels default
+    to d_model); "dw_striding": conv0 + ReLU, then depthwise `dw<i>` and
+    pointwise `pw<i>` convs + ReLU.  Activations are re-masked after each
     stage so the amount of padding never reaches valid frames."""
 
     def __init__(self, d_model: int, n_mels: int, channels: int | None = None,
@@ -154,9 +180,6 @@ class ConvSubsampling(nn.Module):
             for i in range(1, int(math.log2(self.factor)))]
 
     def forward(self, x, lengths):
-        return self.dense(self.convolve(x, lengths))
-
-    def convolve(self, x, lengths):
         """The stages without `dense`: (N, T, F) -> (N, T', f * c), (f, c)
         flattened f major."""
         x = x[:, None]  # (N, 1, T, F)
@@ -212,30 +235,20 @@ class MHSA(nn.Module):
             self.pos_bias_u = nn.Parameter(torch.zeros(num_heads, dk))
             self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, dk))
 
-    def forward(self, x, mask, pos=None):
-        n, t, d = x.shape
-        h = self.num_heads
-        y = self.ln(x)
-        q = self.query(y).view(n, t, h, d // h)
-        k = self.key(y).view(n, t, h, d // h)
-        v = self.value(y).view(n, t, h, d // h)
-        return self.out(self.attend(q, k, v, mask, pos))
-
-    def forward_packed(self, x, pack: Packing, pos=None):
-        """`forward` on the valid rows (R, d) of `pack`: the projections
-        (q, k and v as one product) on those rows alone, then q, k and v
-        scattered in one copy into the padded layout for the core, whose
-        zero padded keys are masked as any padded key, and the valid rows
-        of its result gathered back."""
+    def forward(self, x, rows, pos=None):
+        """(R, d) rows of the layout `rows` -> (R, d): the projections (q,
+        k and v as one product) on the rows, then q, k and v scattered in
+        one copy into the padded layout for the core, whose padded keys
+        are masked, and the rows of its result gathered back."""
         h = self.num_heads
         qkv = F.linear(self.ln(x), torch.cat([self.query.weight,
                                               self.key.weight,
                                               self.value.weight]),
                        torch.cat([self.query.bias, self.key.bias,
                                   self.value.bias]))
-        n, t = pack.shape
-        q, k, v = pack.scatter(qkv).view(n, t, 3, h, -1).unbind(2)
-        return self.out(pack.gather(self.attend(q, k, v, pack.mask, pos)))
+        n, t = rows.shape
+        q, k, v = rows.scatter(qkv).view(n, t, 3, h, -1).unbind(2)
+        return self.out(rows.gather(self.attend(q, k, v, rows.mask, pos)))
 
     def attend(self, q, k, v, mask, pos=None):
         """The core over (N, T, H, d_k) q, k, v and the (N, T) valid
@@ -310,34 +323,19 @@ class ConvModule(nn.Module):
             self.ln1 = nn.LayerNorm(d_model, eps=_LN_EPS)
         self.pw2 = nn.Linear(d_model, d_model)
 
-    def forward(self, x, mask):
-        if not self.batch_norm:
-            y = self.ln0(x) * mask[..., None]  # keep padding out of the mix
-            y = F.glu(self.pw1(y), dim=-1)
-        else:
-            y = F.glu(self.pw1(self.ln0(x)), dim=-1) * mask[..., None]
-        return self._project(self._mix(y))
-
-    def forward_packed(self, x, pack: Packing):
-        """`forward` on the valid rows (R, d) of `pack`: the depthwise
+    def forward(self, x, rows):
+        """(R, d) rows of the layout `rows` -> (R, d): the depthwise
         convolution (and BatchNorm, whose training statistics run over
-        every (n, t) as in `forward`) alone in the padded layout, whose
-        padded rows hold what `forward`'s hold there: zeros with
-        batch_norm, else glu(pw1.bias), what pw1 makes of a zeroed row,
-        through which pw1.bias keeps the gradient that a clip's last
-        frames send it."""
+        every (n, t)) alone in the padded layout, whose padded frames hold
+        zeros with batch_norm, else glu(pw1.bias), what pw1 makes of a
+        zeroed row, through which pw1.bias keeps the gradient that a
+        clip's last frames send it."""
         y = F.glu(self.pw1(self.ln0(x)), dim=-1)
-        fill = None if self.batch_norm else F.glu(self.pw1.bias, dim=-1)
-        return self._project(pack.gather(self._mix(pack.scatter(y, fill))))
-
-    def _mix(self, y):
-        """(N, T, d) -> (N, T, d): the operations that mix frames."""
-        y = self.dw(y.transpose(1, 2))
+        fill = 0 if self.batch_norm else F.glu(self.pw1.bias, dim=-1)
+        y = self.dw(rows.scatter(y, fill).transpose(1, 2))
         if self.batch_norm:
             y = self.bn(y)
-        return y.transpose(1, 2)
-
-    def _project(self, y):
+        y = rows.gather(y.transpose(1, 2))
         if not self.batch_norm:
             y = self.ln1(y)
         return self.pw2(F.silu(y))
@@ -356,19 +354,11 @@ class ConformerBlock(nn.Module):
         self.ff2 = FeedForward(d_model)
         self.ln = nn.LayerNorm(d_model, eps=_LN_EPS)
 
-    def forward(self, x, mask, pos=None):
+    def forward(self, x, rows, pos=None):
+        """(R, d) rows of the layout `rows` -> (R, d)."""
         x = x + 0.5 * self.ff1(x)
-        x = x + self.mhsa(x, mask, pos)
-        x = x + self.conv(x, mask)
-        x = x + 0.5 * self.ff2(x)
-        return self.ln(x)
-
-    def forward_packed(self, x, pack: Packing, pos=None):
-        """`forward` on the valid rows (R, d) of `pack`, with the same
-        submodules."""
-        x = x + 0.5 * self.ff1(x)
-        x = x + self.mhsa.forward_packed(x, pack, pos)
-        x = x + self.conv.forward_packed(x, pack)
+        x = x + self.mhsa(x, rows, pos)
+        x = x + self.conv(x, rows)
         x = x + 0.5 * self.ff2(x)
         return self.ln(x)
 
@@ -463,16 +453,18 @@ class ConformerEncoder(nn.Module):
     def forward(self, feats, lengths):
         """(N, T, F) features and (N,) lengths -> logits (N, T', V), whose
         padded frames are zeros when packed, and out lengths (N,).  On
-        CUDA, where a frame of the batch is padded, the per-frame
-        operations run packed (`forward_packed`); elsewhere padded."""
+        CUDA, where a frame of the batch is padded, the encoder runs on the
+        valid rows alone (`forward_packed`); elsewhere on every row."""
         return self._encode(feats, lengths, feats.is_cuda)
 
     def forward_packed(self, feats, lengths):
-        """`forward` packed on any device, wherever a frame is padded."""
+        """`forward` on the valid rows on any device, wherever a frame is
+        padded."""
         return self._encode(feats, lengths, True)
 
     def forward_padded(self, feats, lengths):
-        """`forward` with every operation on the padded (N, T') rows."""
+        """`forward` on every (n, t) row of the padded batch, on any
+        device."""
         return self._encode(feats, lengths, False)
 
     def _encode(self, feats, lengths, packable: bool):
@@ -486,20 +478,18 @@ class ConformerEncoder(nn.Module):
             x = feats * _length_mask(lengths, feats.shape[1])[..., None]
             if sub is not None:
                 with span("encoder.subsample"):
-                    x = sub.convolve(x, lengths)
+                    x = sub(x, lengths)
             n, t_max = x.shape[:2]
-            pack = None
-            if packable:
-                with span("encoder.pack"):
-                    total = valid()
-                    if total < n * t_max:
-                        pack = Packing(out_len, total, t_max)
+            with span("encoder.pack"):  # the one choice of rows
+                total = valid() if packable else n * t_max
+                rows = (Packing(out_len, total, t_max) if total < n * t_max
+                        else EveryRow(out_len, t_max))
             self.packing["forwards"] += 1
-            self.packing["packed"] += pack is not None
-            self.packing["rows"] += n * t_max if pack is None else total
+            self.packing["packed"] += total < n * t_max
+            self.packing["rows"] += total
             self.packing["padded_rows"] += n * t_max
             project = self.input_proj if sub is None else sub.dense
-            x = project(x if pack is None else pack.gather(x))
+            x = project(rows.gather(x))
             if self.xscale is not None:
                 x = x * self.xscale
             pos = None
@@ -510,15 +500,8 @@ class ConformerEncoder(nn.Module):
             else:
                 pe = torch.from_numpy(sinusoidal_positions(t_max,
                                                            self.d_model))
-                pe = pe.to(x.device)
-                x = x + (pe if pack is None else pe[pack.t])
+                x = x + pe.to(x.device)[rows.t]
             with span("encoder.blocks"):
-                if pack is None:
-                    mask = _length_mask(out_len, t_max)
-                    for block in self.blocks:
-                        x = block(x, mask, pos)
-                else:
-                    for block in self.blocks:
-                        x = block.forward_packed(x, pack, pos)
-            x = self.out(x)
-            return (x if pack is None else pack.scatter(x)), out_len
+                for block in self.blocks:
+                    x = block(x, rows, pos)
+            return rows.scatter(self.out(x)), out_len

@@ -37,8 +37,8 @@ from torch import nn
 
 from ..utils.convert import ocr_state_dict_from_flax
 from ..utils.device import resolve_device
-from .conformer import (ConformerBlock, _length_mask, init_like_flax,
-                        sinusoidal_positions)
+from .conformer import (ConformerBlock, EveryRow, _length_mask,
+                        init_like_flax, sinusoidal_positions)
 
 
 def _mask_width(x, widths):
@@ -104,10 +104,9 @@ class OCRRecognizer(nn.Module):
         x = _mask_width(images[:, None], widths)
         x = self.features(x, widths)
         out_w = CRNNFeatures.out_width(widths)
-        t_max = x.shape[1]
-        pe = torch.from_numpy(sinusoidal_positions(t_max, self.d_model))
-        x = x + pe.to(x.device)
-        mask = _length_mask(out_w, t_max)
+        rows = EveryRow(out_w, x.shape[1])
+        pe = torch.from_numpy(sinusoidal_positions(x.shape[1], self.d_model))
+        x = rows.gather(x + pe.to(x.device))
         for block in self.blocks:
-            x = block(x, mask)
-        return self.out(x), out_w
+            x = block(x, rows)
+        return rows.scatter(self.out(x)), out_w

@@ -1,13 +1,14 @@
-"""The encoder's packed path (per-frame operations on the valid rows alone)
-against its padded path, in float64 on the CPU.
+"""The encoder's one forward on its two row layouts: the valid rows alone
+(`Packing`) against every row (`EveryRow`), in float64 on the CPU.
 
-`ConformerEncoder.forward` packs only on CUDA; `forward_packed` runs the
-same code on any device, so the CPU holds it to `forward_padded` here.
-Every parameter, biases and `pw1.bias` included, is drawn non-zero, and
-BatchNorm runs in training mode, where its statistics cover the padded
-rows.  Valid output frames and, after a loss over the valid frames, every
-parameter gradient and BatchNorm's running statistics agree to 1e-10 of
-each tensor's largest magnitude: float64 sums in other orders only.
+`ConformerEncoder.forward` takes the valid rows only on CUDA;
+`forward_packed` chooses them on any device and `forward_padded` every
+row, so the CPU holds the one against the other here.  Every parameter,
+biases and `pw1.bias` included, is drawn non-zero, and BatchNorm runs in
+training mode, where its statistics cover the padded rows.  Valid output
+frames and, after a loss over the valid frames, every parameter gradient
+and BatchNorm's running statistics agree to 1e-10 of each tensor's
+largest magnitude: float64 sums in other orders only.
 """
 
 import copy
@@ -16,7 +17,8 @@ import itertools
 import pytest
 import torch
 
-from end2end_tpu_torch.models.conformer import ConformerEncoder
+from end2end_tpu_torch.models.conformer import (ConformerEncoder, EveryRow,
+                                                Packing)
 
 torch.set_num_threads(1)
 
@@ -109,9 +111,9 @@ def test_packed_matches_padded(self_attention, conv_norm, subsampling):
 
 @pytest.mark.parametrize("case", ["no padding", "cpu forward"])
 def test_padded_path_where_packing_has_nothing_to_skip(case):
-    """A batch with no padded frame takes the padded path, packed or not;
-    and `forward` packs on CUDA alone: on the CPU the counter of packed
-    forwards does not move."""
+    """A batch with no padded frame runs on every row, whichever layout
+    is asked for; and `forward` takes the valid rows on CUDA alone: on the
+    CPU the counter of packed forwards does not move."""
     enc = _encoder("rel_pos", "batch_norm", "dw_striding")
     ref = copy.deepcopy(enc)
     lengths = [T, T, T] if case == "no padding" else LENGTHS
@@ -125,3 +127,45 @@ def test_padded_path_where_packing_has_nothing_to_skip(case):
     padded_rows = got.shape[0] * got.shape[1]
     assert enc.packing == {"forwards": 1, "packed": 0, "rows": padded_rows,
                            "padded_rows": padded_rows}
+
+
+@pytest.mark.parametrize("fill", [None, 0, "tensor"])
+def test_the_layouts_agree_on_the_rows_they_both_hold(fill):
+    """The same (R, C) rows scattered by either layout hold the same values
+    at the valid frames; at the padded ones `fill` in both, or without it
+    zeros where the rows were not computed and the rows' own values where
+    they were.  Gathers, frames and masks agree, and so do the gradients
+    of the rows and of a tensor `fill`."""
+    lengths = torch.tensor(LENGTHS)
+    n, t = len(LENGTHS), max(LENGTHS)
+    total = int(lengths.sum())
+    packed, every = Packing(lengths, total, t), EveryRow(lengths, t)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(n * t, 3, generator=g, dtype=torch.float64)
+    valid = packed.mask.reshape(-1)
+    assert torch.equal(packed.mask, every.mask)
+    assert torch.equal(packed.t, every.t[valid])
+    assert torch.equal(packed.gather(x.view(n, t, 3)),
+                       every.gather(x.view(n, t, 3))[valid])
+    outs, grads = [], []
+    for layout, rows in ((packed, x[valid]), (every, x)):
+        rows = rows.clone().requires_grad_(True)
+        f = (torch.randn(3, generator=torch.Generator().manual_seed(3),
+                         dtype=torch.float64, requires_grad=True)
+             if fill == "tensor" else fill)
+        out = layout.scatter(rows, f)
+        assert out.shape == (n, t, 3)
+        (out * torch.arange(out.numel()).view_as(out)).sum().backward()
+        outs.append(out.detach())
+        grads.append((rows.grad, f.grad if fill == "tensor" else None))
+    mask = packed.mask[..., None]
+    assert torch.equal(outs[0] * mask, outs[1] * mask)
+    assert torch.equal(grads[0][0], grads[1][0][valid])
+    if fill is None:
+        assert not outs[0][~packed.mask].any()
+        assert torch.equal(outs[1], x.view(n, t, 3))
+    else:
+        assert torch.equal(outs[0], outs[1])
+        assert not grads[1][0][~valid].any()
+    if fill == "tensor":
+        assert torch.equal(grads[0][1], grads[1][1])
